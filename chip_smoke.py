@@ -6,17 +6,29 @@
 Phases, each printing one JSON line; any failed check exits non-zero:
 
 1. the card (nvidia-smi name and power limit) and the kernel build
-   (nvcc, sm_90a, from ``houv_tpu_torch/csrc``);
+   (nvcc, sm_90a, from ``houv_tpu_torch/csrc``, one nvcc per source);
 2. the nearest-neighbour kernel against its plain PyTorch version at the
    solver's shared-query layout and on a ragged case;
 3. the FPS kernel against its plain version (exact index equality);
-4. the main path: the port's ``test_main`` on ``cfgs/houv_fast.yaml`` at
-   full width over a 16-pair synthetic split, then on ``cfgs/houv.yaml``
-   over 4 pairs, with each kernel's launch count on that run; then both
-   configs over 100 pairs, their own batch size, for throughput, and
-   houv_fast on a 16-pair split rotated up to 90°, which runs the retries;
-5. a torch.profiler breakdown of one houv_fast angle window (16 pairs);
-6. a ``kernels`` line: each kernel's time at its main-path shape beside its
+4. the kNN kernel against its plain version at VRCNet's shapes and on a
+   ragged case (exact index equality, distances to 1e-6 relative);
+5. the auction EMD kernel against its plain version at (4, 2048): the
+   train and eval settings and a permuted copy (EMD 0);
+6. the registration path: the port's ``test_main`` on
+   ``cfgs/houv_fast.yaml`` at full width over a 16-pair synthetic split,
+   then on ``cfgs/houv.yaml`` over 4 pairs, with each kernel's launch count
+   on that run; then both configs over 100 pairs, their own batch size, for
+   throughput, and houv_fast on a 16-pair split rotated up to 90°, which
+   runs the retries;
+7. VRCNet on the card against the port's CPU path at the parity tests'
+   size (same seeded weights and clouds); then the completion path:
+   ``test_main`` on ``cfgs/vrcnet.yaml`` at full
+   width over a 64-cloud synthetic test split, then ``validate`` with
+   ``eval_emd`` over a 64-cloud val split, each with its launch counts;
+   then both over 1024 and 256 clouds for throughput;
+8. torch.profiler breakdowns of one houv_fast angle window (16 pairs) and
+   of one VRCNet test batch (32 clouds);
+9. a ``kernels`` line: each kernel's time at its main-path shape beside its
    plain version, its bound on the card and a PyTorch library yardstick.
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
@@ -149,6 +161,84 @@ def phase_fps(gen):
             fail(f"fps ({b}, {n}) -> {k}: {mism} indices differ")
 
 
+def check_knn(q, r, k, name):
+    """Kernel vs plain: exact index equality; the recomputed (negated)
+    distances to 1e-6 relative of the plain version's."""
+    from houv_tpu_torch.ops import grouping
+
+    saved = grouping.knn_indices.launches
+    kv, ki = grouping.knn_points(q, r, k)
+    grouping.knn_indices.launches = saved
+    pi = grouping._knn_plain(q, r, k)
+    pv = -((q[:, :, None, :] - grouping.index_points(r, pi)) ** 2).sum(-1)
+    torch.cuda.synchronize()
+    mism = int((ki != pi).sum())
+    err = float((kv - pv).abs().max())
+    rel = float(((kv - pv).abs() / pv.abs().clamp_min(1e-12)).max())
+    emit({"phase": "knn_check", "case": name, "query": list(q.shape),
+          "ref": list(r.shape), "k": k, "index_mismatches": mism,
+          "max_rel_dist_err": rel, "max_abs_dist_err": err,
+          "descending": bool((kv[..., :-1] >= kv[..., 1:]).all()),
+          "tolerance_rel": 1e-6})
+    if mism or rel > 1e-6:
+        fail(f"knn {name}: {mism} indices differ, distances {rel:.3g} rel")
+    return err
+
+
+def phase_knn(gen):
+    """At VRCNet's level-0 shapes (batch 32): the self-kNN at k 20, the pk
+    query 1536 x 3072 at k 10, three_nn 3072 x 1536; and a ragged case."""
+    b, n = 32, 3072
+    pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+    half = pts[:, ::2].contiguous()
+    err = check_knn(pts, pts, 20, "self_B32_N3072_k20")
+    err = max(err, check_knn(half, pts, 10, "pk_B32_M1536_N3072_k10"))
+    err = max(err, check_knn(pts, half, 3, "three_nn_B32_M3072_N1536_k3"))
+    q = torch.randn((2, 3071, 3), generator=gen).cuda()
+    r = torch.randn((2, 1499, 3), generator=gen).cuda()
+    return max(err, check_knn(q, r, 17, "ragged_M3071_N1499_k17"))
+
+
+def phase_emd(gen):
+    """Kernel vs plain at (4, 2048): the train setting, the eval setting and
+    a permuted copy. The assignments must be equal, the mean matched
+    distances within 1e-6 relative, and the kernel's a permutation wherever
+    the plain version's is."""
+    from houv_tpu_torch.ops import emd
+
+    x1 = torch.rand((4, 2048, 3), generator=gen).cuda() - 0.5
+    x2 = torch.rand((4, 2048, 3), generator=gen).cuda() - 0.5
+    perm = x1[:, torch.randperm(2048, generator=gen).cuda()]
+    err = 0.0
+    for name, a, b, eps, iters in (("train", x1, x2, 0.005, 50),
+                                   ("eval", x1, x2, 0.004, 3000),
+                                   ("permuted_copy", x1, perm, 0.004, 3000)):
+        saved = emd.emd_auction_with_stats.launches
+        kd, ka, kr, kb = emd.emd_auction_with_stats(a, b, eps, iters)
+        emd.emd_auction_with_stats.launches = saved
+        pd, pa, pr, pb = emd._auction_plain(a, b, eps, iters)
+        torch.cuda.synchronize()
+        kperm = [len(torch.unique(row)) == row.numel() for row in ka]
+        pperm = [len(torch.unique(row)) == row.numel() for row in pa]
+        rel = float(((kd.mean(-1) - pd.mean(-1)).abs()
+                     / pd.mean(-1).clamp_min(1e-12)).max())
+        err = max(err, float((kd - pd).abs().max()))
+        emit({"phase": "emd_check", "case": name, "shape": list(a.shape),
+              "eps": eps, "iters": iters,
+              "assignment_mismatches": int((ka != pa).sum()),
+              "rounds": kr.tolist(), "plain_rounds": pr.tolist(),
+              "bids": kb.tolist(), "permutation": kperm,
+              "plain_permutation": pperm,
+              "mean_dist": kd.mean(-1).tolist(),
+              "rel_diff_mean_dist": rel, "tolerance_rel": 1e-6})
+        if rel > 1e-6 or any(p and not k for k, p in zip(kperm, pperm)):
+            fail(f"emd {name}: mean distance {rel:.3g} relative, "
+                 f"permutations {kperm} vs plain {pperm}")
+        if name == "permuted_copy" and float(kd.max()) != 0.0:
+            fail(f"emd of a permuted copy is {float(kd.max())}, not 0")
+    return err
+
+
 def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
     """The port's test_main on a temp copy of cfgs/<cfg_name> over a
     synthetic structured split of n_pairs (seed 7), batch = n_pairs;
@@ -230,6 +320,187 @@ def phase_main():
     return fast
 
 
+def _completion_counters():
+    from houv_tpu_torch.ops.chamfer import chamfer_indices
+    from houv_tpu_torch.ops.emd import emd_auction_with_stats
+    from houv_tpu_torch.ops.grouping import knn_indices
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
+
+    return {"knn": knn_indices, "fps": furthest_point_sample,
+            "nn_both": chamfer_indices, "emd": emd_auction_with_stats}
+
+
+def _vrcnet_cfg(tmp, n_clouds):
+    """A temp copy of cfgs/vrcnet.yaml over an n-cloud synthetic split,
+    with eval_emd on."""
+    with open(REPO / "cfgs" / "vrcnet.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(synthetic_size=n_clouds, work_dir=str(tmp), eval_emd=True)
+    path = Path(tmp) / f"vrcnet_{n_clouds}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+def run_completion(tmp, n_test, n_val, counters):
+    """``test_main`` over an n_test-cloud test split, then ``validate``
+    over an n_val-cloud val split, each with the counts set to 0 just
+    before it and read just after."""
+    from houv_tpu_torch.train.cli import build_dataset, test_main
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    for c in counters.values():
+        c.launches = 0
+    res = test_main(["-c", _vrcnet_cfg(tmp, n_test)])
+    test_launches = {k: c.launches for k, c in counters.items()}
+    results = read_results_h5(res["results_h5"])
+    if results.shape != (n_test, 2048, 3) or not np.isfinite(results).all():
+        fail(f"vrcnet results {results.shape} not finite ({n_test}, 2048, 3)")
+    if not os.path.getsize(res["submission"]):
+        fail("vrcnet: empty submission zip")
+    test = {"phase": "completion", "config": "cfgs/vrcnet.yaml",
+            "run": "test_main", "clouds": res["n_clouds"], "batch": 32,
+            "seconds": res["seconds"],
+            "clouds_per_s": res["n_clouds"] / res["seconds"],
+            "result_abs_max": float(np.abs(results).max()),
+            "launches": test_launches}
+    emit(test)
+
+    cfg = load_config(_vrcnet_cfg(tmp, n_val))
+    trainer = CompletionTrainer(cfg)
+    trainer.init_state()
+    val_ds = build_dataset(cfg, "val")
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    metrics = trainer.validate(val_ds)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    val_launches = {k: c.launches for k, c in counters.items()}
+    val = {"phase": "completion", "config": "cfgs/vrcnet.yaml",
+           "run": "validate", "clouds": len(val_ds), "seconds": seconds,
+           "clouds_per_s": len(val_ds) / seconds, "metrics": metrics,
+           "launches": val_launches}
+    emit(val)
+    if not all(np.isfinite(v) for v in metrics.values()) \
+            or set(metrics) != {"cd_p", "cd_t", "emd", "f1"}:
+        fail(f"validate metrics {metrics}")
+    return test, val, trainer, val_ds
+
+
+def phase_completion_reference():
+    """At the parity tests' size (256 points, coarse_raw 128, layers
+    1,1,1,1, knn_list 4,8, pk 8), the card's VRCNet against the port's CPU
+    path, whose plain versions tests/test_torch_vrcnet.py holds against the
+    JAX model: the same seeded weights and clouds. The test outputs are
+    compared as point sets, by the largest distance from a point of either
+    cloud to the other (1e-4): the GEMMs round differently on the two
+    devices, and at a near-tie FPS then takes the same points in another
+    order. cd_p and cd_t to 1e-4 relative; f1 counts points under a
+    threshold, so one point crossing it moves the mean by up to
+    2 / (points x clouds); the emd within 2 eps (the two auctions see
+    clouds 1e-6 apart, in another order)."""
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import Config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    with open(REPO / "cfgs" / "vrcnet.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(num_points=256, num_coarse_raw=128, num_fps=256,
+               num_coarse=256, layers="1, 1, 1, 1", knn_list="4, 8", pk=8,
+               batch_size=8, synthetic_size=16, eval_emd=True)
+    cfg = Config.from_dict(raw)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        trainer = CompletionTrainer(cfg, dev)
+        trainer.init_state()
+        ds = build_dataset(cfg, "val")
+        out = trainer.predict_batch(ds.get_batch(np.arange(8))).cpu()
+        runs[dev] = (out, trainer.validate(ds))
+    (cpu_out, cpu_m), (gpu_out, gpu_m) = runs["cpu"], runs["cuda"]
+    d = torch.cdist(cpu_out.double(), gpu_out.double())
+    err = float(torch.maximum(d.amin(-1).amax(-1), d.amin(-2).amax(-1)).max())
+    moved = int(((cpu_out - gpu_out).norm(dim=-1) > 1e-4).sum())
+    diffs = {m: abs(cpu_m[m] - gpu_m[m]) for m in cpu_m}
+    tol = {"cd_p": 1e-4 * cpu_m["cd_p"], "cd_t": 1e-4 * cpu_m["cd_t"],
+           "f1": 2 / (256 * 16), "emd": 2 * 0.004}
+    emit({"phase": "completion_reference", "clouds": 16, "points": 256,
+          "max_set_dist": err, "positions_holding_another_point": moved,
+          "metrics_cuda": gpu_m, "metrics_cpu": cpu_m,
+          "tolerance": 1e-4, "metric_tolerance": tol})
+    if not err <= 1e-4 or any(diffs[m] > tol[m] for m in tol):
+        fail(f"vrcnet on the card differs from the CPU path: clouds "
+             f"{err:.3g} apart, metrics {diffs}")
+
+
+def phase_completion():
+    """VRCNet at the full width of cfgs/vrcnet.yaml: ``test_main`` over a
+    64-cloud synthetic test split (2 batches of 32), then ``validate`` with
+    eval_emd over a 64-cloud val split, each with its launch counts; then
+    both again over 1024 and 256 clouds for steady-state throughput (the
+    first batch of a run pays the allocator's warm-up)."""
+    counters = _completion_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        test, val, trainer, val_ds = run_completion(tmp, 64, 64, counters)
+        for run, launches in (("test_main", test["launches"]),
+                              ("validate", val["launches"])):
+            if launches["knn"] < 1 or launches["fps"] < 1:
+                fail(f"vrcnet {run} skipped a kernel: {launches}")
+        if val["launches"]["nn_both"] < 1 or val["launches"]["emd"] < 1:
+            fail(f"vrcnet validate skipped a kernel: {val['launches']}")
+        # validate's first batch, on which the kernels line times emd
+        batch = val_ds.get_batch(np.arange(32))
+        emd_inputs = (trainer.predict_batch(batch, step=0),
+                      torch.as_tensor(batch["gt"], device="cuda"))
+        run_completion(tmp, 1024, 256, counters)
+    return {"test": test, "validate": val, "emd_inputs": emd_inputs}
+
+
+def _profile_top(prof, wall_ms):
+    kernels = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0))
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and t > 0:
+            kernels.append((t / 1e3, ev.count, ev.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "device_ops": sum(k[1] for k in kernels),
+            "top": [{"name": k[2][:60], "ms": k[0], "count": k[1],
+                     "share_of_device": k[0] / max(device_ms, 1e-9)}
+                    for k in kernels[:10]]}
+
+
+def phase_profile_vrcnet():
+    """Where one VRCNet test batch's time goes: torch.profiler over one
+    forward of 32 clouds at full width, after one warm-up forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    cfg = load_config(str(REPO / "cfgs" / "vrcnet.yaml"))
+    cfg.synthetic_size = 32
+    trainer = CompletionTrainer(cfg)
+    trainer.init_state()
+    batch = build_dataset(cfg, "test").get_batch(np.arange(32))
+    trainer.predict_batch(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.predict_batch(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "profile", "config": "cfgs/vrcnet.yaml", "clouds": 32,
+          "run": "predict_batch", **_profile_top(prof, wall_ms)})
+
+
 def phase_profile():
     """Where one houv_fast window's time goes: torch.profiler over one
     angle pass of the 16-pair split, device time by kernel name."""
@@ -259,26 +530,15 @@ def phase_profile():
         houv_solve(src, tgt, scfg, params0=params0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0))
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") and t > 0:
-            kernels.append((t / 1e3, ev.count, ev.key))
-    kernels.sort(reverse=True)
-    device_ms = sum(k[0] for k in kernels)
     emit({"phase": "profile", "config": "cfgs/houv_fast.yaml",
-          "pairs": 16, "angle_passes": 1, "wall_ms": wall_ms,
-          "device_ms": device_ms,
-          "device_busy_share": device_ms / wall_ms,
-          "device_ops": sum(k[1] for k in kernels),
-          "top": [{"name": k[2][:60], "ms": k[0], "count": k[1],
-                   "share_of_device": k[0] / max(device_ms, 1e-9)}
-                  for k in kernels[:10]]})
+          "pairs": 16, "angle_passes": 1, **_profile_top(prof, wall_ms)})
 
 
-def phase_kernels(launches, nn_err, gen):
-    from houv_tpu_torch.ops import chamfer, sampling
+def phase_kernels(launches, nn_err, knn_err, emd_err, completion, gen):
+    """``launches``: the houv_fast counts; ``completion``: the VRCNet runs
+    (their counts summed for knn and emd, and the first val batch's fine
+    and gt clouds, on which emd is timed)."""
+    from houv_tpu_torch.ops import chamfer, emd, grouping, sampling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
@@ -332,6 +592,56 @@ def phase_kernels(launches, nn_err, gen):
                 "max_abs_err": float((ki - pi).abs().max()),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None})
+
+    vrc = {k: completion["test"]["launches"][k]
+           + completion["validate"]["launches"][k] for k in ("knn", "emd")}
+    # knn at VRCNet's level-0 self-kNN: 32 clouds of 3072 points, k 20
+    b, n, k = 32, 3072, 20
+    pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+    saved = grouping.knn_indices.launches
+    ms = cuda_ms(lambda: grouping.knn_indices(pts, pts, k), reps=10)
+    grouping.knn_indices.launches = saved
+    plain_ms = cuda_ms(lambda: grouping._knn_plain(pts, pts, k), reps=1)
+    library_ms = cuda_ms(lambda: torch.topk(torch.cdist(pts, pts), k,
+                                            largest=False), reps=3)
+    # per pair: 3 sub, 3 mul, 2 add, 1 compare against the k-th
+    bound_ms, bound_by = bound(12 * b * n * 2 + 8 * b * n * k,
+                               9.0 * b * n * n)
+    out.append({"name": "knn", "route": "cuda",
+                "source": "houv_tpu_torch/csrc/knn.cu",
+                "replaces": "houv_tpu/ops/grouping.py:90",
+                "shape": {"query": [b, n, 3], "ref": [b, n, 3], "k": k},
+                "launches": vrc["knn"], "max_abs_err": knn_err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms})
+    del pts
+    torch.cuda.empty_cache()
+
+    # emd at validate's setting on its first batch: 32 fine clouds against
+    # their gt, 2048 points, eps 0.004, 3000 rounds at most
+    fine, gt = completion["emd_inputs"]
+    eps, iters = 0.004, 3000
+    saved = emd.emd_auction_with_stats.launches
+    _, _, rounds, bids = emd.emd_auction_with_stats(fine, gt, eps, iters)
+    ms = cuda_ms(lambda: emd.emd_auction_with_stats(fine, gt, eps, iters),
+                 reps=3)
+    emd.emd_auction_with_stats.launches = saved
+    plain_ms = cuda_ms(lambda: emd._auction_plain(fine, gt, eps, iters),
+                       reps=1, warmup=0)
+    b, n = fine.shape[:2]
+    # per bid and item: 3 sub, 3 mul, 2 add, 1 sub (price), 2 compares;
+    # the bids are what this run's data needed
+    n_bids = int(bids.sum())
+    bound_ms, bound_by = bound(24 * b * n + 12 * b * n, 11.0 * n_bids * n)
+    out.append({"name": "emd", "route": "cuda",
+                "source": "houv_tpu_torch/csrc/emd.cu",
+                "replaces": "houv_tpu/ops/emd_kernel.py:48",
+                "shape": {"x1": list(fine.shape), "x2": list(gt.shape),
+                          "eps": eps, "iters": iters},
+                "rounds_max": int(rounds.max()), "bids": n_bids,
+                "launches": vrc["emd"], "max_abs_err": emd_err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None})
     return out
 
 
@@ -350,9 +660,15 @@ def main() -> int:
     phase_build()
     nn_err = phase_nn(gen)
     phase_fps(gen)
+    knn_err = phase_knn(gen)
+    emd_err = phase_emd(gen)
     fast = phase_main()
+    phase_completion_reference()
+    completion = phase_completion()
     phase_profile()
-    emit({"kernels": phase_kernels(fast["launches"], nn_err, gen)})
+    phase_profile_vrcnet()
+    emit({"kernels": phase_kernels(fast["launches"], nn_err, knn_err,
+                                   emd_err, completion, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,17 @@
-"""MVP registration data: pose synthesis, synthetic fixtures, h5 loading.
+"""MVP data: pose synthesis, synthetic fixtures, h5 loading, datasets.
 
-Counterpart of the registration half of ``houv_tpu/data/mvp.py``, in plain
-numpy. The synthetic generators are copies of the JAX package's, so the same
-seed gives byte-identical arrays in both packages.
+Counterpart of ``houv_tpu/data/mvp.py`` (registration half, and the
+completion half without voxels), in plain numpy. The synthetic generators
+are copies of the JAX package's, so the same seed gives byte-identical
+arrays in both packages.
 
 MVP_RG h5 keys: src, tgt, rotated_src, rotated_tgt, transforms, pose_src,
 pose_tgt, complete, cat_labels, match_id (group of ragged int arrays),
 match_level, rot_level. Train-time pose synthesis: transform =
 random_pose(max_angle, max_trans/2), pose1 = random_pose(pi, max_trans),
 pose2 = transform @ pose1; src/tgt moved by pose1/pose2.
+MVP_CP h5 keys: incomplete_pcds, complete_pcds, labels; 26 partial scans per
+complete model (gt index = index // 26).
 """
 
 from __future__ import annotations
@@ -285,6 +288,34 @@ def synthesize_registration_pairs(
     }
 
 
+def synthesize_completion_set(
+    n_models: int,
+    views_per_model: int = 26,
+    n_partial: int = 2048,
+    n_complete: int = 2048,
+    seed: int = 2021,
+):
+    """Synthetic MVP_CP-like arrays: incomplete_pcds (M·V, n_partial, 3),
+    complete_pcds (M, n_complete, 3), labels (M·V,)."""
+    rng = np.random.default_rng(seed)
+    complete = np.empty((n_models, n_complete, 3), np.float32)
+    partial = np.empty((n_models * views_per_model, n_partial, 3), np.float32)
+    labels = np.empty(n_models * views_per_model, np.int32)
+    for m in range(n_models):
+        shape = _random_shape(rng, 2 * n_complete)
+        complete[m] = shape[rng.choice(len(shape), n_complete, replace=False)]
+        lab = int(rng.integers(0, 16))
+        for v in range(views_per_model):
+            partial[m * views_per_model + v] = _partial_view(rng, shape,
+                                                             n_partial)
+            labels[m * views_per_model + v] = lab
+    return {
+        "incomplete_pcds": partial,
+        "complete_pcds": complete,
+        "labels": labels,
+    }
+
+
 # ---------------------------------------------------------------------------
 # H5 IO (reference schema)
 # ---------------------------------------------------------------------------
@@ -398,3 +429,66 @@ class MVPRegistrationDataset:
                 rl[indices] if np.ndim(rl) > 0 else np.full(len(src), rl)
             )
         return batch
+
+
+@dataclasses.dataclass
+class MVPCompletionDataset:
+    """MVP_CP (reference completion/dataset.py:12-61): 26 partials per
+    complete model, gt = complete[index // 26], train scale aug uniform in
+    {0.8, ..., 1.2}. ``with_voxels`` (the MVP_CP_EX grid indices of
+    ``vrcnet_knn``) is not ported yet."""
+
+    split: str
+    path: str | None = None
+    data: dict | None = None
+    views_per_model: int = 26
+    scale_aug: bool = True
+    index_range: tuple[int, int] | None = None
+    category: int | None = None
+    with_voxels: bool = False
+
+    def __post_init__(self):
+        if self.with_voxels:
+            raise NotImplementedError(
+                "voxel grid indices (vrcnet_knn) are not ported yet "
+                "(ROADMAP.md Queue 1, item 8)")
+        if self.data is None:
+            if self.path is None:
+                raise ValueError("need path or data")
+            self.data = load_h5(self.path)
+        d = self.data
+        self.partial = d["incomplete_pcds"]
+        self.complete = d.get("complete_pcds", d["incomplete_pcds"])
+        self.labels = d["labels"]
+        # orig_idx maps dataset rows back to full-file rows so that
+        # gt = complete[orig // views] survives slicing and filtering
+        self.orig_idx = np.arange(len(self.partial))
+        if self.index_range is not None:
+            l, r = self.index_range
+            self.partial = self.partial[l:r]
+            self.labels = self.labels[l:r]
+            self.orig_idx = self.orig_idx[l:r]
+        if self.category is not None:
+            m = np.asarray(self.labels) == self.category
+            self.partial = self.partial[m]
+            self.labels = np.asarray(self.labels)[m]
+            self.orig_idx = self.orig_idx[m]
+
+    def __len__(self):
+        return len(self.partial)
+
+    def get_batch(self, indices, rng: np.random.Generator | None = None):
+        indices = np.asarray(indices)
+        partial = self.partial[indices].astype(np.float32)
+        labels = self.labels[indices].astype(np.int32)
+        if self.split == "test":
+            return {"partial": partial, "label": labels}
+        gt_idx = self.orig_idx[indices] // self.views_per_model
+        gt = self.complete[gt_idx].astype(np.float32)
+        if self.split == "train" and self.scale_aug:
+            rng = rng or np.random.default_rng()
+            # uniform over {0.8, 0.9, 1.0, 1.1, 1.2} like randint(8,12)/10
+            alpha = rng.integers(8, 13, len(indices)) / 10.0
+            partial = partial * alpha[:, None, None].astype(np.float32)
+            gt = gt * alpha[:, None, None].astype(np.float32)
+        return {"partial": partial, "gt": gt, "label": labels}

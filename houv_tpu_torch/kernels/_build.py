@@ -2,7 +2,8 @@
 
 The sources have a plain C interface, so ``nvcc`` builds them in seconds into
 ``build/kernels/libhouv_kernels.so`` at the root of the checkout, at first use
-(never at import). A library newer than every source is reused.
+(never at import): one ``nvcc`` per source, all started together, then one
+link. A library newer than every source is reused.
 """
 
 from __future__ import annotations
@@ -30,6 +31,12 @@ _SIGNATURES = {
     # pts, b, n, k, out, stream
     "houv_fps": [_P, _I, _I, _I, _P, _P],
     "houv_fps_max_points": [],
+    # query, ref, b, m, n, k, out, stream
+    "houv_knn": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "houv_knn_max_k": [],
+    # x1, x2, b, n, eps, iters, dist, assign, stats, stream
+    "houv_emd": [_P, _P, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
+    "houv_emd_max_points": [],
 }
 
 
@@ -47,21 +54,48 @@ def sources() -> list[Path]:
     return sorted(_CSRC.glob("*.cu"))
 
 
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> str:
+    """Wait for every process; raise on the first that failed."""
+    logs = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+        logs.append(out)
+    return "".join(logs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` into one shared library; returns its path."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", _ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", str(tmp),
-           *map(str, sources())]
+    tag = f"{os.getpid()}.tmp"
+    flags = ["-gencode", _ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        flags.insert(0, "-Xptxas=-v")
+    objs, procs = [], []
+    for src in sources():
+        obj = _BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *flags, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    tmp = _LIB_PATH.with_suffix(f".{tag}")
+    try:
+        log = _run(procs)
+        link = [_nvcc(), "-gencode", _ARCH, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        log += _run([(link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+        print(log, flush=True)
     os.replace(tmp, _LIB_PATH)
     return _LIB_PATH
 

@@ -1,9 +1,15 @@
-"""Truncated chamfer means (counterpart of the solver half of
-``houv_tpu/metrics/cd.py``)."""
+"""Chamfer metrics (counterpart of ``houv_tpu/metrics/cd.py``): the
+completion metrics ``calc_cd`` and ``fscore``, and the solver's truncated
+means.
+
+The reference calls ``cd(gt, output)``, so d1 is per ground-truth point and
+d2 per output point; that direction is kept so cd_p and cd_t match."""
 
 from __future__ import annotations
 
 import torch
+
+from houv_tpu_torch.ops.chamfer import chamfer
 
 
 def _smallest_k(d: torch.Tensor, k: int) -> torch.Tensor:
@@ -33,3 +39,26 @@ def smallest_k_sqrt_mean_fast(d: torch.Tensor, k: int,
     mask = (d <= hi[..., None]).to(d.dtype).detach()
     count = torch.clamp_min(mask.sum(-1), 1.0)
     return (_safe_sqrt(d) * mask).sum(-1) / count
+
+
+def calc_cd(output: torch.Tensor, gt: torch.Tensor, calc_f1: bool = False):
+    """cd_p = (mean √d1 + mean √d2) / 2, cd_t = mean d1 + mean d2, per cloud;
+    d1 per gt point, d2 per output point. Returns (cd_p, cd_t[, f1])."""
+    d1, d2, _, _ = chamfer(gt, output)
+    cd_p = (_safe_sqrt(d1).mean(-1) + _safe_sqrt(d2).mean(-1)) / 2.0
+    cd_t = d1.mean(-1) + d2.mean(-1)
+    if calc_f1:
+        return cd_p, cd_t, fscore(d1, d2)[0]
+    return cd_p, cd_t
+
+
+def fscore(d1: torch.Tensor, d2: torch.Tensor, threshold: float = 1e-4):
+    """F1, precision and recall from squared distances at ``threshold``
+    (0 where both are 0)."""
+    p1 = (d1 < threshold).to(d1.dtype).mean(-1)
+    p2 = (d2 < threshold).to(d2.dtype).mean(-1)
+    denom = p1 + p2
+    f1 = torch.where(denom > 0,
+                     2.0 * p1 * p2 / torch.clamp_min(denom, 1e-30),
+                     torch.zeros_like(denom))
+    return f1, p1, p2

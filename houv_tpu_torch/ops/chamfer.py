@@ -3,8 +3,9 @@
 Counterpart of ``houv_tpu/ops/chamfer.py``. ``chamfer_indices`` launches the
 hand-written CUDA kernel ``csrc/nn_both.cu`` (replacing the TPU kernel
 ``_nn_both_kernel``) on CUDA tensors and runs its plain PyTorch version,
-``_nn_both_plain``, on CPU tensors. ``pairwise_sqdist`` and
-``chamfer_reference`` are the dense golden model.
+``_nn_both_plain``, on CPU tensors. ``chamfer`` recomputes exact distances
+from those indices. ``pairwise_sqdist`` and ``chamfer_reference`` are the
+dense golden model.
 
 Unlike the TPU kernel, which selects by a key holding 16 index bits (2^-12
 relative on distances), both the CUDA kernel and the plain version select on
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from houv_tpu_torch._device import check_on, resolve_device
+from houv_tpu_torch.ops.gather import gather_rows
 
 # Keeps the plain version's (rows, N, M) temporaries under ~1 GB.
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -107,3 +109,21 @@ def chamfer_indices(a: torch.Tensor, b: torch.Tensor,
 
 
 chamfer_indices.launches = 0
+
+
+def chamfer(a: torch.Tensor, b: torch.Tensor):
+    """Bidirectional squared chamfer on a's device, forward only:
+    (B, N, 3), (B, M, 3) -> d1 (B, N), d2 (B, M), i1 (B, N), i2 (B, M).
+
+    d1[i] = |a_i - b_{i1[i]}|², d2 symmetric: one ``chamfer_indices`` pass
+    (the ``nn_both`` kernel on CUDA tensors), then exact distances from the
+    matched pairs. No gradients: the backward, on a port of the scatter
+    kernel, waits for the training slice (ROADMAP.md Queue 1, item 7a)."""
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"batch sizes differ: {a.shape}, {b.shape}")
+    i1, i2 = chamfer_indices(a, b, device=a.device)
+    a = a.detach().float()
+    b = b.detach().float()
+    diff1 = a - gather_rows(b, i1)
+    diff2 = b - gather_rows(a, i2)
+    return (diff1 * diff1).sum(-1), (diff2 * diff2).sum(-1), i1, i2

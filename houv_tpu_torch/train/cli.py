@@ -1,12 +1,15 @@
-"""Command-line entry of the HOUV test sweep (counterpart of
-``houv_tpu/train/cli.py:test_main``, houv branch, one device).
+"""Command-line entry of the test sweep (counterpart of
+``houv_tpu/train/cli.py:test_main`` on one device): the HOUV registration
+sweep and the VRCNet completion sweep.
 
     python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml [-l L -r R]
         [--data-path FILE] [--device cuda|cpu]
+    python -m houv_tpu_torch.train.cli -c cfgs/vrcnet.yaml [--device cpu]
 
-Solves the test split batch by batch and writes ``results.h5`` (the (N, 4, 4)
-transforms) and ``submission.zip`` under ``<work_dir>/<model_name>/``. When
-the MVP .h5 file is absent, a synthetic split stands in.
+Runs the test split batch by batch and writes ``results.h5`` (the (N, 4, 4)
+transforms, or the (N, num_points, 3) completions) and ``submission.zip``
+under ``<work_dir>/<model_name>/``. When the MVP .h5 file is absent, a
+synthetic split stands in.
 """
 
 from __future__ import annotations
@@ -20,12 +23,16 @@ import torch
 
 from houv_tpu_torch._device import resolve_device
 from houv_tpu_torch.data.mvp import (
+    MVPCompletionDataset,
     MVPRegistrationDataset,
+    synthesize_completion_set,
     synthesize_registration_pairs,
 )
+from houv_tpu_torch.data.pipeline import batch_iterator
 from houv_tpu_torch.solvers.houv import HOUVConfig, houv_solve, init_params
 from houv_tpu_torch.train.config import (Config, load_config,
                                          parse_refresh_schedule)
+from houv_tpu_torch.train.harness import CompletionTrainer
 from houv_tpu_torch.train.submission import write_results_h5, write_submission
 from houv_tpu_torch.utils.logging_utils import setup_logging
 
@@ -38,21 +45,37 @@ def is_registration(cfg: Config) -> bool:
 
 
 def build_dataset(cfg: Config, split: str, index_range=None):
-    """The registration split: the MVP .h5 file when present, else a
-    synthetic split (seed 2021 for train, 7 otherwise)."""
-    if not is_registration(cfg):
+    """The split of the config's task: the MVP .h5 file when present, else
+    a synthetic split (seed 2021 for train, 7 otherwise)."""
+    if cfg.dataset == "modelnet":
         raise NotImplementedError(
-            "completion datasets are not ported yet (ROADMAP.md Queue 1)")
-    if cfg.data_path and os.path.exists(cfg.data_path):
+            "ModelNet datasets are not ported yet (ROADMAP.md Queue 1, "
+            "item 12)")
+    have_file = cfg.data_path and os.path.exists(cfg.data_path)
+    n = cfg.synthetic_size or (64 if split != "train" else 128)
+    seed = 2021 if split == "train" else 7
+    if not is_registration(cfg):
+        with_voxels = cfg.model_name == "vrcnet_knn"
+        if have_file:
+            return MVPCompletionDataset(
+                split, path=cfg.data_path, scale_aug=cfg.scale_aug,
+                index_range=index_range, category=cfg.category,
+                with_voxels=with_voxels)
+        data = synthesize_completion_set(
+            max(n // 8, 2), views_per_model=8, n_partial=cfg.num_points,
+            n_complete=cfg.num_points, seed=seed)
+        return MVPCompletionDataset(
+            split, data=data, views_per_model=8, scale_aug=cfg.scale_aug,
+            index_range=index_range, with_voxels=with_voxels)
+    if have_file:
         return MVPRegistrationDataset(
             split, path=cfg.data_path, max_angle_deg=cfg.max_angle,
             max_trans=cfg.max_trans, index_range=index_range,
             category=cfg.category,
         )
-    n = cfg.synthetic_size or (64 if split != "train" else 128)
     data = synthesize_registration_pairs(
         n, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
-        max_trans=cfg.max_trans, seed=2021 if split == "train" else 7,
+        max_trans=cfg.max_trans, seed=seed,
         shape_mode=cfg.synthetic_shape,
         rot_mix=(cfg.synthetic_shape == "structured"),
     )
@@ -74,45 +97,17 @@ def solver_config(cfg: Config) -> HOUVConfig:
     )
 
 
-def test_main(argv=None) -> dict:
-    """Run the sweep; returns the paths written, the pair count, the number
-    of pairs that entered the retry passes and the solve's wall seconds."""
-    p = argparse.ArgumentParser()
-    p.add_argument("-c", "--config", required=True)
-    p.add_argument("-l", type=int, default=None)
-    p.add_argument("-r", type=int, default=None)
-    p.add_argument("--combine", default=False)
-    p.add_argument("--data-path", default=None,
-                   help="MVP .h5 file; overrides the config's data_path "
-                        "(absent file -> synthetic fallback)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the plain versions of the "
-                        "kernels")
-    args = p.parse_args(argv)
-    device = resolve_device(args.device)
-    cfg = load_config(args.config)
-    if args.data_path:
-        cfg.data_path = args.data_path
-    log = setup_logging(None)
-
-    if args.combine:
-        raise NotImplementedError(
-            "--combine is not ported yet (ROADMAP.md Queue 1, item 7)")
+def _houv_sweep(cfg: Config, ds, device, log):
+    """Solve the registration split batch by batch: (N, 4, 4) transforms
+    and, for the log, the pairs that entered the retry passes."""
     if cfg.model_name != "houv":
         raise NotImplementedError(
-            f"test_main runs model_name 'houv' only, got {cfg.model_name!r} "
-            "(ROADMAP.md Queue 1)")
+            f"the registration sweep runs model_name 'houv' only, got "
+            f"{cfg.model_name!r} (ROADMAP.md Queue 1, items 9 and 12)")
     if cfg.rescore_ckpt:
         raise NotImplementedError(
             "classifier-rescored selection is not ported yet "
             "(ROADMAP.md Queue 1, item 8)")
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError(
-            "multi-device sweeps are not ported yet (ROADMAP.md Queue 1, "
-            "item 13)")
-
-    index_range = (args.l, args.r) if args.l is not None else None
-    ds = build_dataset(cfg, "test", index_range=index_range)
     scfg = solver_config(cfg)
     seed = cfg.manual_seed or 2021
     # Pairs go in batches of batch_size (the restart expansion makes a
@@ -137,8 +132,65 @@ def test_main(argv=None) -> dict:
         n_retry += out["n_retry"]
         log.info("solved pairs [%d, %d)/%d", start, start + len(idx), n)
     seconds = time.perf_counter() - t0
-    results = np.concatenate(chunks, axis=0)
     log.info("solved %d pairs, %d retries, %.2f s", n, n_retry, seconds)
+    return np.concatenate(chunks, axis=0), {
+        "n_pairs": n, "n_retry": n_retry, "seconds": seconds}
+
+
+def _completion_sweep(cfg: Config, ds, device, log):
+    """Complete the test split batch by batch with the config's model
+    (seeded initialisation, no checkpoints yet): (N, num_points, 3)."""
+    trainer = CompletionTrainer(cfg, device)
+    trainer.init_state()
+    outs = []
+    t0 = time.perf_counter()
+    # pad_last keeps one batch shape for the whole sweep
+    for i, batch in enumerate(batch_iterator(ds, cfg.batch_size,
+                                             pad_last=True)):
+        valid = int(batch.pop("valid"))
+        outs.append(trainer.predict_batch(batch, step=i)[:valid].cpu()
+                    .numpy())
+    seconds = time.perf_counter() - t0
+    log.info("completed %d clouds, %.2f s", len(ds), seconds)
+    return np.concatenate(outs, axis=0), {"n_clouds": len(ds),
+                                          "seconds": seconds}
+
+
+def test_main(argv=None) -> dict:
+    """Run the sweep; returns the paths written, the wall seconds of the
+    sweep's batches (set-up excluded) and its counts: ``n_pairs`` and
+    ``n_retry`` (the pairs that entered the retry passes) for registration,
+    ``n_clouds`` for completion."""
+    p = argparse.ArgumentParser()
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("-l", type=int, default=None)
+    p.add_argument("-r", type=int, default=None)
+    p.add_argument("--combine", default=False)
+    p.add_argument("--data-path", default=None,
+                   help="MVP .h5 file; overrides the config's data_path "
+                        "(absent file -> synthetic fallback)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain versions of the "
+                        "kernels")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    if args.data_path:
+        cfg.data_path = args.data_path
+    log = setup_logging(None)
+
+    if args.combine:
+        raise NotImplementedError(
+            "--combine is not ported yet (ROADMAP.md Queue 1, item 7)")
+    if cfg.n_devices and cfg.n_devices > 1:
+        raise NotImplementedError(
+            "multi-device sweeps are not ported yet (ROADMAP.md Queue 1, "
+            "item 13)")
+
+    index_range = (args.l, args.r) if args.l is not None else None
+    sweep = _houv_sweep if is_registration(cfg) else _completion_sweep
+    ds = build_dataset(cfg, "test", index_range=index_range)
+    results, counts = sweep(cfg, ds, device, log)
 
     suffix = f"_{args.l}_{args.r}" if index_range else ""
     out_dir = os.path.join(cfg.work_dir, cfg.model_name)
@@ -147,8 +199,7 @@ def test_main(argv=None) -> dict:
     zip_path = write_submission(
         os.path.join(out_dir, f"submission{suffix}.zip"), h5_path)
     log.info("wrote %s and %s", h5_path, zip_path)
-    return {"results_h5": h5_path, "submission": zip_path, "n_pairs": n,
-            "n_retry": n_retry, "seconds": seconds}
+    return {"results_h5": h5_path, "submission": zip_path, **counts}
 
 
 if __name__ == "__main__":

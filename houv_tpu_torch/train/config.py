@@ -1,7 +1,9 @@
 """Typed configuration read from the repository's ``cfgs/*.yaml``.
 
-Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep
-reads. Keys of other models land in ``extras``, as unknown keys do there.
+Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep and
+the VRCNet completion sweep read. Keys of other models land in ``extras``,
+as unknown keys do there. The reference's comma-separated lists
+("2, 2, 2, 2") are parsed into tuples.
 """
 
 from __future__ import annotations
@@ -12,12 +14,22 @@ from typing import Any
 import yaml
 
 
+def _int_tuple(v) -> tuple:
+    """'2, 2, 2, 2', [2, 2, 2, 2] or 2 -> a tuple of ints."""
+    if isinstance(v, str):
+        v = v.split(",")
+    elif not isinstance(v, (list, tuple)):
+        v = [v]
+    return tuple(int(x) for x in v)
+
+
 @dataclasses.dataclass
 class Config:
     # experiment
     model_name: str = "houv"
     flag: str = "debug"
     work_dir: str = "log/"
+    load_model: str | None = None    # checkpoints: not ported yet
     manual_seed: int | None = None
 
     # data
@@ -33,6 +45,25 @@ class Config:
     # synthetic fixture shapes: 'blobs' | 'structured' (panel/bar objects
     # with MVP-like chamfer statistics, what the quality gates use)
     synthetic_shape: str = "blobs"
+    scale_aug: bool = True           # completion train split only
+    # 'bfloat16' AMP is not ported: None (f32) only
+    compute_dtype: str | None = None
+
+    # completion loss / eval
+    loss: str = "cd"
+    eval_emd: bool = False
+
+    # completion model hyperparameters (VRCNet)
+    layers: tuple = (2, 2, 2, 2)
+    knn_list: tuple = (10, 20)
+    pk: int = 10
+    points_label: bool = False
+    local_folding: bool = False
+    num_coarse: int = 1024
+    num_coarse_raw: int = 1024
+    num_fps: int = 2048
+    distribution_loss: str = "KLD"
+    use_remat: bool = False          # training only; no effect at inference
 
     # HOUV solver (solvers/houv.py HOUVConfig)
     kernel: int = 64
@@ -57,7 +88,8 @@ class Config:
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
         fields = {f.name for f in dataclasses.fields(cls)} - {"extras"}
-        cfg = cls(**{k: v for k, v in d.items() if k in fields})
+        cfg = cls(**{k: _int_tuple(v) if k in ("layers", "knn_list") else v
+                     for k, v in d.items() if k in fields})
         cfg.extras = {k: v for k, v in d.items() if k not in fields}
         return cfg
 

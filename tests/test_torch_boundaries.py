@@ -12,9 +12,14 @@ import torch
 
 import houv_tpu_torch
 from houv_tpu_torch.ops.chamfer import chamfer_indices
+from houv_tpu_torch.ops.emd import emd_auction, emd_auction_with_stats
+from houv_tpu_torch.ops.grouping import knn_indices, knn_points
+from houv_tpu_torch.ops.interpolate import three_nn
 from houv_tpu_torch.ops.sampling import furthest_point_sample
 from houv_tpu_torch.solvers.houv import HOUVConfig, houv_solve
 from houv_tpu_torch.train.cli import test_main as torch_test_main
+from houv_tpu_torch.train.config import Config
+from houv_tpu_torch.train.harness import CompletionTrainer
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PKG = os.path.join(_REPO, "houv_tpu_torch")
@@ -27,7 +32,10 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     names = _modules()
-    assert "houv_tpu_torch.solvers.houv" in names
+    for name in ("houv_tpu_torch.solvers.houv", "houv_tpu_torch.ops.grouping",
+                 "houv_tpu_torch.ops.emd", "houv_tpu_torch.models.vrcnet",
+                 "houv_tpu_torch.train.harness", "houv_tpu_torch.state"):
+        assert name in names
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'houv_tpu'):\n"
@@ -79,9 +87,21 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     cfg.write_text("model_name: houv\n")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_test_main(["-c", str(cfg)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        knn_indices(pts, pts, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        emd_auction_with_stats(pts, pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CompletionTrainer(Config(model_name="vrcnet"))
+    cfg = tmp_path / "vrcnet.yaml"
+    cfg.write_text("model_name: vrcnet\ndataset: mvp_cp\n")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_test_main(["-c", str(cfg)])
     # asking for the CPU with tensors elsewhere is an error, not a move
     with pytest.raises(ValueError):
         chamfer_indices(pts, pts, device="meta")
+    with pytest.raises(ValueError):
+        knn_indices(pts, pts, 4, device="meta")
 
 
 def test_cpu_tensors_never_count_as_kernel_launches():
@@ -96,3 +116,16 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     assert out["transform"].shape == (2, 4, 4)
     assert chamfer_indices.launches == 0
     assert furthest_point_sample.launches == 0
+
+
+def test_cpu_completion_ops_never_count_as_kernel_launches():
+    knn_indices.launches = 0
+    emd_auction_with_stats.launches = 0
+    chamfer_indices.launches = 0
+    pts = torch.randn(2, 40, 3)
+    knn_points(pts, pts, 5)
+    three_nn(pts, pts[:, :10])
+    emd_auction(pts, pts.flip(1), 0.01, 20)
+    assert knn_indices.launches == 0
+    assert emd_auction_with_stats.launches == 0
+    assert chamfer_indices.launches == 0

@@ -60,3 +60,46 @@ def test_fps_kernel_matches_plain_exactly(gen, b, n, k):
     ki = sampling.furthest_point_sample(pts, k)
     assert sampling.furthest_point_sample.launches == before + 1
     torch.testing.assert_close(ki, sampling._fps_plain(pts, k), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,m,n,k", [(2, 300, 257, 17), (1, 1025, 3, 3),
+                                     (3, 129, 700, 64), (32, 384, 384, 20)])
+def test_knn_kernel_matches_plain_exactly(gen, b, m, n, k):
+    from houv_tpu_torch.ops import grouping
+
+    q = torch.randn((b, m, 3), generator=gen).cuda()
+    r = torch.randn((b, n, 3), generator=gen).cuda()
+    before = grouping.knn_indices.launches
+    ki = grouping.knn_indices(q, r, k)
+    assert grouping.knn_indices.launches == before + 1
+    torch.testing.assert_close(ki, grouping._knn_plain(q, r, k),
+                               rtol=0, atol=0)
+
+
+def test_knn_exact_ties_go_to_the_smaller_index(gen):
+    from houv_tpu_torch.ops import grouping
+
+    r = torch.randn((1, 500, 3), generator=gen)
+    r[0, 250:] = r[0, :250]             # every point twice
+    ki = grouping.knn_indices(r.cuda(), r.cuda(), 6)
+    torch.testing.assert_close(ki.cpu(), grouping._knn_plain(r, r, 6),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n,eps,iters", [(3, 300, 0.005, 50),
+                                           (2, 1024, 0.004, 3000),
+                                           (4, 33, 0.01, 0)])
+def test_emd_kernel_matches_plain(gen, b, n, eps, iters):
+    from houv_tpu_torch.ops import emd
+
+    x1 = torch.rand((b, n, 3), generator=gen).cuda()
+    x2 = torch.rand((b, n, 3), generator=gen).cuda()
+    before = emd.emd_auction_with_stats.launches
+    kd, ka, kr, kb = emd.emd_auction_with_stats(x1, x2, eps, iters)
+    assert emd.emd_auction_with_stats.launches == before + 1
+    pd, pa, pr, pb = emd._auction_plain(x1, x2, eps, iters)
+    # the same rounds in the same f32 arithmetic: identical assignments
+    torch.testing.assert_close(ka, pa, rtol=0, atol=0)
+    torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+    torch.testing.assert_close(kr, pr, rtol=0, atol=0)
+    torch.testing.assert_close(kb, pb, rtol=0, atol=0)

@@ -41,3 +41,49 @@ def test_safe_sqrt_and_smallest_k(rng):
     ours = np.sort(tcd._smallest_k(torch.as_tensor(d), 16).numpy(), -1)
     ref = np.sort(np.asarray(jcd._smallest_k(jnp.asarray(d), 16)), -1)
     np.testing.assert_array_equal(ours, ref)
+
+
+def _pair(rng, n=300, m=257):
+    a = rng.uniform(-0.5, 0.5, (3, n, 3)).astype(np.float32)
+    b = (a[:, :m] + 0.01 * rng.standard_normal((3, m, 3))).astype(np.float32)
+    return a, b
+
+
+def test_chamfer_forward_against_jax(rng):
+    """d1, d2 exact from the matched pairs; indices equal (the data are far
+    from near-ties at 1e-6 relative, checked by the distances)."""
+    from houv_tpu.ops.chamfer import chamfer as jchamfer
+    from houv_tpu_torch.ops.chamfer import chamfer as tchamfer
+
+    a, b = _pair(rng)
+    d1, d2, i1, i2 = tchamfer(torch.tensor(a), torch.tensor(b))
+    jd1, jd2, ji1, ji2 = jchamfer(jnp.asarray(a), jnp.asarray(b))
+    np.testing.assert_allclose(d1.numpy(), np.asarray(jd1), rtol=1e-6,
+                               atol=1e-12)
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=1e-6,
+                               atol=1e-12)
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(ji1))
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(ji2))
+    assert not d1.requires_grad
+
+
+@pytest.mark.parametrize("calc_f1", [False, True])
+def test_calc_cd_against_jax(rng, calc_f1):
+    """cd_p, cd_t (and f1) per cloud, the reference's direction: d1 per gt
+    point. 1e-6 relative: the same distances, summed in another order."""
+    a, b = _pair(rng)
+    ours = tcd.calc_cd(torch.tensor(b), torch.tensor(a), calc_f1=calc_f1)
+    ref = jcd.calc_cd(jnp.asarray(b), jnp.asarray(a), calc_f1=calc_f1)
+    assert len(ours) == len(ref) == (3 if calc_f1 else 2)
+    for o, r in zip(ours, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6)
+
+
+def test_fscore_against_jax(rng):
+    d1 = rng.uniform(0, 3e-4, (4, 100)).astype(np.float32)
+    d2 = rng.uniform(0, 3e-4, (4, 80)).astype(np.float32)
+    d1[3] = d2[3] = 1.0            # cloud 3: p1 = p2 = 0, so f1 is 0
+    for o, r in zip(tcd.fscore(torch.tensor(d1), torch.tensor(d2)),
+                    jcd.fscore(jnp.asarray(d1), jnp.asarray(d2))):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=1e-6)
+    assert float(tcd.fscore(torch.tensor(d1), torch.tensor(d2))[0][3]) == 0
