@@ -8,12 +8,20 @@ Phases, each printing one JSON line; any failed check exits non-zero:
 1. the card (nvidia-smi name and power limit) and the kernel build
    (nvcc, sm_90a, from ``houv_tpu_torch/csrc``, one nvcc per source);
 2. the nearest-neighbour kernel against its plain PyTorch version at the
-   solver's shared-query layout and on a ragged case;
-3. the FPS kernel against its plain version (exact index equality);
+   solver's shared-query layout, at the train step's shapes (64 rows of
+   2048 gt points against 1024, 3072 and 2048) and on a ragged case;
+3. the FPS kernel against its plain version (exact index equality) at the
+   solver's and the train step's shapes (the gt's full permutation 2048 ->
+   2048, 3072 -> 2048 and the decoder's pyramid 3072 -> 1536 -> 768 -> 384);
 4. the kNN kernel against its plain version at VRCNet's shapes and on a
    ragged case (exact index equality, distances to 1e-6 relative);
 5. the auction EMD kernel against its plain version at (4, 2048): the
-   train and eval settings and a permuted copy (EMD 0);
+   train and eval settings and a permuted copy (EMD 0); the scatter-add
+   kernel against its plain version (bit for bit) at the train step's and
+   the solver's shapes, ragged, all-equal and out-of-range cases, and
+   against the dense one-hot product; the chamfer gradient against
+   autograd through the gathered form with the same matches, which must be
+   the dense golden's;
 6. the registration path: the port's ``test_main`` on
    ``cfgs/houv_fast.yaml`` at full width over a 16-pair synthetic split,
    then on ``cfgs/houv.yaml`` over 4 pairs, with each kernel's launch count
@@ -26,9 +34,20 @@ Phases, each printing one JSON line; any failed check exits non-zero:
    width over a 64-cloud synthetic test split, then ``validate`` with
    ``eval_emd`` over a 64-cloud val split, each with its launch counts;
    then both over 1024 and 256 clouds for throughput;
-8. torch.profiler breakdowns of one houv_fast angle window (16 pairs) and
-   of one VRCNet test batch (32 clouds);
-9. a ``kernels`` line: each kernel's time at its main-path shape beside its
+8. VRCNet training: one train step at the parity tests' size on the card
+   against the port's CPU path in f64 on the same picks; then ``train_main`` on ``cfgs/vrcnet.yaml``
+   at full width (batch 32, two epochs of four steps on the synthetic
+   split, ``validate`` and a checkpoint after each), with the launch counts
+   of the run held against the counts derived from the code, peak memory
+   with and without ``use_remat``, ``test_main`` with ``load_model`` on the
+   checkpoint, 20 steps on one repeated batch (the loss must fall), and
+   four steps with ``loss: emd`` (four auctions a step, the coarse stages'
+   between clouds of different sizes);
+   then a short ``houv_solve`` with ``grad_mode='scatter'`` beside the
+   gather mode;
+9. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
+   one VRCNet test batch (32 clouds) and of one VRCNet train step;
+10. a ``kernels`` line: each kernel's time at its main-path shape beside its
    plain version, its bound on the card and a PyTorch library yardstick.
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
@@ -142,6 +161,13 @@ def phase_nn(gen):
     b = (a.repeat_interleave(64, 0)
          + 0.05 * torch.randn((128, 2048, 3), generator=gen).to(dev))
     err = check_nn(a, b, "shared_B2_K64_N2048_M2048")
+    # the train step's four calc_cd terms: 64 rows of 2048 gt points against
+    # coarse_raw (1024), coarse_high (3072) and coarse and fine (2048)
+    gt = torch.rand((64, 2048, 3), generator=gen).to(dev) - 0.5
+    for m in (1024, 3072, 2048):
+        out = torch.rand((64, m, 3), generator=gen).to(dev) - 0.5
+        err = max(err, check_nn(gt, out, f"train_B64_N2048_M{m}"))
+    del gt, out
     a = torch.randn((1, 2047, 3), generator=gen).to(dev)
     b = torch.randn((1, 1500, 3), generator=gen).to(dev)
     return max(err, check_nn(a, b, "ragged_N2047_M1500"))
@@ -150,7 +176,11 @@ def phase_nn(gen):
 def phase_fps(gen):
     from houv_tpu_torch.ops import sampling
 
-    for b, n, k in ((8, 2048, 512), (8, 2048, 1024), (8, 4096, 2048)):
+    # the solver's phases; then the train step's: the gt's full permutation
+    # (K == N), coarse_high 3072 -> 2048 and the decoder's pyramid
+    for b, n, k in ((8, 2048, 512), (8, 2048, 1024), (8, 4096, 2048),
+                    (8, 2048, 2048), (8, 3072, 2048), (8, 3072, 1536),
+                    (8, 1536, 768), (8, 768, 384)):
         pts = torch.randn((b, n, 3), generator=gen).cuda()
         ki = sampling.furthest_point_sample(pts, k)
         pi = sampling._fps_plain(pts, k)
@@ -201,7 +231,8 @@ def phase_knn(gen):
 
 def phase_emd(gen):
     """Kernel vs plain at (4, 2048): the train setting, the eval setting and
-    a permuted copy. The assignments must be equal, the mean matched
+    a permuted copy; and at the coarse stages of EMD training, 1024 and 3072
+    bidders for 2048 items. The assignments must be equal, the mean matched
     distances within 1e-6 relative, and the kernel's a permutation wherever
     the plain version's is."""
     from houv_tpu_torch.ops import emd
@@ -209,10 +240,15 @@ def phase_emd(gen):
     x1 = torch.rand((4, 2048, 3), generator=gen).cuda() - 0.5
     x2 = torch.rand((4, 2048, 3), generator=gen).cuda() - 0.5
     perm = x1[:, torch.randperm(2048, generator=gen).cuda()]
+    few = torch.rand((4, 1024, 3), generator=gen).cuda() - 0.5
+    many = torch.rand((4, 3072, 3), generator=gen).cuda() - 0.5
     err = 0.0
     for name, a, b, eps, iters in (("train", x1, x2, 0.005, 50),
                                    ("eval", x1, x2, 0.004, 3000),
-                                   ("permuted_copy", x1, perm, 0.004, 3000)):
+                                   ("permuted_copy", x1, perm, 0.004, 3000),
+                                   ("train_1024_bidders", few, x2, 0.005, 50),
+                                   ("train_3072_bidders", many, x2, 0.005,
+                                    50)):
         saved = emd.emd_auction_with_stats.launches
         kd, ka, kr, kb = emd.emd_auction_with_stats(a, b, eps, iters)
         emd.emd_auction_with_stats.launches = saved
@@ -224,7 +260,7 @@ def phase_emd(gen):
                      / pd.mean(-1).clamp_min(1e-12)).max())
         err = max(err, float((kd - pd).abs().max()))
         emit({"phase": "emd_check", "case": name, "shape": list(a.shape),
-              "eps": eps, "iters": iters,
+              "items": b.shape[1], "eps": eps, "iters": iters,
               "assignment_mismatches": int((ka != pa).sum()),
               "rounds": kr.tolist(), "plain_rounds": pr.tolist(),
               "bids": kb.tolist(), "permutation": kperm,
@@ -237,6 +273,124 @@ def phase_emd(gen):
         if name == "permuted_copy" and float(kd.max()) != 0.0:
             fail(f"emd of a permuted copy is {float(kd.max())}, not 0")
     return err
+
+
+def check_scatter(idx, vals, m, name):
+    """Kernel vs plain: every element bit for bit (both add in ascending
+    i); returns the largest absolute difference (0 when equal)."""
+    from houv_tpu_torch.ops import scatter
+
+    saved = scatter.scatter_add.launches
+    out = scatter.scatter_add(idx, vals, m)
+    again = scatter.scatter_add(idx, vals, m)
+    scatter.scatter_add.launches = saved
+    plain = scatter._scatter_add_plain(idx, vals, m)
+    torch.cuda.synchronize()
+    mism = int((out != plain).sum())
+    err = float((out - plain).abs().max()) if out.numel() else 0.0
+    emit({"phase": "scatter_check", "case": name, "idx": list(idx.shape),
+          "rows": m, "channels": vals.shape[-1],
+          "dropped": int(((idx < 0) | (idx >= m)).sum()),
+          "fullest_row": int(torch.bincount(torch.cat([
+              (idx + m * torch.arange(idx.shape[0], device=idx.device)
+               [:, None])[(idx >= 0) & (idx < m)],
+              idx.new_zeros(1)])).max()),
+          "mismatches": mism, "max_abs_err": err,
+          "run_to_run_mismatches": int((out != again).sum())})
+    if mism or not torch.equal(out, again):
+        fail(f"scatter_add {name}: {mism} elements differ from the plain "
+             f"version (max {err:.3g})")
+    return err
+
+
+def phase_scatter(gen):
+    """At the train step's shapes ((64, 2048) -> 1024, 3072, 2048 rows) and
+    the solver's scatter mode ((1024, 2048) -> 2048), a ragged case, eight
+    channels, every index equal, indices out of range; and against the
+    dense one-hot product at a small size (another order of summation:
+    1e-5)."""
+    def case(b, n, m, c, lo=0, hi=None):
+        idx = torch.randint(lo, m if hi is None else hi, (b, n),
+                            generator=gen).cuda()
+        return idx, torch.randn((b, n, c), generator=gen).cuda()
+
+    err = 0.0
+    for m in (1024, 3072, 2048):
+        err = max(err, check_scatter(*case(64, 2048, m, 3), m,
+                                     f"train_B64_N2048_M{m}"))
+    err = max(err, check_scatter(*case(1024, 2048, 2048, 3), 2048,
+                                 "solver_B1024_N2048_M2048"))
+    err = max(err, check_scatter(*case(3, 1999, 777, 3), 777,
+                                 "ragged_N1999_M777"))
+    err = max(err, check_scatter(*case(5, 300, 130, 8), 130, "channels_8"))
+    idx, vals = case(2, 2048, 16, 3)
+    err = max(err, check_scatter(torch.full_like(idx, 5), vals, 16,
+                                 "all_indices_equal"))
+    err = max(err, check_scatter(*case(4, 2048, 500, 3, lo=-100, hi=600),
+                                 500, "negative_and_past_the_end"))
+    from houv_tpu_torch.ops import scatter
+
+    idx, vals = case(4, 256, 128, 3)
+    saved = scatter.scatter_add.launches
+    out = scatter.scatter_add(idx, vals, 128)
+    scatter.scatter_add.launches = saved
+    onehot = (idx[..., None] == torch.arange(128, device="cuda")).float()
+    dense = torch.einsum("bnm,bnc->bmc", onehot, vals)
+    d = float((out - dense).abs().max())
+    emit({"phase": "scatter_check", "case": "dense_one_hot_B4_N256_M128",
+          "max_abs_err": d, "tolerance": 1e-5})
+    if not d <= 1e-5:
+        fail(f"scatter_add differs from the one-hot product by {d:.3g}")
+    return err
+
+
+def phase_chamfer_grad(gen):
+    """The chamfer Function's gradients for both inputs against autograd
+    through the gathered form with the kernel's own matches, at (8, 2048) x
+    (8, 3072). autograd's gather backward adds with atomics, in another
+    order: 1e-5 of the largest entry. The matches themselves must be those
+    of the dense golden ``chamfer_reference``, or as near (1e-6 relative,
+    in f64)."""
+    from houv_tpu_torch.ops import chamfer, scatter
+    from houv_tpu_torch.ops.gather import gather_rows
+
+    a = (torch.rand((8, 2048, 3), generator=gen) - 0.5).cuda()
+    b = (torch.rand((8, 3072, 3), generator=gen) - 0.5).cuda()
+    w1 = torch.randn((8, 2048), generator=gen).cuda()
+    w2 = torch.randn((8, 3072), generator=gen).cuda()
+    saved = (scatter.scatter_add.launches, chamfer.chamfer_indices.launches)
+    ka, kb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    d1, d2, i1, i2 = chamfer.chamfer(ka, kb)
+    ((d1 * w1).sum() + (d2 * w2).sum()).backward()
+    used = scatter.scatter_add.launches - saved[0]
+    scatter.scatter_add.launches, chamfer.chamfer_indices.launches = saved
+    ra, rb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    r1 = ((ra - gather_rows(rb, i1)) ** 2).sum(-1)
+    r2 = ((rb - gather_rows(ra, i2)) ** 2).sum(-1)
+    ((r1 * w1).sum() + (r2 * w2).sum()).backward()
+    _, _, g1, g2 = chamfer.chamfer_reference(a, b)
+    torch.cuda.synchronize()
+    rel = max(float((ka.grad - ra.grad).abs().max() / ra.grad.abs().max()),
+              float((kb.grad - rb.grad).abs().max() / rb.grad.abs().max()))
+    # a match may differ from the golden's only at a tie: the golden takes
+    # its distances in the expansion form, which rounds otherwise
+    kd1, kd2 = _nn_dists(a, b, i1, i2)
+    gd1, gd2 = _nn_dists(a, b, g1, g2)
+    differing = int((i1 != g1).sum() + (i2 != g2).sum())
+    off_golden = int((kd1 > gd1 * (1 + 1e-6)).sum()
+                     + (kd2 > gd2 * (1 + 1e-6)).sum())
+    emit({"phase": "chamfer_grad_check", "a": list(a.shape),
+          "b": list(b.shape), "scatter_launches": used,
+          "max_err_over_max_grad": rel, "tolerance": 1e-5,
+          "value_err": float(max((d1 - r1).detach().abs().max(),
+                                 (d2 - r2).detach().abs().max())),
+          "matches_differing_from_dense_golden": differing,
+          "matches_farther_than_the_golden's": off_golden,
+          "match_tolerance_rel": 1e-6})
+    if not rel <= 1e-5 or used != 2 or off_golden:
+        fail(f"chamfer gradient differs by {rel:.3g} of its largest entry "
+             f"({used} scatter launches, {off_golden} matches farther than "
+             "the dense golden's)")
 
 
 def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
@@ -325,9 +479,11 @@ def _completion_counters():
     from houv_tpu_torch.ops.emd import emd_auction_with_stats
     from houv_tpu_torch.ops.grouping import knn_indices
     from houv_tpu_torch.ops.sampling import furthest_point_sample
+    from houv_tpu_torch.ops.scatter import scatter_add
 
     return {"knn": knn_indices, "fps": furthest_point_sample,
-            "nn_both": chamfer_indices, "emd": emd_auction_with_stats}
+            "nn_both": chamfer_indices, "emd": emd_auction_with_stats,
+            "scatter_add": scatter_add}
 
 
 def _vrcnet_cfg(tmp, n_clouds):
@@ -458,6 +614,417 @@ def phase_completion():
     return {"test": test, "validate": val, "emd_inputs": emd_inputs}
 
 
+def _small_train_cfg(**extra):
+    from houv_tpu_torch.train.config import Config
+
+    with open(REPO / "cfgs" / "vrcnet.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(num_points=256, num_coarse_raw=128, num_fps=256,
+               num_coarse=256, layers="1, 1, 1, 1", knn_list="4, 8", pk=8,
+               batch_size=8, synthetic_size=16, **extra)
+    return Config.from_dict(raw)
+
+
+def _share_picks(own, ref):
+    """``own`` geometry with its index tensors replaced by ``ref``'s."""
+    if isinstance(own, torch.Tensor):
+        return own if own.is_floating_point() else ref.to(own.device)
+    if isinstance(own, dict):
+        return {k: _share_picks(v, ref[k]) for k, v in own.items()}
+    return type(own)(_share_picks(o, r) for o, r in zip(own, ref))
+
+
+def _index_tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [] if tree.is_floating_point() else [tree]
+    return [t for v in (tree.values() if isinstance(tree, dict) else tree)
+            for t in _index_tensors(v)]
+
+
+def _flips(own, ref):
+    return sum(int((o.cpu() != r.cpu()).sum())
+               for o, r in zip(_index_tensors(own), _index_tensors(ref)))
+
+
+class _Picks:
+    """Stands in for a function that returns index tensors (``fps``,
+    ``chamfer_indices``) wherever the port's modules hold it. It calls the
+    function every time; without ``replay`` it keeps the results in call
+    order, with ``replay`` it counts the entries that differ from the
+    kept ones and returns those instead."""
+
+    def __init__(self, fn, replay=None):
+        self.fn, self.replay = fn, replay
+        self.kept, self.flips, self.launches = [], 0, 0
+        self.holders = [m for name, m in list(sys.modules.items())
+                        if name.startswith("houv_tpu_torch")
+                        and getattr(m, fn.__name__, None) is fn]
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        if self.replay is None:
+            self.kept.append(out)
+            return out
+        ref = self.replay[len(self.kept)]
+        self.kept.append(out)
+        self.flips += _flips(out, ref)
+        return _share_picks(out, ref)
+
+    def __enter__(self):
+        for m in self.holders:
+            setattr(m, self.fn.__name__, self)
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.holders:
+            setattr(m, self.fn.__name__, self.fn)
+
+
+def _small_train_step(cfg, batch, noise, dev, dtype, picks=None):
+    """One forward and backward of the seeded small model on ``dev`` in
+    ``dtype``: total_loss, the gradients by name (f64, on the CPU) and the
+    picks it made: the FPS picks, the chamfer matches and the U-Net's
+    geometry. With ``picks`` (another run's), every one of them is still
+    computed here, by the kernels on the card, and counted where it
+    differs, and the run goes on with the given ones."""
+    from houv_tpu_torch.ops.chamfer import chamfer_indices
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    model = CompletionTrainer(cfg, dev).init_state()
+    masks = model.decoder.encoder.dropout_masks(
+        16, torch.Generator().manual_seed(12))
+    model = model.to(dtype)
+    given = picks or {"fps": None, "matches": None, "geometry": None}
+    seen = {}
+
+    def hook(_, args):
+        seen["geometry"] = args[1]
+        if picks is None:
+            return None
+        seen["flips"] = _flips(args[1], given["geometry"])
+        return (args[0], _share_picks(args[1], given["geometry"]), *args[2:])
+
+    handle = model.decoder.encoder.register_forward_pre_hook(hook)
+    with _Picks(furthest_point_sample, given["fps"]) as fps, \
+            _Picks(chamfer_indices, given["matches"]) as matches:
+        out = model(torch.as_tensor(batch["partial"], device=dev).to(dtype),
+                    torch.as_tensor(batch["gt"], device=dev).to(dtype),
+                    "train", alpha=0.5, noise=[n.to(dtype) for n in noise],
+                    dropout_masks=[m.to(dtype) for m in masks])
+    handle.remove()
+    out["total_loss"].backward()
+    return (out["total_loss"].item(),
+            {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+            {"fps": fps.kept, "matches": matches.kept,
+             "geometry": seen["geometry"]},
+            {"fps": fps.flips, "matches": matches.flips,
+             "geometry": seen.get("flips", 0)})
+
+
+def phase_train_reference():
+    """One train step at the parity tests' size (256 points, layers
+    1,1,1,1, batch 8) on the card against the port's CPU path in f64: the
+    same seeded weights, batch, latent noise and dropout masks. The f32 run
+    computes its own FPS picks, chamfer matches and kNN graphs (on the card
+    with the kernels), counts where these differ from the f64 run's, and
+    goes on with the f64 run's: a near-tie that flips between precisions
+    selects another point, which is another function. On equal picks what
+    is left is rounding: total_loss to 1e-4 relative, every parameter's
+    gradient to 1e-3 of that tensor's largest f64 entry. Printed beside
+    it, not held: a second run on the card (autograd's gather backward adds
+    with atomics), and the CPU path in f32, whose distance from f64 on the
+    small gradients deep in the U-Net (sums of cancelling terms) changes by
+    orders of magnitude with the order its threads add in."""
+    from houv_tpu_torch.train.cli import build_dataset
+
+    cfg = _small_train_cfg()
+    batch = build_dataset(cfg, "train").get_batch(
+        np.arange(8), rng=np.random.default_rng(0))
+    g = torch.Generator().manual_seed(11)
+    noise = [torch.randn((8, 128), generator=g) for _ in range(2)]
+    ref_loss, ref_g, picks, _ = _small_train_step(cfg, batch, noise, "cpu",
+                                                  torch.float64)
+    runs = {"cuda": _small_train_step(cfg, batch, noise, "cuda",
+                                      torch.float32, picks),
+            "cuda_again": _small_train_step(cfg, batch, noise, "cuda",
+                                            torch.float32, picks),
+            "cpu_f32": _small_train_step(cfg, batch, noise, "cpu",
+                                         torch.float32, picks)}
+    rec = {"phase": "train_reference", "clouds": 8, "points": 256,
+           "total_loss_cpu_f64": ref_loss, "loss_tolerance_rel": 1e-4,
+           "grad_tolerance_over_tensor_max": 1e-3, "held": ["cuda"],
+           "cpu_threads": torch.get_num_threads(),
+           "largest_grad_entry": max(float(r.abs().max())
+                                     for r in ref_g.values()),
+           "smallest_tensor_max": min(float(r.abs().max())
+                                      for r in ref_g.values()),
+           "parameters": len(ref_g)}
+    for dev, (loss, grads, _, flips) in runs.items():
+        rows = sorted(((float((grads[n] - r).abs().max() / r.abs().max()), n,
+                        float(r.abs().max())) for n, r in ref_g.items()),
+                      reverse=True)
+        rec[dev] = {"total_loss": loss,
+                    "loss_rel_diff": abs(loss - ref_loss) / abs(ref_loss),
+                    "picks_differing_from_f64": flips,
+                    "worst_grads": [{"name": n, "err_over_tensor_max": e,
+                                     "tensor_max": m}
+                                    for e, n, m in rows[:4]]}
+    rec["cuda_run_to_run_over_tensor_max"] = max(
+        float((runs["cuda"][1][n] - runs["cuda_again"][1][n]).abs().max()
+              / r.abs().max()) for n, r in ref_g.items())
+    emit(rec)
+    worst = rec["cuda"]["worst_grads"][0]
+    if not (rec["cuda"]["loss_rel_diff"] <= 1e-4
+            and worst["err_over_tensor_max"] <= 1e-3):
+        fail(f"train step on the card differs from the f64 CPU path: loss "
+             f"{rec['cuda']['loss_rel_diff']:.3g} relative, gradient of "
+             f"{worst['name']} {worst['err_over_tensor_max']:.3g} of its "
+             "largest entry")
+
+
+def _full_train_cfg(tmp, **extra):
+    with open(REPO / "cfgs" / "vrcnet.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(work_dir=str(tmp), **extra)
+    path = Path(tmp) / ("vrcnet_train_" + "_".join(
+        f"{k}{v}" for k, v in sorted(extra.items()) if k != "load_model")
+        + ("_loaded" if "load_model" in extra else "") + ".yaml")
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+def _repeated_batch(tmp, n_steps, use_remat, **extra):
+    """``n_steps`` train steps on one repeated batch of 32 clouds at full
+    width from the seeded initialisation: losses, steps/s, peak memory
+    (after a first step outside the clock) and the kernels' launches.
+    ``extra`` overrides keys of the config."""
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    cfg = load_config(_full_train_cfg(tmp, use_remat=use_remat, **extra))
+    trainer = CompletionTrainer(cfg)
+    trainer.init_state()
+    batch = build_dataset(cfg, "train").get_batch(
+        np.arange(32), rng=np.random.default_rng(0))
+    counters = _completion_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(trainer.train_step(batch, 0, 0))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(1, n_steps):
+        losses.append(float(trainer.train_step(batch, 0, step)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec = {"phase": "train_repeated_batch", "config": "cfgs/vrcnet.yaml",
+           "batch": 32, "use_remat": use_remat, "loss": cfg.loss,
+           "steps": n_steps, "losses": losses,
+           "launches": {k: c.launches for k, c in counters.items()},
+           "steps_per_s": (n_steps - 1) / seconds,
+           "clouds_per_s": 32 * (n_steps - 1) / seconds,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(rec)
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train():
+    """``train_main`` on cfgs/vrcnet.yaml at full width on the synthetic
+    split (128 train clouds: 4 steps an epoch at batch 32; 64 val clouds: 2
+    val batches an epoch), two epochs, without ``use_remat``; then
+    ``test_main`` with ``load_model`` on the checkpoint, and the
+    repeated-batch runs."""
+    from houv_tpu_torch.train.cli import build_dataset, test_main, train_main
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    counters = _completion_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        out = train_main(["-c", _full_train_cfg(tmp, nepoch=2)])
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        trainer = out["trainer"]
+        steps, val_batches = len(out["losses"]), 2 * 2
+        # per train step: 4 calc_cd (one nn_both forward and, gt needing no
+        # gradient, one scatter backward each); fps of the gt, the decoder's
+        # 3-level pyramid and coarse_high 3072 -> 2048; 14 knn (8 graphs, 3
+        # pooling, 3 three-NN). per val batch: 1 nn_both, 4 fps, 14 knn.
+        expected = {"scatter_add": 4 * steps,
+                    "nn_both": 4 * steps + val_batches,
+                    "fps": 5 * steps + 4 * val_batches,
+                    "knn": 14 * steps + 14 * val_batches, "emd": 0}
+        model = trainer.model
+        fresh = CompletionTrainer(trainer.cfg)
+        fresh.init_state()
+        moved = sum(int(not torch.equal(p, q)) for p, q in zip(
+            model.parameters(), fresh.model.parameters()))
+        n_params = sum(1 for _ in model.parameters())
+        finite_grads = sum(int(p.grad is not None
+                               and bool(torch.isfinite(p.grad).all()))
+                           for p in model.parameters())
+        del fresh
+
+        # the checkpoint reloads to bit-equal predictions, in a trainer and
+        # through test_main with load_model
+        cfg_loaded = _full_train_cfg(tmp, synthetic_size=64,
+                                     load_model=out["checkpoint"])
+        reloaded = CompletionTrainer(load_config(cfg_loaded))
+        reloaded.init_state()
+        test_ds = build_dataset(load_config(cfg_loaded), "test")
+        first = test_ds.get_batch(np.arange(32))
+        pred = trainer.predict_batch(first, step=0)
+        same_trainer = torch.equal(reloaded.predict_batch(first, step=0),
+                                   pred)
+        res = test_main(["-c", cfg_loaded])
+        results = read_results_h5(res["results_h5"])
+        same_sweep = np.array_equal(results[:32], pred.cpu().numpy())
+        del reloaded
+        rec = {"phase": "train", "config": "cfgs/vrcnet.yaml",
+               "run": "train_main", "batch": 32, "use_remat": False,
+               "epochs": 2, "steps": steps, "losses": out["losses"],
+               "seconds": out["seconds"],
+               "steps_per_s_with_validate_and_save": steps / out["seconds"],
+               "peak_memory_gib": peak, "best": trainer.best,
+               "launches": launches, "expected_launches": expected,
+               "launches_per_step": {"scatter_add": 4, "nn_both": 4,
+                                     "fps": 5, "knn": 14},
+               "parameters": n_params, "parameters_moved": moved,
+               "parameters_with_finite_grad": finite_grads,
+               "checkpoint": os.path.basename(out["checkpoint"]),
+               "checkpoint_files": sorted(os.listdir(out["log_dir"])),
+               "reload_bit_equal": same_trainer,
+               "test_main_load_model_bit_equal": same_sweep,
+               "test_main_clouds": res["n_clouds"]}
+        emit(rec)
+        if steps < 8 or not np.isfinite(out["losses"]).all():
+            fail(f"train_main: {steps} steps, losses {out['losses']}")
+        if launches != expected:
+            fail(f"train_main launches {launches}, expected {expected}")
+        if moved != n_params or finite_grads != n_params:
+            fail(f"train_main: {moved} of {n_params} parameters moved, "
+                 f"{finite_grads} have a finite gradient")
+        if not (same_trainer and same_sweep):
+            fail("the checkpoint does not reload to bit-equal predictions "
+                 f"(trainer {same_trainer}, test_main {same_sweep})")
+        if results.shape != (64, 2048, 3) or not np.isfinite(results).all():
+            fail(f"test_main with load_model: results {results.shape}")
+        del trainer, model, pred
+        torch.cuda.empty_cache()
+
+        rep = _repeated_batch(tmp, 20, False)
+        if not (np.isfinite(rep["losses"]).all()
+                and rep["losses"][-1] < rep["losses"][0]):
+            fail(f"20 steps on one batch did not lower the loss: "
+                 f"{rep['losses']}")
+        remat = _repeated_batch(tmp, 3, True)
+        # loss: emd. Per step four auctions (1024, 3072, 2048 and 2048
+        # bidders for the gt's 2048 items), whose gradient needs no kernel;
+        # the logged cd_t takes one nn_both and stays out of the backward.
+        emd = _repeated_batch(tmp, 4, False, loss="emd")
+        want = {"emd": 16, "nn_both": 4, "scatter_add": 0, "fps": 20,
+                "knn": 56}
+        if emd["launches"] != want or not (
+                np.isfinite(emd["losses"]).all()
+                and emd["losses"][-1] < emd["losses"][0]):
+            fail(f"loss: emd training: launches {emd['launches']}, expected "
+                 f"{want}; losses {emd['losses']}")
+    return {"train": rec, "repeated": rep, "remat": remat, "emd": emd}
+
+
+def phase_scatter_solve():
+    """``houv_solve`` with ``grad_mode='scatter'`` beside the gather mode:
+    4 pairs of the structured split, cfgs/houv.yaml with the budget cut to
+    100 steps. One scatter launch per Adam step (the target needs no
+    gradient), in every angle window that runs."""
+    import dataclasses
+
+    from houv_tpu_torch.data import synthesize_registration_pairs
+    from houv_tpu_torch.ops.scatter import scatter_add
+    from houv_tpu_torch.solvers.houv import (evaluate_solution, houv_solve,
+                                             init_params)
+    from houv_tpu_torch.train.cli import solver_config
+    from houv_tpu_torch.train.config import load_config
+
+    cfg = load_config(str(REPO / "cfgs" / "houv.yaml"))
+    base = dataclasses.replace(solver_config(cfg), steps=100)
+    d = synthesize_registration_pairs(
+        4, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
+        max_trans=cfg.max_trans, seed=7, shape_mode="structured",
+        rot_mix=True)
+    src = torch.as_tensor(d["rotated_src"], device="cuda")
+    tgt = torch.as_tensor(d["rotated_tgt"], device="cuda")
+    gt = torch.as_tensor(d["transforms"], device="cuda")
+    rec = {"phase": "scatter_solve", "config": "cfgs/houv.yaml", "pairs": 4,
+           "restarts": base.kernel, "steps": 100}
+    for mode in ("gather", "scatter"):
+        scfg = dataclasses.replace(base, grad_mode=mode)
+        params0 = init_params(torch.Generator().manual_seed(0), 4,
+                              scfg.kernel, device="cuda")
+        scatter_add.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = houv_solve(src, tgt, scfg, params0=params0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        r_err, _ = evaluate_solution(out["transform"], gt)
+        windows = 1 + (scfg.angle_passes - 1) * int(out["n_retry"] > 0)
+        rec[mode] = {"seconds": seconds, "n_retry": out["n_retry"],
+                     "windows": windows,
+                     "rot_err_deg": r_err.tolist(),
+                     "rmse": out["rmse"].tolist(),
+                     "scatter_launches": scatter_add.launches}
+        want = 100 * windows if mode == "scatter" else 0
+        if scatter_add.launches != want:
+            emit(rec)
+            fail(f"houv_solve grad_mode={mode}: {scatter_add.launches} "
+                 f"scatter launches, expected {want}")
+        if not torch.isfinite(out["transform"]).all():
+            emit(rec)
+            fail(f"houv_solve grad_mode={mode}: transform not finite")
+    emit(rec)
+    return rec
+
+
+def phase_profile_train():
+    """Where one VRCNet train step's time goes: torch.profiler over one
+    step of 32 clouds at full width, after two warm-up steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(_full_train_cfg(tmp))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        batch = build_dataset(cfg, "train").get_batch(
+            np.arange(32), rng=np.random.default_rng(0))
+        for step in range(2):
+            trainer.train_step(batch, 0, step)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch, 0, 2)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    emit({"phase": "profile", "config": "cfgs/vrcnet.yaml", "clouds": 32,
+          "run": "train_step", **_profile_top(prof, wall_ms)})
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def _profile_top(prof, wall_ms):
     kernels = []
     for ev in prof.key_averages():
@@ -534,10 +1101,42 @@ def phase_profile():
           "pairs": 16, "angle_passes": 1, **_profile_top(prof, wall_ms)})
 
 
-def phase_kernels(launches, nn_err, knn_err, emd_err, completion, gen):
+def _time_scatter(b, n, m, gen):
+    """scatter_add at idx (b, n) -> m rows, 3 channels: kernel, plain and
+    ``Tensor.scatter_add_`` milliseconds, and the function's bound: idx,
+    vals and out moved once, and b*n*3 additions, whichever takes longer.
+    The kernel's owner scan compares every index with every row; those
+    b*n*m compares are its algorithm's work, not the function's, and stand
+    beside the bound as ``scan_compares`` and ``scan_ms_at_peak`` (at the
+    CUDA cores' f32 rate; the table has no separate integer rate)."""
+    from houv_tpu_torch.ops import scatter
+
+    idx = torch.randint(0, m, (b, n), generator=gen).cuda()
+    vals = torch.randn((b, n, 3), generator=gen).cuda()
+    saved = scatter.scatter_add.launches
+    ms = cuda_ms(lambda: scatter.scatter_add(idx, vals, m), reps=20)
+    scatter.scatter_add.launches = saved
+    plain_ms = cuda_ms(lambda: scatter._scatter_add_plain(idx, vals, m),
+                       reps=10, warmup=2)
+    wide = idx[..., None].expand(-1, -1, 3)
+    library_ms = cuda_ms(lambda: torch.zeros(
+        (b, m, 3), device="cuda").scatter_add_(1, wide, vals), reps=20,
+        warmup=2)
+    bound_ms, bound_by = bound(8 * b * n + 12 * b * n + 12 * b * m,
+                               3.0 * b * n)
+    return {"shape": {"idx": [b, n], "vals": [b, n, 3], "rows": m},
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "scan_compares": b * n * m,
+            "scan_ms_at_peak": b * n * m / PEAK_F32_FLOPS * 1e3}
+
+
+def phase_kernels(launches, nn_err, knn_err, emd_err, scatter_err,
+                  completion, train, solve, gen):
     """``launches``: the houv_fast counts; ``completion``: the VRCNet runs
     (their counts summed for knn and emd, and the first val batch's fine
-    and gt clouds, on which emd is timed)."""
+    and gt clouds, on which emd is timed); ``train``: the train_main run
+    (scatter_add's count); ``solve``: the scatter-mode solve."""
     from houv_tpu_torch.ops import chamfer, emd, grouping, sampling
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -642,6 +1241,24 @@ def phase_kernels(launches, nn_err, knn_err, emd_err, completion, gen):
                 "launches": vrc["emd"], "max_abs_err": emd_err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None})
+    del fine, gt
+    torch.cuda.empty_cache()
+
+    # scatter_add at the train step's largest backward, coarse_high: 64 rows
+    # of 2048 gt matches onto 3072 points; and at the solver's scatter mode
+    at_train = _time_scatter(64, 2048, 3072, gen)
+    at_solver = _time_scatter(1024, 2048, 2048, gen)
+    out.append({"name": "scatter_add", "route": "cuda",
+                "source": "houv_tpu_torch/csrc/scatter.cu",
+                "replaces": "houv_tpu/ops/scatter.py:35",
+                "launches": train["train"]["launches"]["scatter_add"],
+                "launches_scatter_solve":
+                    solve["scatter"]["scatter_launches"],
+                "max_abs_err": scatter_err, **at_train,
+                "at_solver_shape": at_solver})
+    for row in out:
+        row["train_main_launches"] = train["train"]["launches"].get(
+            row["name"], 0)
     return out
 
 
@@ -662,13 +1279,20 @@ def main() -> int:
     phase_fps(gen)
     knn_err = phase_knn(gen)
     emd_err = phase_emd(gen)
+    scatter_err = phase_scatter(gen)
+    phase_chamfer_grad(gen)
     fast = phase_main()
     phase_completion_reference()
     completion = phase_completion()
+    phase_train_reference()
+    train = phase_train()
+    solve = phase_scatter_solve()
     phase_profile()
     phase_profile_vrcnet()
+    phase_profile_train()
     emit({"kernels": phase_kernels(fast["launches"], nn_err, knn_err,
-                                   emd_err, completion, gen)})
+                                   emd_err, scatter_err, completion, train,
+                                   solve, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

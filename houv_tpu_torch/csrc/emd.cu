@@ -3,7 +3,9 @@
 // Replaces the TPU kernel houv_tpu/ops/emd_kernel.py:_emd_kernel (wrapper
 // emd_auction_pallas) with the contract of houv_tpu/ops/emd.py:
 // _auction_single, one cloud pair per block:
-//   x1 (B, N, 3) f32 bidders, x2 (B, N, 3) f32 items, eps > 0, iters >= 0;
+//   x1 (B, N, 3) f32 bidders, x2 (B, M, 3) f32 items, eps > 0, iters >= 0
+//   (M != N too: with more bidders than items some stay unassigned to the
+//   round cap, as in the coarse stages of VRCNet's EMD training loss);
 //   Jacobi rounds while a bidder is unassigned and fewer than `iters` ran:
 //   every unassigned bidder i takes value v_ij = (-d_ij) - price_j, bids on
 //   its best item (ties to the smaller item) an increment
@@ -12,19 +14,19 @@
 //   the bid. Bidders still unassigned afterwards take their nearest item
 //   (ties to the smaller item). Outputs: assignment (B, N) int64, its squared
 //   distance (B, N) f32, and per pair the rounds run and the bids made
-//   (B, 2) int64 (each bid scans N items).
+//   (B, 2) int64 (each bid scans M items).
 // d is the diff form rounded op by op (__fsub_rn/__fmul_rn/__fadd_rn), as the
 // plain PyTorch version computes it, so both run the same rounds to the same
 // assignment. The TPU's epsilon scaling and compacted tail were Mosaic
 // accelerations, not semantics, and are not carried over.
 //
 // What bounds it on this card: f32 ALU work, data dependent: each bid
-// evaluates N values at about 10 flops each, while the clouds are 24 KB per
+// evaluates M values at about 10 flops each, while the clouds are 24 KB per
 // pair. The bound is reckoned from the counted bids.
 //
 // Design: one block of 1024 threads per pair; x2, prices, owners, the
 // bidder -> item map, the list of unassigned bidders and one 64-bit bid key
-// per item live in shared memory (36 bytes per point). Per round:
+// per item live in shared memory (28 bytes per item, 8 per bidder). Per round:
 //   A. each warp takes one unassigned bidder at a time; its lanes scan
 //      strided items keeping a (best, index, second) triple, merged by
 //      shuffles; lane 0 posts atomicMax(key[item], inc_bits << 32 | ~row).
@@ -46,7 +48,8 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kBytesPerPoint = 8 + 12 + 4 + 4 + 4 + 4;
+constexpr int kBytesPerItem = 8 + 12 + 4 + 4;    // key, x2, price, owner
+constexpr int kBytesPerBidder = 4 + 4;            // assign, ulist
 constexpr int kMaxSmem = 232448 - 1024;  // opt-in limit, less static slack
 
 __device__ __forceinline__ float sqdist(float ax, float ay, float az,
@@ -60,14 +63,14 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az,
 
 __global__ void __launch_bounds__(kThreads)
 emd_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int n,
-           float eps, int iters, float* __restrict__ dist_out,
+           int m, float eps, int iters, float* __restrict__ dist_out,
            long long* __restrict__ assign_out, long long* __restrict__ stats) {
   extern __shared__ unsigned long long smem[];
-  unsigned long long* key = smem;                       // n
-  float* sx2 = reinterpret_cast<float*>(key + n);       // 3n
-  float* price = sx2 + 3 * n;                           // n
-  int* owner = reinterpret_cast<int*>(price + n);       // n
-  int* assign = owner + n;                              // n
+  unsigned long long* key = smem;                       // m
+  float* sx2 = reinterpret_cast<float*>(key + m);       // 3m
+  float* price = sx2 + 3 * m;                           // m
+  int* owner = reinterpret_cast<int*>(price + m);       // m
+  int* assign = owner + m;                              // n
   int* ulist = assign + n;                              // n
   __shared__ int s_count;
 
@@ -75,13 +78,15 @@ emd_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int n,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float* p1 = x1 + (size_t)blockIdx.x * n * 3;
-  const float* p2 = x2 + (size_t)blockIdx.x * n * 3;
+  const float* p2 = x2 + (size_t)blockIdx.x * m * 3;
 
-  for (int t = tid; t < 3 * n; t += kThreads) sx2[t] = p2[t];
-  for (int t = tid; t < n; t += kThreads) {
+  for (int t = tid; t < 3 * m; t += kThreads) sx2[t] = p2[t];
+  for (int t = tid; t < m; t += kThreads) {
     key[t] = 0ull;
     price[t] = 0.f;
     owner[t] = -1;
+  }
+  for (int t = tid; t < n; t += kThreads) {
     assign[t] = -1;
     ulist[t] = t;
   }
@@ -98,7 +103,7 @@ emd_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int n,
       const float ax = p1[3 * i], ay = p1[3 * i + 1], az = p1[3 * i + 2];
       float best = -INFINITY, second = -INFINITY;
       int bj = 0x7fffffff;
-      for (int j = lane; j < n; j += 32) {
+      for (int j = lane; j < m; j += 32) {
         const float v = __fsub_rn(-sqdist(ax, ay, az, sx2 + 3 * j), price[j]);
         if (v > best) {  // strict: a lane's smaller item wins ties
           second = best;
@@ -133,7 +138,7 @@ emd_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int n,
 
     // B. each item takes its winning bid
     if (tid == 0) s_count = 0;
-    for (int j = tid; j < n; j += kThreads) {
+    for (int j = tid; j < m; j += kThreads) {
       const unsigned long long k = key[j];
       if (k) {
         key[j] = 0ull;
@@ -168,8 +173,8 @@ emd_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int n,
     const int i = ulist[w];
     const float ax = p1[3 * i], ay = p1[3 * i + 1], az = p1[3 * i + 2];
     float bd = INFINITY;
-    int bj = n;
-    for (int j = lane; j < n; j += 32) {
+    int bj = m;
+    for (int j = lane; j < m; j += 32) {
       const float d = sqdist(ax, ay, az, sx2 + 3 * j);
       if (d < bd) {
         bd = d;
@@ -185,7 +190,7 @@ emd_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int n,
         bj = oj;
       }
     }
-    if (lane == 0) assign[i] = bj < n ? bj : 0;
+    if (lane == 0) assign[i] = bj < m ? bj : 0;
   }
   __syncthreads();
 
@@ -204,22 +209,28 @@ emd_kernel(const float* __restrict__ x1, const float* __restrict__ x2, int n,
 
 }  // namespace
 
-// Largest cloud the kernel takes (its state must fit in shared memory).
-extern "C" int houv_emd_max_points() { return kMaxSmem / kBytesPerPoint; }
+// Shared-memory bytes the kernel needs for n bidders and m items, and the
+// most it can have: a pair fits when the first is at most the second.
+extern "C" int houv_emd_smem_bytes(int n, int m) {
+  const long long need =
+      (long long)kBytesPerItem * m + (long long)kBytesPerBidder * n;
+  return need > 0x7fffffff ? 0x7fffffff : static_cast<int>(need);
+}
+extern "C" int houv_emd_max_smem_bytes() { return kMaxSmem; }
 
-// x1, x2: (b, n, 3) f32; dist: (b, n) f32, assign: (b, n) int64 and
-// stats: (b, 2) int64 out. 1 <= n <= houv_emd_max_points(), eps > 0.
-extern "C" int houv_emd(const float* x1, const float* x2, int b, int n,
+// x1: (b, n, 3), x2: (b, m, 3) f32; dist: (b, n) f32, assign: (b, n) int64
+// and stats: (b, 2) int64 out. n, m >= 1, the pair fits (above), eps > 0.
+extern "C" int houv_emd(const float* x1, const float* x2, int b, int n, int m,
                         float eps, int iters, float* dist, long long* assign,
                         long long* stats, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || n > houv_emd_max_points())
+  if (n < 1 || m < 1 || houv_emd_smem_bytes(n, m) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = kBytesPerPoint * n;
+  const int smem = houv_emd_smem_bytes(n, m);
   const cudaError_t e = cudaFuncSetAttribute(
       emd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  emd_kernel<<<b, kThreads, smem, s>>>(x1, x2, n, eps, iters, dist, assign,
+  emd_kernel<<<b, kThreads, smem, s>>>(x1, x2, n, m, eps, iters, dist, assign,
                                        stats);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
-"""VRCNet, inference and validation (counterpart of
+"""VRCNet with its in-model losses (counterpart of
 ``houv_tpu/models/vrcnet.py``).
 
-PCN encoder -> posterior Linear_ResBlocks -> reparametrised latent ->
-generator added to the global feature -> the relational decoder
+PCN encoder -> posterior and prior Linear_ResBlocks -> reparametrised latent
+-> generator added to the global feature -> the relational decoder
 ``MSAPSKNDecoder``: an FC coarse cloud concatenated with the input, the
 ``SASKNResEncoder`` U-Net of point self-attention with selective-kernel
 fusion and edge pooling / three-NN unpooling, FPS and score selection, and
@@ -10,10 +10,13 @@ optional local folding. Features last, (B, N, C).
 
 The coordinate-only geometry (``saskn_geometry``: the FPS pyramid, the kNN
 graphs, the three-NN weights) runs on the ``knn`` and ``fps`` kernels; the
-``val`` metrics on ``nn_both`` (chamfer) and ``emd`` (auction EMD). Only the
-``val`` and ``test`` prefixes are ported: training, with the KL/MMD terms
-and the chamfer and EMD gradients, waits for ROADMAP.md Queue 1, item 7a.
-``EFExpansion`` (``up_scale >= 2``, and the non-folding fine stage) waits
+``val`` metrics on ``nn_both`` (chamfer) and ``emd`` (auction EMD). The
+``train`` prefix runs both paths on a doubled batch and returns the loss
+10·CD(coarse_raw) + 0.5·CD(coarse_high) + CD(coarse) + α·CD(fine) +
+20·(KL_rec + KL_g) (CD or EMD, KL or MMD); its chamfer terms are
+differentiated through the ``scatter`` kernel. All randomness (latent noise,
+dropout masks) is drawn from a ``torch.Generator`` handed in, or passed in
+as tensors. ``EFExpansion`` (``up_scale >= 2``, and the non-folding fine stage) waits
 for the wide kNN kernel.
 """
 
@@ -24,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from houv_tpu_torch.metrics.cd import calc_cd
 from houv_tpu_torch.metrics.emd import calc_emd
@@ -159,12 +163,22 @@ def saskn_geometry(points: torch.Tensor, pts_num: tuple, ks: tuple, pk: int):
 class SASKNResEncoder(FlaxNamed):
     """U-Net of SK-SA units over four point resolutions with edge pooling
     and three-NN unpooling: features (B, N, input_size), xyz in the first 3
-    channels -> (B, N, output_size). Dropout is the identity at inference."""
+    channels -> (B, N, output_size).
+
+    ``dropout``: None (inference, the identity) or the two keep masks of
+    ``dropout_masks`` for the bottleneck's two dropouts. ``remat``
+    recomputes the SK-SA units in the backward instead of keeping their
+    (B, N, k, C) maps; the geometry stays outside and is never recomputed."""
+
+    dropout_rate = 0.5
+    dropout_widths = (512, 1024)
 
     def __init__(self, input_size: int, ks: tuple = (10, 20), pk: int = 16,
-                 output_size: int = 64, layers: tuple = (2, 2, 2, 2)):
+                 output_size: int = 64, layers: tuple = (2, 2, 2, 2),
+                 remat: bool = False):
         super().__init__()
         self.ks, self.pk = tuple(ks), pk
+        self.remat = remat
         c1 = 64
         self.units = nn.ModuleList()
         for i, c_in in enumerate((input_size, c1 * 2, c1 * 4, c1 * 8)):
@@ -179,7 +193,15 @@ class SASKNResEncoder(FlaxNamed):
         self.child("up1", nn.Linear(c1 * 2 + c1, c1))
         self.child("out", nn.Linear(c1, output_size))
 
-    def forward(self, features: torch.Tensor, geo: dict | None = None):
+    def dropout_masks(self, batch: int, generator: torch.Generator | None):
+        """The two keep masks (batch, 512) and (batch, 1024), 1 = kept with
+        probability 1 - ``dropout_rate``, drawn on the CPU."""
+        return tuple(
+            (torch.rand((batch, w), generator=generator)
+             >= self.dropout_rate).float() for w in self.dropout_widths)
+
+    def forward(self, features: torch.Tensor, geo: dict | None = None,
+                dropout: tuple | None = None):
         if geo is None:
             n = features.shape[1]
             geo = saskn_geometry(features[..., :3],
@@ -197,11 +219,22 @@ class SASKNResEncoder(FlaxNamed):
             if lvl:
                 x = edge_preserve_sampling(x, None, 0,
                                            precomputed=geo["eps"][lvl - 1])[0]
-            x = torch.relu(unit(x, geo["knn"][lvl]))
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(unit, x, geo["knn"][lvl], use_reentrant=False)
+            else:
+                x = unit(x, geo["knn"][lvl])
+            x = torch.relu(x)
             skips.append(x)
         x1, x2, x3, x4 = skips
+        keep = [None, None] if dropout is None else [
+            m.to(x4.device) / (1.0 - self.dropout_rate) for m in dropout]
         g = self.g1(x4).amax(1)                                   # (B, 1024)
-        g = torch.relu(self.g3(torch.relu(self.g2(g))))
+        g = torch.relu(self.g2(g))
+        if keep[0] is not None:
+            g = g * keep[0]
+        g = torch.relu(self.g3(g))
+        if keep[1] is not None:
+            g = g * keep[1]
         g = g[:, None, :].expand(-1, x4.shape[1], -1)
         x = torch.relu(self.up4(torch.cat([g, x4], -1)))
         x = torch.relu(self.up3(torch.cat([unpool(x), x3], -1)))
@@ -254,7 +287,7 @@ class MSAPSKNDecoder(FlaxNamed):
                  num_fps: int, num_coarse: int, num_fine: int,
                  layers: tuple = (2, 2, 2, 2), knn_list: tuple = (10, 20),
                  pk: int = 10, points_label: bool = False,
-                 local_folding: bool = False):
+                 local_folding: bool = False, remat: bool = False):
         super().__init__()
         self.n_input = n_input
         self.num_coarse_raw, self.num_fps = num_coarse_raw, num_fps
@@ -270,7 +303,7 @@ class MSAPSKNDecoder(FlaxNamed):
         self.child("fc2", nn.Linear(1024, 1024))
         self.child("fc_raw", nn.Linear(1024, num_coarse_raw * 3))
         self.child("encoder", SASKNResEncoder(
-            3 + int(points_label), knn_list, pk, 256, layers))
+            3 + int(points_label), knn_list, pk, 256, layers, remat))
         self.child("feat", nn.Linear(256, 64))
         self.child("high", nn.Linear(64, 3))
         self.score = n_fps > num_coarse
@@ -288,7 +321,8 @@ class MSAPSKNDecoder(FlaxNamed):
             self.child("fine_out", nn.Linear(64, 3))
             self.child("fine_hidden", nn.Linear(256, 64))
 
-    def forward(self, global_feat: torch.Tensor, point_input: torch.Tensor):
+    def forward(self, global_feat: torch.Tensor, point_input: torch.Tensor,
+                dropout: tuple | None = None):
         b = global_feat.shape[0]
         if point_input.shape[1] != self.n_input:
             raise ValueError(f"built for {self.n_input} input points, got "
@@ -305,7 +339,8 @@ class MSAPSKNDecoder(FlaxNamed):
         t = points.shape[1]
         geo = saskn_geometry(points[..., :3], (t, t // 2, t // 4, t // 8),
                              self.knn_list, self.pk)
-        coarse_features = torch.relu(self.feat(self.encoder(points, geo)))
+        coarse_features = torch.relu(self.feat(
+            self.encoder(points, geo, dropout)))
         coarse_high = self.high(coarse_features)
 
         coarse, feats = coarse_high, coarse_features
@@ -328,13 +363,36 @@ class MSAPSKNDecoder(FlaxNamed):
         return coarse_raw, coarse_high, coarse, fine
 
 
-class VRCNet(FlaxNamed):
-    """VRCNet for the ``val`` and ``test`` prefixes: x (B, n_input, 3) ->
-    {'result': fine} ('test'), or with gt the metrics cd_p, cd_t, f1 per
-    cloud, and emd when ``eval_emd`` ('val').
+def _kl_normal(mu0, std0, mu1, std1):
+    """KL(N(mu0, std0) || N(mu1, std1)), elementwise."""
+    v0, v1 = std0 ** 2, std1 ** 2
+    return torch.log(std1 / std0) + (v0 + (mu0 - mu1) ** 2) / (2 * v1) - 0.5
 
-    The latent sample is q_mu + q_std · noise, noise ~ N(0, 1) drawn from
-    the ``generator`` given to ``forward`` (or passed as ``noise``)."""
+
+def _mmd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Gaussian-kernel maximum mean discrepancy between two batches of
+    latent samples (B, D): k(a, b) = exp(-mean((a - b)²) / D)."""
+    def kernel(a, b):
+        d = ((a[:, None, :] - b[None, :, :]) ** 2).mean(-1)
+        return torch.exp(-d / a.shape[-1])
+
+    return (kernel(x, x).mean() + kernel(y, y).mean()
+            - 2.0 * kernel(x, y).mean())
+
+
+class VRCNet(FlaxNamed):
+    """The dual-path VRCNet: x (B, n_input, 3) -> {'result': fine}
+    ('test'); with gt the metrics cd_p, cd_t, f1 per cloud, and emd when
+    ``eval_emd`` ('val'); or {'out2', 'loss2', 'total_loss'} ('train', with
+    ``alpha`` the weight of the fine term).
+
+    Randomness is explicit. The latent samples are mu + std · noise:
+    ``noise`` is one (B, size_z) tensor for 'val' and 'test', and for
+    'train' a sequence of two (posterior, prior; four with
+    ``distribution_loss='MMD'``: then the N(0, 1) sample and the detached
+    prior's noise); ``dropout_masks`` are the decoder's two keep masks over
+    the doubled batch (``SASKNResEncoder.dropout_masks``). Whatever is not
+    passed is drawn from ``generator``, the noise first, then the masks."""
 
     def __init__(self, num_points: int = 2048, num_coarse_raw: int = 1024,
                  num_fps: int = 2048, num_coarse: int = 2048,
@@ -342,11 +400,18 @@ class VRCNet(FlaxNamed):
                  layers: tuple = (2, 2, 2, 2), knn_list: tuple = (10, 20),
                  pk: int = 10, points_label: bool = False,
                  local_folding: bool = False, eval_emd: bool = False,
-                 n_input: int | None = None):
+                 n_input: int | None = None, remat: bool = False,
+                 distribution_loss: str = "KLD", train_loss: str = "cd"):
         super().__init__()
+        if distribution_loss not in ("KLD", "MMD"):
+            raise NotImplementedError("distribution loss is either MMD or KLD")
+        if train_loss not in ("cd", "emd"):
+            raise NotImplementedError("train loss is either cd or emd")
         g = global_feature_size
         self.size_z = size_z
         self.eval_emd = eval_emd
+        self.distribution_loss = distribution_loss
+        self.train_loss = train_loss
         self.child("encoder", PCNEncoder(g))
         self.child("post1", LinearResBlock(g, g))
         self.child("post2", LinearResBlock(g, size_z * 2))
@@ -355,21 +420,75 @@ class VRCNet(FlaxNamed):
         self.child("decoder", MSAPSKNDecoder(
             g, num_points if n_input is None else n_input, num_coarse_raw,
             num_fps, num_coarse, num_points, layers, knn_list, pk,
-            points_label, local_folding))
+            points_label, local_folding, remat))
+
+    def _moments(self, o: torch.Tensor):
+        return o[:, :self.size_z], F.softplus(o[:, self.size_z:])
+
+    def _train(self, x, gt, alpha, noise, generator, dropout_masks):
+        b, n_input = x.shape[:2]
+        n_noise = 4 if self.distribution_loss == "MMD" else 2
+        if noise is None:
+            noise = [torch.randn((b, self.size_z), generator=generator)
+                     for _ in range(n_noise)]
+        if len(noise) != n_noise:
+            raise ValueError(f"'train' with {self.distribution_loss} takes "
+                             f"{n_noise} noise tensors, got {len(noise)}")
+        noise = [t.to(x.device) for t in noise]
+        if dropout_masks is None:
+            dropout_masks = self.decoder.encoder.dropout_masks(2 * b,
+                                                               generator)
+        y = gather_rows(gt, furthest_point_sample(gt, n_input,
+                                                  device=gt.device))
+        gt2 = torch.cat([gt, gt], 0)
+        feat = self.encoder(torch.cat([x, y], 0))
+        feat_x, feat_y = feat[:b], feat[b:]
+        q_mu, q_std = self._moments(self.post2(self.post1(feat_x)))
+        p_mu, p_std = self._moments(self.prior(feat_y))
+        z_q = q_mu + q_std * noise[0]
+        z_p = p_mu + p_std * noise[1]
+        feat = torch.cat([feat_x, feat_x], 0) + self.generator(
+            torch.cat([z_q, z_p], 0))
+        coarse_raw, coarse_high, coarse, fine = self.decoder(
+            feat, torch.cat([x, x], 0), dropout_masks)
+
+        if self.distribution_loss == "KLD":
+            dl_rec = _kl_normal(torch.zeros_like(p_mu),
+                                torch.ones_like(p_std), p_mu, p_std)
+            dl_g = _kl_normal(p_mu.detach(), p_std.detach(), q_mu, q_std)
+        else:
+            z_p_fix = p_mu.detach() + p_std.detach() * noise[3]
+            dl_rec = _mmd(noise[2], z_p)
+            dl_g = _mmd(z_q, z_p_fix)
+        if self.train_loss == "cd":
+            loss1 = calc_cd(coarse_raw, gt2)[0]
+            loss2 = calc_cd(coarse_high, gt2)[0]
+            loss3 = calc_cd(coarse, gt2)[0]
+            loss4, loss4_t = calc_cd(fine, gt2)
+        else:
+            # loss2 stays cd_t, so the logged metric matches the cd configs
+            loss1 = calc_emd(coarse_raw, gt2)
+            loss2 = calc_emd(coarse_high, gt2)
+            loss3 = calc_emd(coarse, gt2)
+            loss4 = calc_emd(fine, gt2)
+            loss4_t = calc_cd(fine, gt2)[1]
+        total = (loss1.mean() * 10 + loss2.mean() * 0.5 + loss3.mean()
+                 + loss4.mean() * alpha
+                 + (dl_rec.mean() + dl_g.mean()) * 20)
+        return {"out2": fine, "loss2": loss4_t, "total_loss": total}
 
     def forward(self, x: torch.Tensor, gt: torch.Tensor | None = None,
-                prefix: str = "test", noise: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> dict:
+                prefix: str = "test", noise=None,
+                generator: torch.Generator | None = None,
+                alpha: float | None = None,
+                dropout_masks: tuple | None = None) -> dict:
         if prefix == "train":
-            raise NotImplementedError(
-                "VRCNet training is not ported yet (ROADMAP.md Queue 1, "
-                "item 7a)")
+            return self._train(x, gt, alpha, noise, generator, dropout_masks)
         if prefix not in ("val", "test"):
-            raise ValueError(f"prefix is 'val' or 'test', got {prefix!r}")
+            raise ValueError(
+                f"prefix is 'train', 'val' or 'test', got {prefix!r}")
         feat = self.encoder(x)
-        o_x = self.post2(self.post1(feat))
-        q_mu = o_x[:, :self.size_z]
-        q_std = F.softplus(o_x[:, self.size_z:])
+        q_mu, q_std = self._moments(self.post2(self.post1(feat)))
         if noise is None:
             noise = torch.randn(q_mu.shape, generator=generator)
         z = q_mu + q_std * noise.to(q_mu.device)

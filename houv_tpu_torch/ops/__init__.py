@@ -19,6 +19,7 @@ from houv_tpu_torch.ops.interpolate import (
     three_nn_upsampling,
 )
 from houv_tpu_torch.ops.sampling import furthest_point_sample
+from houv_tpu_torch.ops.scatter import scatter_add
 
 __all__ = [
     "chamfer_indices", "chamfer_reference", "pairwise_sqdist",
@@ -27,5 +28,5 @@ __all__ = [
     "gather_points", "grouping_operation", "index_points", "knn",
     "knn_indices", "knn_points",
     "three_interpolate", "three_nn", "three_nn_upsampling",
-    "furthest_point_sample",
+    "furthest_point_sample", "scatter_add",
 ]

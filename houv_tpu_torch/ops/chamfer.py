@@ -4,8 +4,10 @@ Counterpart of ``houv_tpu/ops/chamfer.py``. ``chamfer_indices`` launches the
 hand-written CUDA kernel ``csrc/nn_both.cu`` (replacing the TPU kernel
 ``_nn_both_kernel``) on CUDA tensors and runs its plain PyTorch version,
 ``_nn_both_plain``, on CPU tensors. ``chamfer`` recomputes exact distances
-from those indices. ``pairwise_sqdist`` and ``chamfer_reference`` are the
-dense golden model.
+from those indices and carries the gradient of ``_nn_both_gather``: direct
+terms elementwise, cross terms through ``ops/scatter.py:scatter_add`` (the
+``scatter`` kernel on CUDA tensors). ``pairwise_sqdist`` and
+``chamfer_reference`` are the dense golden model.
 
 Unlike the TPU kernel, which selects by a key holding 16 index bits (2^-12
 relative on distances), both the CUDA kernel and the plain version select on
@@ -18,6 +20,7 @@ import torch
 
 from houv_tpu_torch._device import check_on, resolve_device
 from houv_tpu_torch.ops.gather import gather_rows
+from houv_tpu_torch.ops.scatter import scatter_add
 
 # Keeps the plain version's (rows, N, M) temporaries under ~1 GB.
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -111,19 +114,59 @@ def chamfer_indices(a: torch.Tensor, b: torch.Tensor,
 chamfer_indices.launches = 0
 
 
-def chamfer(a: torch.Tensor, b: torch.Tensor):
-    """Bidirectional squared chamfer on a's device, forward only:
-    (B, N, 3), (B, M, 3) -> d1 (B, N), d2 (B, M), i1 (B, N), i2 (B, M).
-
-    d1[i] = |a_i - b_{i1[i]}|², d2 symmetric: one ``chamfer_indices`` pass
-    (the ``nn_both`` kernel on CUDA tensors), then exact distances from the
-    matched pairs. No gradients: the backward, on a port of the scatter
-    kernel, waits for the training slice (ROADMAP.md Queue 1, item 7a)."""
-    if a.shape[0] != b.shape[0]:
-        raise ValueError(f"batch sizes differ: {a.shape}, {b.shape}")
+def _chamfer_forward(a: torch.Tensor, b: torch.Tensor):
+    """One ``chamfer_indices`` pass, then the matched pairs' differences:
+    d1, d2, i1, i2, diff1 (B, N, 3), diff2 (B, M, 3), without gradients."""
     i1, i2 = chamfer_indices(a, b, device=a.device)
     a = a.detach().float()
     b = b.detach().float()
     diff1 = a - gather_rows(b, i1)
     diff2 = b - gather_rows(a, i2)
-    return (diff1 * diff1).sum(-1), (diff2 * diff2).sum(-1), i1, i2
+    return ((diff1 * diff1).sum(-1), (diff2 * diff2).sum(-1), i1, i2,
+            diff1, diff2)
+
+
+class _ChamferFunction(torch.autograd.Function):
+    """``chamfer`` with the gradient of the matched-pair distances, the
+    matches held fixed: d1[i] = |a_i - b_{i1[i]}|² sends 2·g1·diff1 to a_i
+    and its negative to b_{i1[i]} (a scatter-add over i1); d2 likewise."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        d1, d2, i1, i2, diff1, diff2 = _chamfer_forward(a, b)
+        ctx.save_for_backward(i1, i2, diff1, diff2)
+        ctx.dtypes = (a.dtype, b.dtype)
+        ctx.mark_non_differentiable(i1, i2)
+        return d1, d2, i1, i2
+
+    @staticmethod
+    def backward(ctx, g1, g2, _gi1, _gi2):
+        i1, i2, diff1, diff2 = ctx.saved_tensors
+        n, m = diff1.shape[1], diff2.shape[1]
+        t1 = 2.0 * g1[..., None] * diff1       # (B, N, 3) d1 direct term
+        t2 = 2.0 * g2[..., None] * diff2       # (B, M, 3) d2 direct term
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (t1 + scatter_add(i2, -t2, n, device=t2.device)).to(
+                ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            gb = (t2 + scatter_add(i1, -t1, m, device=t1.device)).to(
+                ctx.dtypes[1])
+        return ga, gb
+
+
+def chamfer(a: torch.Tensor, b: torch.Tensor):
+    """Bidirectional squared chamfer on a's device:
+    (B, N, 3), (B, M, 3) -> d1 (B, N), d2 (B, M), i1 (B, N), i2 (B, M).
+
+    d1[i] = |a_i - b_{i1[i]}|², d2 symmetric: one ``chamfer_indices`` pass
+    (the ``nn_both`` kernel on CUDA tensors), then exact distances from the
+    matched pairs. Differentiable in a and b with the matches held fixed;
+    the backward makes one ``scatter_add`` (the ``scatter`` kernel on CUDA
+    tensors) for each input that needs a gradient. With gradients off, or
+    when neither input needs one, it is the forward alone."""
+    if a.shape[0] != b.shape[0]:
+        raise ValueError(f"batch sizes differ: {a.shape}, {b.shape}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ChamferFunction.apply(a, b)
+    return _chamfer_forward(a, b)[:4]

@@ -1,6 +1,6 @@
 """Earth mover's distance by the auction algorithm.
 
-Counterpart of ``houv_tpu/ops/emd.py`` (forward only). ``emd_auction``
+Counterpart of ``houv_tpu/ops/emd.py``. ``emd_auction``
 launches the hand-written CUDA kernel ``csrc/emd.cu`` (replacing the TPU
 kernel ``_emd_kernel``) on CUDA tensors and runs its plain PyTorch version
 ``_auction_plain`` on CPU tensors. The contract is ``_auction_single``'s:
@@ -11,12 +11,16 @@ kernel ``_emd_kernel``) on CUDA tensors and runs its plain PyTorch version
   its price by the bid;
 - early exit once every bidder is assigned, else after ``iters`` rounds;
 - bidders left unassigned take their nearest item (ties to the smaller);
-- dist[b, i] = |x1[b, i] − x2[b, assignment[b, i]]|² (squared); n == m.
+- dist[b, i] = |x1[b, i] − x2[b, assignment[b, i]]|² (squared).
+
+Both take n != m too (the coarse stages of VRCNet's ``loss: emd``
+training auction 1024 or 3072 points against 2048; the JAX package runs
+those outside its TPU kernel, which takes n == m only).
 
 The kernel and the plain version compute the distances in the diff form,
 rounded op by op, and the same f32 increments and prices, so they run the
-same rounds to the same assignment. The gradient (to x1 only) waits for
-the training slice (ROADMAP.md Queue 1, item 7a).
+same rounds to the same assignment. The gradient goes to x1 only, with the
+assignment held fixed: 2·g·(x1 − x2[assignment]); it needs no kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from houv_tpu_torch._device import check_on, resolve_device
+from houv_tpu_torch.ops.gather import gather_rows
 from houv_tpu_torch.ops.grouping import _sqdist_diff
 
 
@@ -31,18 +36,20 @@ def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float,
                    iters: int):
     """The kernel's rounds in plain PyTorch, every pair of the batch at once
     (a pair with no unassigned bidder makes no bids, so it stands still).
-    Returns dist (B, N), assignment (B, N) int64, rounds (B,) and bids (B,),
-    each bid a scan of the N items."""
+    x1 (B, N, 3) bidders, x2 (B, M, 3) items. Returns dist (B, N),
+    assignment (B, N) int64, rounds (B,) and bids (B,), each bid a scan of
+    the M items."""
     bsz, n, _ = x1.shape
+    m = x2.shape[1]
     dev = x1.device
     dist = _sqdist_diff(x1, x2)                               # (B, N, M)
     eps_t = torch.tensor(eps, dtype=torch.float32, device=dev)
     neg_inf = torch.tensor(float("-inf"), device=dev)
     rows = torch.arange(n, device=dev).expand(bsz, n)
-    items = torch.arange(n, device=dev).expand(bsz, n)
+    items = torch.arange(m, device=dev).expand(bsz, m)
     assignment = torch.full((bsz, n + 1), -1, dtype=torch.int64, device=dev)
-    owner = torch.full((bsz, n), -1, dtype=torch.int64, device=dev)
-    price = torch.zeros((bsz, n), dtype=torch.float32, device=dev)
+    owner = torch.full((bsz, m), -1, dtype=torch.int64, device=dev)
+    price = torch.zeros((bsz, m), dtype=torch.float32, device=dev)
     rounds = torch.zeros(bsz, dtype=torch.int64, device=dev)
     bids = torch.zeros(bsz, dtype=torch.int64, device=dev)
     for _ in range(iters):
@@ -83,11 +90,14 @@ def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float,
 def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int):
     from houv_tpu_torch.kernels import check, load
 
-    lib = load()
     bsz, n, _ = x1.shape
-    if n > lib.houv_emd_max_points():
-        raise ValueError(f"the emd kernel takes at most "
-                         f"{lib.houv_emd_max_points()} points, got {n}")
+    m = x2.shape[1]
+    lib = load()
+    if lib.houv_emd_smem_bytes(n, m) > lib.houv_emd_max_smem_bytes():
+        raise ValueError(
+            f"the emd kernel keeps a pair's state in shared memory: {n} "
+            f"bidders and {m} items need {lib.houv_emd_smem_bytes(n, m)} "
+            f"bytes of at most {lib.houv_emd_max_smem_bytes()}")
     dist = torch.empty((bsz, n), dtype=torch.float32, device=x1.device)
     assignment = torch.empty((bsz, n), dtype=torch.int64, device=x1.device)
     stats = torch.empty((bsz, 2), dtype=torch.int64, device=x1.device)
@@ -95,7 +105,7 @@ def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int):
         return dist, assignment, stats[:, 0], stats[:, 1]
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
-        err = lib.houv_emd(x1.data_ptr(), x2.data_ptr(), bsz, n, eps, iters,
+        err = lib.houv_emd(x1.data_ptr(), x2.data_ptr(), bsz, n, m, eps, iters,
                            dist.data_ptr(), assignment.data_ptr(),
                            stats.data_ptr(), stream)
     check(lib, err, "emd")
@@ -118,10 +128,7 @@ def emd_auction_with_stats(x1: torch.Tensor, x2: torch.Tensor,
             or x2.dim() != 3 or x2.shape[-1] != 3:
         raise ValueError(
             f"expected (B, N, 3) clouds, got {x1.shape}, {x2.shape}")
-    if x1.shape[1] != x2.shape[1]:
-        raise ValueError("auction EMD requires n == m, got "
-                         f"{x1.shape[1]} and {x2.shape[1]}")
-    if x1.shape[1] < 1 or not eps > 0 or iters < 0:
+    if x1.shape[1] < 1 or x2.shape[1] < 1 or not eps > 0 or iters < 0:
         raise ValueError(f"need n >= 1, eps > 0 and iters >= 0, got "
                          f"n={x1.shape[1]}, eps={eps}, iters={iters}")
     x1 = x1.detach().float().contiguous()
@@ -134,11 +141,37 @@ def emd_auction_with_stats(x1: torch.Tensor, x2: torch.Tensor,
 emd_auction_with_stats.launches = 0
 
 
+class _EmdFunction(torch.autograd.Function):
+    """The auction with the gradient of its matched distances, the
+    assignment held fixed: 2·g·(x1 − x2[assignment]) to x1, none to x2."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, eps, iters):
+        dist, assignment, _, _ = emd_auction_with_stats(
+            x1, x2, eps, iters, device=x1.device)
+        ctx.save_for_backward(x1, x2, assignment)
+        ctx.mark_non_differentiable(assignment)
+        return dist, assignment
+
+    @staticmethod
+    def backward(ctx, g_dist, _g_assignment):
+        x1, x2, assignment = ctx.saved_tensors
+        g1 = None
+        if ctx.needs_input_grad[0]:
+            matched = gather_rows(x2.detach().float(), assignment)
+            g1 = (2.0 * g_dist[..., None]
+                  * (x1.detach().float() - matched)).to(x1.dtype)
+        return g1, None, None, None
+
+
 def emd_auction(x1: torch.Tensor, x2: torch.Tensor, eps: float = 0.005,
                 iters: int = 50):
-    """Approximate EMD assignment on x1's device, no gradients.
-    (B, N, 3) × (B, N, 3) -> dist (B, N) squared, assignment (B, N) int64.
-    The defaults are the reference's train setting."""
+    """Approximate EMD assignment on x1's device.
+    (B, N, 3) × (B, M, 3) -> dist (B, N) squared, assignment (B, N) int64.
+    The defaults are the reference's train setting. The gradient goes to x1
+    only, with the assignment held fixed; x2 gets none."""
+    if torch.is_grad_enabled() and x1.requires_grad:
+        return _EmdFunction.apply(x1, x2, eps, iters)
     dist, assignment, _, _ = emd_auction_with_stats(x1, x2, eps, iters,
                                                     device=x1.device)
     return dist, assignment

@@ -1,6 +1,7 @@
 """HOUV — Hybrid Optimization with Unconstrained Variables, in PyTorch.
 
-Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective only:
+Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective (and its
+``grad_mode='scatter'`` formulation):
 
 - Each source/target pair is expanded to ``kernel`` random restarts, each
   with four unconstrained parameters: rotation axis ``v_c`` (3,), angle
@@ -13,7 +14,10 @@ Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective only:
   matched rows: the nearest-neighbour search (``ops/chamfer.py``, a CUDA
   kernel on the card) runs once per refresh block without gradients, and
   the loss re-applies (R, T) to the gathered rows, so the backward is
-  einsum transposes only.
+  einsum transposes only. ``grad_mode='scatter'`` instead takes the loss
+  through ``metrics/cd.py:calc_cd_percent`` on the transformed cloud, whose
+  backward is the chamfer gradient's scatter-add (``ops/scatter.py``, a CUDA
+  kernel on the card), and can add the projected ``loss_view`` terms.
 - Adam(lr) for ``steps`` steps over all (pair, restart) replicas, phase by
   phase of the coarse-to-fine schedule (coarse phases run on FPS-downsampled
   clouds, ``ops/sampling.py``); the best restart wins.
@@ -40,6 +44,8 @@ from houv_tpu_torch.geometry.rotations import (
 from houv_tpu_torch.metrics.cd import (
     _safe_sqrt,
     _smallest_k,
+    calc_cd_percent,
+    loss_view,
     smallest_k_sqrt_mean_fast,
 )
 from houv_tpu_torch.ops.chamfer import chamfer_indices
@@ -53,9 +59,7 @@ _PARAM_NAMES = ("v_c", "angle_c", "tran_c", "tran_s")
 # value it accepts (ROADMAP.md, Queue 1: the solver ablations).
 UNPORTED_DEFAULTS = {
     "objective": "trunc",
-    "use_view_loss": False,
     "two_bracket": False,
-    "grad_mode": "gather",
     "nn_select": False,
     "voxel_downsample": None,
     "window_select": "loss",
@@ -86,12 +90,15 @@ class HOUVConfig:
     # "auto" (auto_refresh_schedule).
     nn_refresh: int = 1
     nn_refresh_schedule: tuple | str | None = None
+    # 'gather': one search, loss rebuilt from matched rows. 'scatter': the
+    # chamfer op's own gradient (scatter-add backward); needs nn_refresh 1.
+    grad_mode: str = "gather"
+    # adds min(cd_p, cd_t) of the three axis projections; 'scatter' only
+    use_view_loss: bool = False
     # Options that raise NotImplementedError unless left at their default
     # (UNPORTED_DEFAULTS).
     objective: str = "trunc"
-    use_view_loss: bool = False
     two_bracket: bool = False
-    grad_mode: str = "gather"
     nn_select: bool = False
     voxel_downsample: int | None = None
     window_select: str = "loss"
@@ -104,6 +111,12 @@ class HOUVConfig:
                 raise NotImplementedError(
                     f"HOUVConfig.{name}={getattr(self, name)!r} is not ported "
                     f"yet (only {default!r}); see ROADMAP.md Queue 1")
+        if self.grad_mode not in ("gather", "scatter"):
+            raise ValueError(f"unknown grad_mode {self.grad_mode!r}")
+        if self.use_view_loss and self.grad_mode != "scatter":
+            raise NotImplementedError(
+                "use_view_loss is ported for grad_mode='scatter' only; "
+                "see ROADMAP.md Queue 1, item 7c")
         if self.tran_mode not in ("mvp", "bounded"):
             raise ValueError(f"unknown tran_mode {self.tran_mode!r}")
         if self.retry_mode not in ("threshold", "always"):
@@ -223,6 +236,34 @@ def _objective_gather(params, src, tgt, angle_base, cfg: HOUVConfig):
     return _objective_cached(params, matches, src, tgt, angle_base, cfg)
 
 
+def _objective_scatter(params, src, tgt, angle_base, cfg: HOUVConfig):
+    """The objective through the chamfer op's own gradient: the truncated
+    CD of the transformed cloud against its pair's target, per replica, and
+    with ``use_view_loss`` the three projected CDs."""
+    r, t = reparametrize(params, angle_base, cfg.tran_mode)
+    bsz, kernel = r.shape[:2]
+    n = src.shape[1]
+    src_t = _apply(src, r, t).reshape(bsz * kernel, n, 3)
+    tgt_r = tgt[:, None].expand(bsz, kernel, -1, 3).reshape(
+        bsz * kernel, -1, 3)
+    cd_p, cd_t = calc_cd_percent(src_t, tgt_r, cfg.percent,
+                                 fast=cfg.fast_trim)
+    min_1 = torch.minimum(cd_p, cd_t)
+    loss = cfg.loss_weight * min_1
+    if cfg.use_view_loss:
+        for dim in range(3):
+            loss = loss + torch.minimum(*loss_view(src_t, tgt_r, dim=dim))
+    return loss.mean(), min_1.reshape(bsz, kernel)
+
+
+def _objective(params, src, tgt, angle_base, cfg: HOUVConfig):
+    """Mean loss over all replicas and per-replica min_1 (B, K), matches
+    taken at the current parameters."""
+    if cfg.grad_mode == "gather":
+        return _objective_gather(params, src, tgt, angle_base, cfg)
+    return _objective_scatter(params, src, tgt, angle_base, cfg)
+
+
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
@@ -259,6 +300,21 @@ def _adam_loop(src, tgt, angle_base, cfg: HOUVConfig, params: dict,
         raise ValueError(
             f"step count {n_steps} not divisible by nn_refresh {refresh}")
     losses = []
+    if cfg.grad_mode != "gather":
+        if refresh > 1:
+            raise NotImplementedError(
+                "nn_refresh > 1 supports the canonical objective only "
+                "(grad_mode='gather', use_view_loss=False)")
+        for _ in range(n_steps):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in params.items()}
+            loss, _ = _objective_scatter(leaves, src, tgt, angle_base, cfg)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            with torch.no_grad():
+                params = _adam_update(params, dict(zip(leaves, grads)),
+                                      opt_state, cfg.lr)
+            losses.append(loss.detach())
+        return params, opt_state, torch.stack(losses)
     for _ in range(n_steps // refresh):
         matches = _objective_matches(params, src, tgt, angle_base, cfg)
         for _ in range(refresh):
@@ -344,7 +400,7 @@ def houv_pass(src, tgt, params0: dict, angle_base: float, cfg: HOUVConfig):
         params, opt_state, _ = _adam_loop(src_p, tgt_p, angle_base, cfg_r,
                                           params, opt_state, n_steps)
     with torch.no_grad():
-        _, min_1 = _objective_gather(params, src, tgt, angle_base, cfg)
+        _, min_1 = _objective(params, src, tgt, angle_base, cfg)
         r, t = reparametrize(params, angle_base, cfg.tran_mode)
     return min_1, r, t
 

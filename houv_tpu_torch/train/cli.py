@@ -1,21 +1,27 @@
-"""Command-line entry of the test sweep (counterpart of
-``houv_tpu/train/cli.py:test_main`` on one device): the HOUV registration
-sweep and the VRCNet completion sweep.
+"""Command-line entries (counterpart of ``houv_tpu/train/cli.py`` on one
+device): the test sweep (HOUV registration, VRCNet completion) and VRCNet
+training.
 
     python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml [-l L -r R]
         [--data-path FILE] [--device cuda|cpu]
     python -m houv_tpu_torch.train.cli -c cfgs/vrcnet.yaml [--device cpu]
+    python -m houv_tpu_torch.train.cli train -c cfgs/vrcnet.yaml
+        [--data-path FILE] [--device cuda|cpu]
 
-Runs the test split batch by batch and writes ``results.h5`` (the (N, 4, 4)
-transforms, or the (N, num_points, 3) completions) and ``submission.zip``
-under ``<work_dir>/<model_name>/``. When the MVP .h5 file is absent, a
-synthetic split stands in.
+The sweep runs the test split batch by batch and writes ``results.h5`` (the
+(N, 4, 4) transforms, or the (N, num_points, 3) completions) and
+``submission.zip`` under ``<work_dir>/<model_name>/``; with ``load_model``
+set, the completion sweep runs that checkpoint's weights. ``train`` fits the
+config's completion model and writes ``network.ckpt`` and
+``best_<metric>_network.ckpt`` under ``<work_dir>/<model>_<loss>_<flag>/``.
+When the MVP .h5 file is absent, a synthetic split stands in.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
@@ -139,7 +145,8 @@ def _houv_sweep(cfg: Config, ds, device, log):
 
 def _completion_sweep(cfg: Config, ds, device, log):
     """Complete the test split batch by batch with the config's model
-    (seeded initialisation, no checkpoints yet): (N, num_points, 3)."""
+    (``load_model``'s weights, else the seeded initialisation):
+    (N, num_points, 3)."""
     trainer = CompletionTrainer(cfg, device)
     trainer.init_state()
     outs = []
@@ -202,5 +209,58 @@ def test_main(argv=None) -> dict:
     return {"results_h5": h5_path, "submission": zip_path, **counts}
 
 
+def train_main(argv=None) -> dict:
+    """Train the config's completion model (``CompletionTrainer.fit`` on the
+    train split, validating on the val split). Returns the trainer, its log
+    directory, the checkpoint ``fit`` wrote last, the per-step losses and
+    the wall seconds of ``fit`` (set-up excluded)."""
+    p = argparse.ArgumentParser(prog="houv_tpu_torch.train.cli train")
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("--data-path", default=None,
+                   help="MVP .h5 file; overrides the config's data_path "
+                        "(absent file -> synthetic fallback)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the plain versions of the "
+                        "kernels")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    if args.data_path:
+        cfg.data_path = args.data_path
+    if cfg.model_name == "houv":
+        raise NotImplementedError(
+            "model_name 'houv' has nothing to train; its evaluation entry "
+            "(houv_eval_main) is not ported yet (ROADMAP.md Queue 1, item "
+            "7); run the sweep without 'train'")
+    if is_registration(cfg):
+        raise NotImplementedError(
+            f"training or evaluating registration model {cfg.model_name!r} "
+            "is not ported yet (ROADMAP.md Queue 1, items 9 and 12)")
+    if cfg.n_devices and cfg.n_devices > 1:
+        raise NotImplementedError(
+            "multi-device training is not ported yet (ROADMAP.md Queue 1, "
+            "item 13)")
+    trainer = CompletionTrainer(cfg, device)
+    log = setup_logging(trainer.log_dir)
+    log.info("config: %s", cfg)
+    train_ds = build_dataset(cfg, "train")
+    val_ds = build_dataset(cfg, "val")
+    trainer.init_state()
+    t0 = time.perf_counter()
+    trainer.fit(train_ds, val_ds)
+    seconds = time.perf_counter() - t0
+    return {"trainer": trainer, "log_dir": trainer.log_dir,
+            "checkpoint": os.path.join(trainer.log_dir, "network.ckpt"),
+            "losses": trainer.losses, "seconds": seconds}
+
+
+def main(argv=None):
+    """``train ...`` trains; anything else is the test sweep."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "train":
+        return train_main(argv[1:])
+    return test_main(argv)
+
+
 if __name__ == "__main__":
-    test_main()
+    main()

@@ -1,9 +1,10 @@
 """Typed configuration read from the repository's ``cfgs/*.yaml``.
 
-Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep and
-the VRCNet completion sweep read. Keys of other models land in ``extras``,
-as unknown keys do there. The reference's comma-separated lists
-("2, 2, 2, 2") are parsed into tuples.
+Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep,
+the VRCNet completion sweep and VRCNet training read. Keys of other models
+land in ``extras``, as unknown keys do there. The reference's
+comma-separated lists ("2, 2, 2, 2", "0.01, 0.1, 0.5, 1") are parsed into
+tuples.
 """
 
 from __future__ import annotations
@@ -14,13 +15,26 @@ from typing import Any
 import yaml
 
 
-def _int_tuple(v) -> tuple:
-    """'2, 2, 2, 2', [2, 2, 2, 2] or 2 -> a tuple of ints."""
+def _parse_tuple(v, typ) -> tuple | None:
+    """'2, 2, 2, 2', [2, 2, 2, 2] or 2 -> a tuple of ``typ``; None stays."""
+    if v is None:
+        return None
     if isinstance(v, str):
         v = v.split(",")
     elif not isinstance(v, (list, tuple)):
         v = [v]
-    return tuple(int(x) for x in v)
+    return tuple(typ(x.strip() if isinstance(x, str) else x) for x in v)
+
+
+_TUPLE_FIELDS = {
+    "betas": float,
+    "varying_constant": float,
+    "varying_constant_epochs": int,
+    "lr_step_decay_epochs": int,
+    "lr_step_decay_rates": float,
+    "layers": int,
+    "knn_list": int,
+}
 
 
 @dataclasses.dataclass
@@ -29,7 +43,7 @@ class Config:
     model_name: str = "houv"
     flag: str = "debug"
     work_dir: str = "log/"
-    load_model: str | None = None    # checkpoints: not ported yet
+    load_model: str | None = None    # a checkpoint of train/checkpoint.py
     manual_seed: int | None = None
 
     # data
@@ -49,9 +63,29 @@ class Config:
     # 'bfloat16' AMP is not ported: None (f32) only
     compute_dtype: str | None = None
 
+    # optimization
+    nepoch: int = 100
+    start_epoch: int = 0
+    lr: float = 1e-4
+    lr_decay: bool = True
+    lr_decay_interval: int | None = 40
+    lr_decay_rate: float = 0.7
+    lr_step_decay_epochs: tuple | None = None
+    lr_step_decay_rates: tuple | None = None
+    lr_clip: float = 1e-6
+    optimizer: str = "Adam"
+    weight_decay: float = 0.0
+    betas: tuple = (0.9, 0.999)
+    varying_constant: tuple | None = (0.01, 0.1, 0.5, 1.0)
+    varying_constant_epochs: tuple | None = (5, 15, 30)
+    step_interval_to_print: int = 500
+    epoch_interval_to_save: int = 1
+    epoch_interval_to_val: int = 1
+
     # completion loss / eval
     loss: str = "cd"
     eval_emd: bool = False
+    use_gan: bool = False            # the cascade-GAN branch: not ported
 
     # completion model hyperparameters (VRCNet)
     layers: tuple = (2, 2, 2, 2)
@@ -63,7 +97,9 @@ class Config:
     num_coarse_raw: int = 1024
     num_fps: int = 2048
     distribution_loss: str = "KLD"
-    use_remat: bool = False          # training only; no effect at inference
+    # recompute the SK-SA units in the backward (batch headroom); no effect
+    # at inference, and the parameters keep their names either way
+    use_remat: bool = False
 
     # HOUV solver (solvers/houv.py HOUVConfig)
     kernel: int = 64
@@ -88,7 +124,8 @@ class Config:
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
         fields = {f.name for f in dataclasses.fields(cls)} - {"extras"}
-        cfg = cls(**{k: _int_tuple(v) if k in ("layers", "knn_list") else v
+        cfg = cls(**{k: _parse_tuple(v, _TUPLE_FIELDS[k])
+                     if k in _TUPLE_FIELDS else v
                      for k, v in d.items() if k in fields})
         cfg.extras = {k: v for k, v in d.items() if k not in fields}
         return cfg

@@ -16,8 +16,11 @@ from houv_tpu_torch.ops.emd import emd_auction, emd_auction_with_stats
 from houv_tpu_torch.ops.grouping import knn_indices, knn_points
 from houv_tpu_torch.ops.interpolate import three_nn
 from houv_tpu_torch.ops.sampling import furthest_point_sample
+from houv_tpu_torch.ops.scatter import scatter_add
 from houv_tpu_torch.solvers.houv import HOUVConfig, houv_solve
+from houv_tpu_torch.train.cli import main as torch_cli_main
 from houv_tpu_torch.train.cli import test_main as torch_test_main
+from houv_tpu_torch.train.cli import train_main as torch_train_main
 from houv_tpu_torch.train.config import Config
 from houv_tpu_torch.train.harness import CompletionTrainer
 
@@ -34,11 +37,14 @@ def test_every_module_imports_with_jax_blocked():
     names = _modules()
     for name in ("houv_tpu_torch.solvers.houv", "houv_tpu_torch.ops.grouping",
                  "houv_tpu_torch.ops.emd", "houv_tpu_torch.models.vrcnet",
-                 "houv_tpu_torch.train.harness", "houv_tpu_torch.state"):
+                 "houv_tpu_torch.train.harness", "houv_tpu_torch.state",
+                 "houv_tpu_torch.ops.scatter",
+                 "houv_tpu_torch.train.schedules",
+                 "houv_tpu_torch.train.checkpoint"):
         assert name in names
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'houv_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'houv_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import importlib\n"
         f"for name in {names!r}:\n"
@@ -70,8 +76,8 @@ def test_no_jax_or_houv_tpu_import_in_the_port():
     for path in files:
         for mod in _imported(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "houv_tpu"), \
-                (path, mod)
+            assert top not in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                               "houv_tpu"), (path, mod)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
@@ -97,6 +103,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     cfg.write_text("model_name: vrcnet\ndataset: mvp_cp\n")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         torch_test_main(["-c", str(cfg)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_train_main(["-c", str(cfg)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torch_cli_main(["train", "-c", str(cfg)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scatter_add(torch.zeros(1, 16, dtype=torch.int64), pts, 16)
     # asking for the CPU with tensors elsewhere is an error, not a move
     with pytest.raises(ValueError):
         chamfer_indices(pts, pts, device="meta")
@@ -129,3 +141,41 @@ def test_cpu_completion_ops_never_count_as_kernel_launches():
     assert knn_indices.launches == 0
     assert emd_auction_with_stats.launches == 0
     assert chamfer_indices.launches == 0
+
+
+def test_cpu_training_ops_never_count_as_kernel_launches():
+    """``scatter_add.launches`` counts kernel launches only: the plain
+    version, a chamfer backward on CPU tensors and a scatter-mode solver
+    step leave it at 0."""
+    from houv_tpu_torch.metrics.cd import calc_cd
+
+    scatter_add.launches = 0
+    chamfer_indices.launches = 0
+    out = torch.randn(2, 40, 3, requires_grad=True)
+    gt = torch.randn(2, 50, 3)
+    scatter_add(torch.randint(0, 9, (2, 40)), out.detach(), 9, device="cpu")
+    calc_cd(out, gt)[0].sum().backward()
+    assert out.grad is not None and torch.isfinite(out.grad).all()
+    houv_solve(gt, gt.flip(1), HOUVConfig(kernel=2, steps=2, angle_passes=1,
+                                          grad_mode="scatter"), device="cpu")
+    assert scatter_add.launches == 0
+    assert chamfer_indices.launches == 0
+
+
+def test_the_scatter_kernel_is_bound_and_has_no_fallback():
+    """The kernel's source and ctypes signature are registered with the
+    build, and the wrapper's CUDA branch has no ``try`` to fall back
+    through; nothing on the training path calls a library scatter."""
+    from houv_tpu_torch.kernels import _build, sources
+
+    assert "scatter.cu" in {p.name for p in sources()}
+    assert "houv_scatter_add" in _build._SIGNATURES
+    for rel in ("ops/scatter.py", "ops/chamfer.py", "metrics/cd.py"):
+        with open(os.path.join(_PKG, rel)) as f:
+            tree = ast.parse(f.read())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), rel
+        called = {n.func.attr for n in ast.walk(tree)
+                  if isinstance(n, ast.Call)
+                  and isinstance(n.func, ast.Attribute)}
+        assert not called & {"scatter_add_", "index_add_", "index_add",
+                             "compile"}, (rel, called)

@@ -131,8 +131,13 @@ def test_completion_branch_raises_what_is_not_ported(tmp_path):
         cfg = load_config(_tiny_cfg(tmp_path, **extra))
         with pytest.raises(NotImplementedError, match=match):
             model_from_config(cfg)
-    cfg = load_config(_tiny_cfg(tmp_path, load_model="net.ckpt"))
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    cfg = load_config(_tiny_cfg(tmp_path, use_gan=True))
+    with pytest.raises(NotImplementedError, match="use_gan"):
+        CompletionTrainer(cfg, "cpu")
+    # checkpoints are ported: a load_model that is not there is an error of
+    # the file system, not of the port
+    cfg = load_config(_tiny_cfg(tmp_path, load_model=str(tmp_path / "no.ckpt")))
+    with pytest.raises(FileNotFoundError):
         CompletionTrainer(cfg, "cpu").init_state()
     with pytest.raises(NotImplementedError, match="voxel"):
         build_dataset(load_config(_tiny_cfg(tmp_path,

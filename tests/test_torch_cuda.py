@@ -103,3 +103,79 @@ def test_emd_kernel_matches_plain(gen, b, n, eps, iters):
     torch.testing.assert_close(kd, pd, rtol=0, atol=0)
     torch.testing.assert_close(kr, pr, rtol=0, atol=0)
     torch.testing.assert_close(kb, pb, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,m", [(1024, 2048), (3072, 2048), (33, 7)])
+def test_emd_kernel_takes_clouds_of_different_sizes(gen, n, m):
+    from houv_tpu_torch.ops import emd
+
+    x1 = torch.rand((3, n, 3), generator=gen).cuda() - 0.5
+    x2 = torch.rand((3, m, 3), generator=gen).cuda() - 0.5
+    kd, ka, kr, kb = emd.emd_auction_with_stats(x1, x2, 0.005, 50)
+    pd, pa, pr, pb = emd._auction_plain(x1, x2, 0.005, 50)
+    torch.testing.assert_close(ka, pa, rtol=0, atol=0)
+    torch.testing.assert_close(kd, pd, rtol=0, atol=0)
+    torch.testing.assert_close(kr, pr, rtol=0, atol=0)
+    torch.testing.assert_close(kb, pb, rtol=0, atol=0)
+    x1.requires_grad_(True)
+    d, a = emd.emd_auction(x1, x2)
+    d.sum().backward()
+    ref = 2.0 * (x1.detach() - torch.gather(
+        x2, 1, a[..., None].expand(-1, -1, 3)))
+    torch.testing.assert_close(x1.grad, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n,m,c", [(64, 2048, 3072, 3), (3, 1999, 777, 3),
+                                     (5, 300, 130, 8), (2, 1, 4, 1),
+                                     (2, 5000, 3, 2)])
+def test_scatter_kernel_matches_plain_bit_for_bit(gen, b, n, m, c):
+    from houv_tpu_torch.ops import scatter
+
+    idx = torch.randint(-3, m + 3, (b, n), generator=gen).cuda()
+    vals = torch.randn((b, n, c), generator=gen).cuda()
+    before = scatter.scatter_add.launches
+    out = scatter.scatter_add(idx, vals, m)
+    assert scatter.scatter_add.launches == before + 1
+    # both add in ascending i from 0: equal, not close
+    torch.testing.assert_close(out, scatter._scatter_add_plain(idx, vals, m),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(out, scatter.scatter_add(idx, vals, m),
+                               rtol=0, atol=0)
+
+
+def test_scatter_kernel_rejects_what_it_does_not_take(gen):
+    from houv_tpu_torch.ops import scatter
+
+    idx = torch.zeros((1, 4), dtype=torch.int64).cuda()
+    with pytest.raises(ValueError, match="channels"):
+        scatter.scatter_add(idx, torch.zeros((1, 4, 9)).cuda(), 4)
+    with pytest.raises(ValueError, match="device"):
+        scatter.scatter_add(idx.cpu(), torch.zeros((1, 4, 3)).cuda(), 4)
+
+
+def test_chamfer_gradient_on_the_card(gen):
+    """The Function's gradients (two scatter launches) against autograd
+    through the gathered form with the same matches; autograd's gather
+    backward adds with atomics: 1e-5 of the largest entry."""
+    from houv_tpu_torch.ops import scatter
+    from houv_tpu_torch.ops.gather import gather_rows
+
+    a = torch.rand((4, 700, 3), generator=gen).cuda().requires_grad_(True)
+    b = torch.rand((4, 900, 3), generator=gen).cuda().requires_grad_(True)
+    w1 = torch.randn((4, 700), generator=gen).cuda()
+    w2 = torch.randn((4, 900), generator=gen).cuda()
+    before = scatter.scatter_add.launches
+    d1, d2, i1, i2 = chamfer.chamfer(a, b)
+    ga, gb = torch.autograd.grad((d1 * w1).sum() + (d2 * w2).sum(), (a, b))
+    assert scatter.scatter_add.launches == before + 2
+    r1 = ((a - gather_rows(b, i1)) ** 2).sum(-1)
+    r2 = ((b - gather_rows(a, i2)) ** 2).sum(-1)
+    ra, rb = torch.autograd.grad((r1 * w1).sum() + (r2 * w2).sum(), (a, b))
+    for ours, ref in ((ga, ra), (gb, rb)):
+        torch.testing.assert_close(ours, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+    # gt needs no gradient: one launch
+    before = scatter.scatter_add.launches
+    d1, d2, _, _ = chamfer.chamfer(a.detach(), b)
+    (d1.sum() + d2.sum()).backward()
+    assert scatter.scatter_add.launches == before + 1

@@ -81,9 +81,25 @@ def test_zero_rounds_is_the_nearest_item(rng):
     np.testing.assert_allclose(d.numpy(), sq.min(-1), rtol=1e-6)
 
 
-def test_n_not_m_raises():
-    with pytest.raises(ValueError, match="n == m"):
-        temd.emd_auction(torch.zeros(1, 10, 3), torch.zeros(1, 12, 3))
+@pytest.mark.parametrize("n,m", [(10, 12), (48, 32)],
+                         ids=["fewer_bidders", "more_bidders"])
+def test_n_not_m_matches_jax(rng, n, m):
+    """The auction takes clouds of different sizes (VRCNet's coarse stages
+    under ``loss: emd``), as JAX's XLA path does.
+    With fewer bidders than items every bidder gets an item of its own; with
+    more, those left at the round cap take their nearest item."""
+    x1 = rng.uniform(-0.5, 0.5, (2, n, 3)).astype(np.float32)
+    x2 = rng.uniform(-0.5, 0.5, (2, m, 3)).astype(np.float32)
+    dist, assignment = temd.emd_auction(torch.tensor(x1), torch.tensor(x2))
+    assert dist.shape == assignment.shape == (2, n)
+    assert int(assignment.min()) >= 0 and int(assignment.max()) < m
+    if n < m:
+        assert all(len(torch.unique(row)) == n for row in assignment)
+    jd, ja = jemd(jnp.asarray(x1), jnp.asarray(x2), 0.005, 50)
+    np.testing.assert_array_equal(assignment.numpy(), np.asarray(ja))
+    # JAX takes its distances in the expansion form: 1e-4 relative
+    np.testing.assert_allclose(dist.numpy(), np.asarray(jd), rtol=1e-4,
+                               atol=1e-8)
 
 
 def test_calc_emd_is_the_mean_matched_distance(rng):

@@ -62,6 +62,85 @@ def test_objective_and_gradient_match_at_step0():
                                    rtol=1e-4, atol=1e-7, err_msg=name)
 
 
+@pytest.mark.parametrize("use_view_loss", [False, True])
+def test_scatter_mode_objective_and_gradient_match_at_step0(use_view_loss):
+    """``grad_mode='scatter'``: the loss through ``calc_cd_percent`` (and
+    with ``use_view_loss`` the three projected CDs), differentiated by the
+    chamfer op's own scatter-add backward, against JAX's
+    ``_objective_scatter``."""
+    src, tgt, _ = _pairs(2, 128)
+    jcfg = jhouv.HOUVConfig(kernel=8, use_pallas=False, grad_mode="scatter",
+                            use_view_loss=use_view_loss)
+    cfg = config_from_jax(jcfg)
+    assert cfg.grad_mode == "scatter" and cfg.use_view_loss == use_view_loss
+    p_np = _jax_params(0, 2, 8)
+
+    def f(p):
+        return jhouv._objective(p, jnp.asarray(src), jnp.asarray(tgt), 0.0,
+                                jcfg)
+
+    (jloss, jmin1), jgrad = jax.value_and_grad(f, has_aux=True)(
+        {k: jnp.asarray(v) for k, v in p_np.items()})
+    params = {k: v.requires_grad_(True)
+              for k, v in params_from_jax(p_np, "cpu").items()}
+    loss, min1 = thouv._objective(
+        params, torch.as_tensor(src), torch.as_tensor(tgt), 0.0, cfg)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    # the tolerances of the gather-mode test above: the same f32 sums in
+    # another order
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(min1.detach().numpy(), np.asarray(jmin1),
+                               rtol=1e-5)
+    for name, g in zip(params, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgrad[name]),
+                                   rtol=1e-4, atol=1e-7, err_msg=name)
+    if not use_view_loss:
+        # both formulations are one objective: equal value, and gradients
+        # equal up to the order of the sums
+        gcfg = dataclasses.replace(cfg, grad_mode="gather")
+        gleaves = {k: v.detach().clone().requires_grad_(True)
+                   for k, v in params.items()}
+        gloss, _ = thouv._objective(gleaves, torch.as_tensor(src),
+                                    torch.as_tensor(tgt), 0.0, gcfg)
+        ggrads = torch.autograd.grad(gloss, list(gleaves.values()))
+        np.testing.assert_allclose(gloss.item(), loss.item(), rtol=1e-6)
+        for name, g, gg in zip(params, grads, ggrads):
+            np.testing.assert_allclose(g.numpy(), gg.numpy(), rtol=1e-4,
+                                       atol=1e-7, err_msg=name)
+
+
+def test_scatter_mode_solve_runs_and_rejects_what_jax_rejects():
+    src, tgt, _ = _pairs(2, 96)
+    cfg = thouv.HOUVConfig(kernel=4, steps=6, angle_passes=2,
+                           retry_mode="always", grad_mode="scatter")
+    key = jax.random.PRNGKey(2)
+    p_np = {k: np.asarray(v)
+            for k, v in jhouv.init_params(key, 2, 4).items()}
+    out = thouv.houv_solve(torch.as_tensor(src), torch.as_tensor(tgt), cfg,
+                           params0=params_from_jax(p_np, "cpu"),
+                           device="cpu")
+    jcfg = jhouv.HOUVConfig(kernel=4, steps=6, angle_passes=2,
+                            retry_mode="always", grad_mode="scatter",
+                            use_pallas=False)
+    jout = jhouv.houv_solve_chunked(jnp.asarray(src), jnp.asarray(tgt), key,
+                                    jcfg)
+    # 6 Adam steps per window from identical restarts
+    np.testing.assert_allclose(out["transform"].numpy(),
+                               np.asarray(jout["transform"]), atol=1e-3)
+    np.testing.assert_allclose(out["rmse"].numpy(), np.asarray(jout["rmse"]),
+                               rtol=1e-3)
+    # as in the JAX solver: no correspondence reuse outside the canonical
+    # objective; the view loss under 'gather' is not ported
+    with pytest.raises(NotImplementedError, match="nn_refresh"):
+        thouv.houv_solve(torch.as_tensor(src), torch.as_tensor(tgt),
+                         dataclasses.replace(cfg, nn_refresh=2),
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="7c"):
+        thouv.HOUVConfig(use_view_loss=True)
+    with pytest.raises(ValueError, match="grad_mode"):
+        thouv.HOUVConfig(grad_mode="dense")
+
+
 def _jax_pass_losses(src, tgt, params, jcfg):
     """JAX's per-step losses over the schedule, stepped as ``_adam_loop``
     steps (matches once per refresh block, then optax Adam)."""
@@ -165,7 +244,7 @@ def test_quality_gate_on_mvp_statistics_fixture():
 
 @pytest.mark.parametrize("field,value", [
     ("objective", "multi_percent"), ("use_view_loss", True),
-    ("two_bracket", True), ("grad_mode", "scatter"), ("nn_select", True),
+    ("two_bracket", True), ("nn_select", True),
     ("voxel_downsample", 32), ("window_select", "consensus"),
     ("rotation_mode", "euler"), ("reparam", "sigmoid"),
 ])

@@ -293,7 +293,12 @@ def test_vrcnet_local_folding(rng, monkeypatch):
     _close(ours["result"], ref["result"])
 
 
-def test_vrcnet_train_prefix_raises():
-    with pytest.raises(NotImplementedError, match="7a"):
-        tv.VRCNet(**SMALL)(torch.zeros(1, 256, 3), torch.zeros(1, 256, 3),
-                           "train")
+def test_vrcnet_unknown_prefix_and_wrong_noise_count_raise():
+    """A prefix the model does not know raises, and so does 'train' with
+    the wrong number of noise tensors."""
+    tm = tv.VRCNet(**SMALL)
+    x = torch.zeros(1, 256, 3)
+    with pytest.raises(ValueError, match="'train', 'val' or 'test'"):
+        tm(x, x, "fit")
+    with pytest.raises(ValueError, match="2 noise"):
+        tm(x, x, "train", alpha=0.5, noise=[torch.zeros(1, 128)])
