@@ -3,52 +3,59 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failed check exits non-zero:
+Phases, each printing JSON lines (and ``phase_done`` with its seconds); any
+failed check exits non-zero:
 
 1. the card (nvidia-smi name and power limit) and the kernel build
    (nvcc, sm_90a, from ``houv_tpu_torch/csrc``, one nvcc per source);
-2. the nearest-neighbour kernel against its plain PyTorch version at the
-   solver's shared-query layout, at the train step's shapes (64 rows of
-   2048 gt points against 1024, 3072 and 2048) and on a ragged case;
-3. the FPS kernel against its plain version (exact index equality) at the
-   solver's and the train step's shapes (the gt's full permutation 2048 ->
-   2048, 3072 -> 2048 and the decoder's pyramid 3072 -> 1536 -> 768 -> 384);
-4. the kNN kernel against its plain version at VRCNet's shapes and on a
-   ragged case (exact index equality, distances to 1e-6 relative);
-5. the auction EMD kernel against its plain version at (4, 2048): the
-   train and eval settings and a permuted copy (EMD 0); the scatter-add
-   kernel against its plain version (bit for bit) at the train step's and
-   the solver's shapes, ragged, all-equal and out-of-range cases, and
-   against the dense one-hot product; the chamfer gradient against
-   autograd through the gathered form with the same matches, which must be
-   the dense golden's;
-6. the registration path: the port's ``test_main`` on
+2. each of the eight kernels against its plain PyTorch version on the card:
+   the nearest-neighbour search ``nn_both`` (shared-query layout, the train
+   steps' shapes, ragged) and its coordinate form ``nn_select`` (the
+   solver's shape, unshared, ragged, duplicates: bit for bit); ``fps``
+   (exact indices at the solver's, VRCNet's and ECG's shapes, the uniform
+   losses' seeds included); ``knn`` at VRCNet's shapes and at ECG's (the
+   poolings, the three-NN, the uniform losses' thousands of tiny clouds
+   with repeated points) and ``knn_wide`` at the four self-kNN shapes of
+   ECG's DenseConv, EFExpansion's shape, ragged cases in every k bucket and
+   duplicated rows (exact indices); the auction ``emd`` (train and eval
+   settings, a permuted copy, clouds of different sizes); ``scatter`` (bit
+   for bit, and against the dense one-hot product) and ``gather_rows`` (bit
+   for bit, out-of-range indices included); the chamfer gradient against
+   autograd through the gathered form;
+3. the registration path: the port's ``test_main`` on
    ``cfgs/houv_fast.yaml`` at full width over a 16-pair synthetic split,
    then on ``cfgs/houv.yaml`` over 4 pairs, with each kernel's launch count
    on that run; then both configs over 100 pairs, their own batch size, for
    throughput, and houv_fast on a 16-pair split rotated up to 90°, which
    runs the retries;
-7. VRCNet on the card against the port's CPU path at the parity tests'
-   size (same seeded weights and clouds); then the completion path:
-   ``test_main`` on ``cfgs/vrcnet.yaml`` at full
-   width over a 64-cloud synthetic test split, then ``validate`` with
-   ``eval_emd`` over a 64-cloud val split, each with its launch counts;
-   then both over 1024 and 256 clouds for throughput;
-8. VRCNet training: one train step at the parity tests' size on the card
-   against the port's CPU path in f64 on the same picks; then ``train_main`` on ``cfgs/vrcnet.yaml``
-   at full width (batch 32, two epochs of four steps on the synthetic
-   split, ``validate`` and a checkpoint after each), with the launch counts
-   of the run held against the counts derived from the code, peak memory
-   with and without ``use_remat``, ``test_main`` with ``load_model`` on the
-   checkpoint, 20 steps on one repeated batch (the loss must fall), and
-   four steps with ``loss: emd`` (four auctions a step, the coarse stages'
-   between clouds of different sizes);
-   then a short ``houv_solve`` with ``grad_mode='scatter'`` beside the
-   gather mode;
-9. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
-   one VRCNet test batch (32 clouds) and of one VRCNet train step;
-10. a ``kernels`` line: each kernel's time at its main-path shape beside its
-   plain version, its bound on the card and a PyTorch library yardstick.
+4. VRCNet on the card against the port's CPU path at the parity tests'
+   size; then the completion path of ``cfgs/vrcnet.yaml``, ``cfgs/pcn.yaml``
+   and ``cfgs/ecg.yaml`` at full width: ``test_main`` over a 64-cloud
+   synthetic test split and ``validate`` with ``eval_emd`` over a 64-cloud
+   val split, each with its launch counts held against the counts derived
+   from the code (``LAUNCHES``), then over 512 and 128 clouds for
+   throughput; and ``test_main`` on ``cfgs/vrcnet.yaml`` with ``num_points:
+   4096, num_input: 2048`` and no local folding, which runs both of
+   VRCNet's ``EFExpansion``s;
+5. training: one VRCNet and one ECG train step at the parity tests' size on
+   the card against the port's CPU path in f64 on the same picks; then for
+   each of the three configs at full width ``train_main`` (batch 32, two
+   epochs of four steps on the synthetic split, ``validate`` and a
+   checkpoint after each) with the launch counts of the run held against
+   ``LAUNCHES``, the checkpoint read back to bit-equal predictions by a
+   trainer and by ``test_main`` with ``load_model``, and 10 steps on one
+   repeated batch (the loss must fall); for VRCNet also ``use_remat`` and
+   ``loss: emd``, for ECG ``loss: emd``;
+6. short ``houv_solve`` runs of ``cfgs/houv.yaml`` (4 pairs, 100 steps):
+   ``grad_mode='scatter'`` beside the gather mode, and ``nn_select=True``
+   beside the default, then the exported row gather on that solve's
+   matches;
+7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
+   one VRCNet test batch (32 clouds) and of one VRCNet and one ECG train
+   step;
+8. a ``kernels`` line: each of the eight kernels' time at its main-path
+   shape beside its plain version, its bound on the card and a PyTorch
+   library yardstick, with its launches on the paths above.
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
 the repository around this file; imports nothing of JAX.
@@ -167,6 +174,11 @@ def phase_nn(gen):
     for m in (1024, 3072, 2048):
         out = torch.rand((64, m, 3), generator=gen).to(dev) - 0.5
         err = max(err, check_nn(gt, out, f"train_B64_N2048_M{m}"))
+    # PCN's and ECG's two: 32 rows of gt against coarse (1024) and fine
+    gt = gt[:32].contiguous()
+    for m in (1024, 2048):
+        out = torch.rand((32, m, 3), generator=gen).to(dev) - 0.5
+        err = max(err, check_nn(gt, out, f"train_B32_N2048_M{m}"))
     del gt, out
     a = torch.randn((1, 2047, 3), generator=gen).to(dev)
     b = torch.randn((1, 1500, 3), generator=gen).to(dev)
@@ -176,11 +188,15 @@ def phase_nn(gen):
 def phase_fps(gen):
     from houv_tpu_torch.ops import sampling
 
-    # the solver's phases; then the train step's: the gt's full permutation
-    # (K == N), coarse_high 3072 -> 2048 and the decoder's pyramid
+    # the solver's phases; then VRCNet's train step: the gt's full
+    # permutation (K == N), coarse_high 3072 -> 2048 and the decoder's
+    # pyramid; then ECG's at its batch: the encoder's hierarchy and the
+    # uniform losses' seeds (5% of the fine and of the coarse cloud)
     for b, n, k in ((8, 2048, 512), (8, 2048, 1024), (8, 4096, 2048),
                     (8, 2048, 2048), (8, 3072, 2048), (8, 3072, 1536),
-                    (8, 1536, 768), (8, 768, 384)):
+                    (8, 1536, 768), (8, 768, 384),
+                    (32, 3072, 1024), (32, 1024, 256), (32, 256, 64),
+                    (32, 2048, 102), (32, 1024, 51)):
         pts = torch.randn((b, n, 3), generator=gen).cuda()
         ki = sampling.furthest_point_sample(pts, k)
         pi = sampling._fps_plain(pts, k)
@@ -217,7 +233,8 @@ def check_knn(q, r, k, name):
 
 def phase_knn(gen):
     """At VRCNet's level-0 shapes (batch 32): the self-kNN at k 20, the pk
-    query 1536 x 3072 at k 10, three_nn 3072 x 1536; and a ragged case."""
+    query 1536 x 3072 at k 10, three_nn 3072 x 1536; a ragged case; then
+    ECG's shapes."""
     b, n = 32, 3072
     pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
     half = pts[:, ::2].contiguous()
@@ -226,7 +243,57 @@ def phase_knn(gen):
     err = max(err, check_knn(pts, half, 3, "three_nn_B32_M3072_N1536_k3"))
     q = torch.randn((2, 3071, 3), generator=gen).cuda()
     r = torch.randn((2, 1499, 3), generator=gen).cuda()
-    return max(err, check_knn(q, r, 17, "ragged_M3071_N1499_k17"))
+    err = max(err, check_knn(q, r, 17, "ragged_M3071_N1499_k17"))
+    del half, q, r
+    return max(err, _phase_knn_ecg(pts, gen))
+
+
+def _uniform_loss_groups(pcd, p):
+    """The ball neighbourhoods ``get_uniform_loss`` hands to the kNN for the
+    percentage ``p``: (B, N, 3) -> (B x 5% of N, max(N p, 2), 3). A ball
+    with fewer points than slots repeats its first hit, so rows are
+    duplicated."""
+    import math
+
+    from houv_tpu_torch.ops import grouping, sampling
+    from houv_tpu_torch.ops.gather import gather_rows
+
+    b, n, _ = pcd.shape
+    npoint, nsample = max(int(n * 0.05), 1), max(int(n * p), 2)
+    saved = sampling.furthest_point_sample.launches
+    seeds = gather_rows(pcd, sampling.furthest_point_sample(pcd, npoint))
+    sampling.furthest_point_sample.launches = saved
+    idx = grouping.ball_query(0.0, math.sqrt(p), nsample, pcd, seeds)
+    return gather_rows(pcd, idx.reshape(b, -1)).reshape(b * npoint, nsample, 3)
+
+
+def _phase_knn_ecg(pts, gen):
+    """ECG's shapes on cfgs/ecg.yaml (batch 32): the three poolings of
+    ``edge_preserve_sampling`` (each level's picks against the level, k 16),
+    the three ``three_nn`` on the way up (k 3), and the uniform losses'
+    thousands of tiny clouds with repeated points (k 2) for the fine (2048)
+    and the coarse (1024) cloud at all five percentages."""
+    err = 0.0
+    levels = [pts]
+    for n in (1024, 256, 64):
+        pick = torch.randperm(levels[-1].shape[1], generator=gen)[:n].cuda()
+        levels.append(levels[-1][:, pick].contiguous())
+    for fine, coarse in zip(levels, levels[1:]):
+        m, n = coarse.shape[1], fine.shape[1]
+        err = max(err, check_knn(coarse, fine, 16, f"pool_B32_M{m}_N{n}_k16"))
+        err = max(err, check_knn(fine, coarse, 3,
+                                 f"three_nn_B32_M{n}_N{m}_k3"))
+    for n in (2048, 1024):
+        pcd = pts[:, :n].contiguous()
+        for p in (0.004, 0.006, 0.008, 0.010, 0.012):
+            g = _uniform_loss_groups(pcd, p)
+            dup = int((g[:, 1:] == g[:, :1]).all(-1).sum())
+            emit({"phase": "knn_check", "case": "uniform_loss_groups",
+                  "cloud": n, "percentage": p, "groups": list(g.shape),
+                  "rows_repeating_the_first": dup})
+            err = max(err, check_knn(
+                g, g, 2, f"uniform_B{g.shape[0]}_N{g.shape[1]}_k2"))
+    return err
 
 
 def phase_emd(gen):
@@ -304,7 +371,8 @@ def check_scatter(idx, vals, m, name):
 
 
 def phase_scatter(gen):
-    """At the train step's shapes ((64, 2048) -> 1024, 3072, 2048 rows) and
+    """At the train steps' shapes (VRCNet's (64, 2048) -> 1024, 3072, 2048
+    rows, PCN's and ECG's (32, 2048) -> 1024, 2048) and
     the solver's scatter mode ((1024, 2048) -> 2048), a ragged case, eight
     channels, every index equal, indices out of range; and against the
     dense one-hot product at a small size (another order of summation:
@@ -318,6 +386,9 @@ def phase_scatter(gen):
     for m in (1024, 3072, 2048):
         err = max(err, check_scatter(*case(64, 2048, m, 3), m,
                                      f"train_B64_N2048_M{m}"))
+    for m in (1024, 2048):                  # PCN's and ECG's two calc_cd
+        err = max(err, check_scatter(*case(32, 2048, m, 3), m,
+                                     f"train_B32_N2048_M{m}"))
     err = max(err, check_scatter(*case(1024, 2048, 2048, 3), 2048,
                                  "solver_B1024_N2048_M2048"))
     err = max(err, check_scatter(*case(3, 1999, 777, 3), 777,
@@ -342,6 +413,141 @@ def phase_scatter(gen):
     if not d <= 1e-5:
         fail(f"scatter_add differs from the one-hot product by {d:.3g}")
     return err
+
+
+def check_knn_wide(q, r, k, name):
+    """Wide kernel vs plain: exact index equality; returns the largest
+    difference between the two picks' distances (f64; 0 when equal)."""
+    from houv_tpu_torch.ops import grouping
+
+    saved = (grouping.knn_indices.launches, grouping.knn_indices.wide_launches)
+    ki = grouping.knn_indices(q, r, k)
+    used = grouping.knn_indices.wide_launches - saved[1]
+    grouping.knn_indices.launches, grouping.knn_indices.wide_launches = saved
+    pi = grouping._knn_plain(q, r, k)
+    torch.cuda.synchronize()
+    mism = int((ki != pi).sum())
+    err = 0.0
+    ascending = True
+    for b in range(q.shape[0]):       # per cloud: the f64 maps are large
+        q64, r64 = q[b].double(), r[b].double()
+        kd = ((q64[:, None] - r64[ki[b]]) ** 2).sum(-1)
+        pd = ((q64[:, None] - r64[pi[b]]) ** 2).sum(-1)
+        err = max(err, float((kd - pd).abs().max()))
+        ascending &= bool((kd[:, :-1] <= kd[:, 1:] * (1 + 1e-4) + 1e-12).all())
+    emit({"phase": "knn_wide_check", "case": name, "query": list(q.shape),
+          "ref": list(r.shape), "k": k, "index_mismatches": mism,
+          "max_abs_dist_err": err, "ascending": ascending,
+          "wide_launches": used})
+    if mism or used != 1 or not ascending:
+        fail(f"knn_wide {name}: {mism} indices differ from the plain "
+             f"version ({used} wide launches, ascending {ascending})")
+    return err
+
+
+def phase_knn_wide(gen):
+    """At the four self-kNN shapes of ECG's DenseConv on cfgs/ecg.yaml
+    (batch 32: 3072 points of 24 channels, then 1024, 256 and 64 points of
+    48, k 16; features after a ReLU, so many are exactly 0), at
+    EFExpansion's shape in VRCNet (3072 points of 256 channels, k 4), and on
+    ragged cases that reach every k bucket."""
+    def feats(b, n, c, relu=True):
+        x = torch.randn((b, n, c), generator=gen).cuda()
+        return torch.relu(x) if relu else x
+
+    err = 0.0
+    for n, c in ((3072, 24), (1024, 48), (256, 48), (64, 48)):
+        x = feats(32, n, c)
+        err = max(err, check_knn_wide(x, x, 16, f"denseconv_B32_N{n}_C{c}"))
+    x = feats(32, 3072, 256, relu=False)
+    err = max(err, check_knn_wide(x, x, 4, "efexpansion_B32_N3072_C256"))
+    del x
+    for (m, n, c, k) in ((1999, 777, 37, 17), (300, 500, 9, 40),
+                         (130, 70, 513, 8), (5, 3, 12, 3)):
+        q, r = feats(2, m, c, False), feats(2, n, c, False)
+        err = max(err, check_knn_wide(q, r, k, f"ragged_M{m}_N{n}_C{c}_k{k}"))
+    # duplicated rows: exact ties, which go to the smaller index
+    x = feats(4, 512, 24)
+    x = torch.cat([x, x[:, :256]], 1)
+    return max(err, check_knn_wide(x, x, 16, "duplicates_B4_N768_C24"))
+
+
+def check_nn_select(a, b, name):
+    """Kernel vs plain: both coordinate outputs bit for bit."""
+    from houv_tpu_torch.ops import chamfer
+
+    saved = chamfer.nn_select.launches
+    k1, k2 = chamfer.nn_select(a, b)
+    chamfer.nn_select.launches = saved
+    p1, p2 = chamfer._nn_select_plain(a, b)
+    torch.cuda.synchronize()
+    mism = int((k1 != p1).sum()) + int((k2 != p2).sum())
+    err = max(float((k1 - p1).abs().max()), float((k2 - p2).abs().max()))
+    emit({"phase": "nn_select_check", "case": name, "a": list(a.shape),
+          "b": list(b.shape), "mismatches": mism, "max_abs_err": err})
+    if mism:
+        fail(f"nn_select {name}: {mism} coordinates differ from the plain "
+             f"version (max {err:.3g})")
+    return err
+
+
+def phase_nn_select(gen):
+    """At the solver's shape on cfgs/houv.yaml (16 target clouds shared by
+    64 restarts each, 2048 points a side), without sharing, with a share
+    that is no multiple of 8, and ragged."""
+    a = torch.rand((16, 2048, 3), generator=gen).cuda() - 0.5
+    b = (a.repeat_interleave(64, 0)
+         + 0.05 * torch.randn((1024, 2048, 3), generator=gen).cuda())
+    err = check_nn_select(a, b, "solver_B16_K64_N2048_M2048")
+    del b
+    b = torch.rand((16, 1024, 3), generator=gen).cuda() - 0.5
+    err = max(err, check_nn_select(a, b, "unshared_B16_N2048_M1024"))
+    a = torch.randn((3, 1500, 3), generator=gen).cuda()
+    b = torch.randn((9, 777, 3), generator=gen).cuda()
+    err = max(err, check_nn_select(a, b, "ragged_B3_K3_N1500_M777"))
+    b = torch.cat([a, a[:, :100]], 1)      # exact ties, and distance 0
+    return max(err, check_nn_select(a, b, "duplicates_B3_N1500_M1600"))
+
+
+def check_gather_rows(src, idx, name):
+    """Kernel vs plain, and vs ``torch.gather`` where every index is in
+    range: bit for bit."""
+    from houv_tpu_torch.ops import scatter
+
+    saved = scatter.gather_rows_kernel.launches
+    out = scatter.gather_rows_kernel(src, idx)
+    scatter.gather_rows_kernel.launches = saved
+    plain = scatter._gather_rows_plain(src, idx)
+    torch.cuda.synchronize()
+    mism = int((out != plain).sum())
+    outside = int(((idx < 0) | (idx >= src.shape[1])).sum())
+    if not outside:
+        mism += int((out != torch.gather(
+            src, 1, idx[..., None].expand(-1, -1, src.shape[-1]))).sum())
+    err = float((out - plain).abs().max())
+    emit({"phase": "gather_rows_check", "case": name, "src": list(src.shape),
+          "idx": list(idx.shape), "out_of_range": outside,
+          "mismatches": mism, "max_abs_err": err})
+    if mism:
+        fail(f"gather_rows {name}: {mism} elements differ")
+    return err
+
+
+def phase_gather_rows(gen):
+    """At the solver's shape (16 clouds of 2048 rows, 64 x 2048 indices
+    each), eight channels, a ragged case and indices out of range."""
+    def case(b, m, n, c, lo=0, hi=None):
+        idx = torch.randint(lo, m if hi is None else hi, (b, n),
+                            generator=gen).cuda()
+        return torch.randn((b, m, c), generator=gen).cuda(), idx
+
+    err = check_gather_rows(*case(16, 2048, 64 * 2048, 3),
+                            "solver_B16_M2048_N131072")
+    err = max(err, check_gather_rows(*case(5, 130, 300, 8), "channels_8"))
+    err = max(err, check_gather_rows(*case(3, 777, 1999, 1), "ragged_C1"))
+    err = max(err, check_gather_rows(*case(2, 40, 64, 67), "wide_C67"))
+    return max(err, check_gather_rows(
+        *case(4, 500, 2048, 3, lo=-100, hi=600), "negative_and_past_the_end"))
 
 
 def phase_chamfer_grad(gen):
@@ -474,75 +680,151 @@ def phase_main():
     return fast
 
 
+class _Count:
+    """One kernel's launch count, an attribute of its wrapper."""
+
+    def __init__(self, fn, attr="launches"):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
 def _completion_counters():
-    from houv_tpu_torch.ops.chamfer import chamfer_indices
+    from houv_tpu_torch.ops.chamfer import chamfer_indices, nn_select
     from houv_tpu_torch.ops.emd import emd_auction_with_stats
     from houv_tpu_torch.ops.grouping import knn_indices
     from houv_tpu_torch.ops.sampling import furthest_point_sample
-    from houv_tpu_torch.ops.scatter import scatter_add
+    from houv_tpu_torch.ops.scatter import gather_rows_kernel, scatter_add
 
-    return {"knn": knn_indices, "fps": furthest_point_sample,
-            "nn_both": chamfer_indices, "emd": emd_auction_with_stats,
-            "scatter_add": scatter_add}
+    return {"knn": _Count(knn_indices),
+            "knn_wide": _Count(knn_indices, "wide_launches"),
+            "fps": _Count(furthest_point_sample),
+            "nn_both": _Count(chamfer_indices),
+            "emd": _Count(emd_auction_with_stats),
+            "scatter_add": _Count(scatter_add),
+            "nn_select": _Count(nn_select),
+            "gather_rows": _Count(gather_rows_kernel)}
 
 
-def _vrcnet_cfg(tmp, n_clouds):
-    """A temp copy of cfgs/vrcnet.yaml over an n-cloud synthetic split,
-    with eval_emd on."""
-    with open(REPO / "cfgs" / "vrcnet.yaml") as f:
+def _zero(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def _read(counters):
+    """The counts that are not 0."""
+    return {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def _times(per_unit, units):
+    return {k: v * units for k, v in per_unit.items()}
+
+
+def _sum(*counts):
+    keys = sorted({k for c in counts for k in c})
+    total = {k: sum(c.get(k, 0) for c in counts) for k in keys}
+    return {k: v for k, v in total.items() if v}
+
+
+# Launches per batch of each model at its config's width, derived from the
+# code. ``test``: one forward. ``val`` adds the chamfer metric (and one
+# auction with eval_emd). ``train``: one step with ``loss: cd``.
+# vrcnet: 14 knn (8 graphs, 3 pooling, 3 three-NN); fps: the decoder's
+# 3-level pyramid and coarse_high 3072 -> 2048, in training also the gt's;
+# 4 calc_cd (one nn_both forward and, the gt needing no gradient, one
+# scatter backward each).
+# ecg: 4 DenseConv graphs on knn_wide; knn for 3 poolings and 3 three-NN;
+# fps for 3 poolings and the trim 3072 -> 2048; a train step adds the two
+# uniform losses (5 fps and 5 knn each) and 2 calc_cd.
+# pcn: no kernel in its forward; 2 calc_cd a train step.
+LAUNCHES = {
+    "vrcnet": {"test": {"knn": 14, "fps": 4},
+               "val": {"knn": 14, "fps": 4, "nn_both": 1},
+               "train": {"knn": 14, "fps": 5, "nn_both": 4,
+                         "scatter_add": 4}},
+    "ecg": {"test": {"knn_wide": 4, "knn": 6, "fps": 4},
+            "val": {"knn_wide": 4, "knn": 6, "fps": 4, "nn_both": 1},
+            "train": {"knn_wide": 4, "knn": 16, "fps": 14, "nn_both": 2,
+                      "scatter_add": 2}},
+    "pcn": {"test": {}, "val": {"nn_both": 1},
+            "train": {"nn_both": 2, "scatter_add": 2}},
+}
+
+
+def _model_cfg(tmp, model, n_clouds, **extra):
+    """A temp copy of cfgs/<model>.yaml over an n-cloud synthetic split,
+    ``extra`` overriding its keys."""
+    with open(REPO / "cfgs" / f"{model}.yaml") as f:
         raw = yaml.safe_load(f)
-    raw.update(synthetic_size=n_clouds, work_dir=str(tmp), eval_emd=True)
-    path = Path(tmp) / f"vrcnet_{n_clouds}.yaml"
+    raw.update(synthetic_size=n_clouds, work_dir=str(tmp), **extra)
+    path = Path(tmp) / (f"{model}_{n_clouds}_" + "_".join(
+        f"{k}{v}" for k, v in sorted(extra.items())) + ".yaml")
     path.write_text(yaml.safe_dump(raw))
     return str(path)
 
 
-def run_completion(tmp, n_test, n_val, counters):
-    """``test_main`` over an n_test-cloud test split, then ``validate``
-    over an n_val-cloud val split, each with the counts set to 0 just
-    before it and read just after."""
+def run_completion(tmp, n_test, n_val, counters, model="vrcnet",
+                   eval_emd=True):
+    """``test_main`` on cfgs/<model>.yaml over an n_test-cloud test split,
+    then ``validate`` over an n_val-cloud val split, each with the counts
+    set to 0 just before it and read just after, and held against the
+    counts derived from the code."""
     from houv_tpu_torch.train.cli import build_dataset, test_main
     from houv_tpu_torch.train.config import load_config
     from houv_tpu_torch.train.harness import CompletionTrainer
     from houv_tpu_torch.train.submission import read_results_h5
 
-    for c in counters.values():
-        c.launches = 0
-    res = test_main(["-c", _vrcnet_cfg(tmp, n_test)])
-    test_launches = {k: c.launches for k, c in counters.items()}
+    config = f"cfgs/{model}.yaml"
+    _zero(counters)
+    res = test_main(["-c", _model_cfg(tmp, model, n_test)])
+    test_launches = _read(counters)
     results = read_results_h5(res["results_h5"])
     if results.shape != (n_test, 2048, 3) or not np.isfinite(results).all():
-        fail(f"vrcnet results {results.shape} not finite ({n_test}, 2048, 3)")
+        fail(f"{model} results {results.shape} not finite ({n_test}, 2048, "
+             "3)")
     if not os.path.getsize(res["submission"]):
-        fail("vrcnet: empty submission zip")
-    test = {"phase": "completion", "config": "cfgs/vrcnet.yaml",
+        fail(f"{model}: empty submission zip")
+    test = {"phase": "completion", "config": config,
             "run": "test_main", "clouds": res["n_clouds"], "batch": 32,
             "seconds": res["seconds"],
             "clouds_per_s": res["n_clouds"] / res["seconds"],
             "result_abs_max": float(np.abs(results).max()),
-            "launches": test_launches}
+            "launches": test_launches,
+            "expected_launches": _times(LAUNCHES[model]["test"],
+                                        n_test // 32)}
     emit(test)
 
-    cfg = load_config(_vrcnet_cfg(tmp, n_val))
+    cfg = load_config(_model_cfg(tmp, model, n_val, eval_emd=eval_emd))
     trainer = CompletionTrainer(cfg)
     trainer.init_state()
     val_ds = build_dataset(cfg, "val")
     torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
+    _zero(counters)
     t0 = time.perf_counter()
     metrics = trainer.validate(val_ds)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    val_launches = {k: c.launches for k, c in counters.items()}
-    val = {"phase": "completion", "config": "cfgs/vrcnet.yaml",
+    per_val = dict(LAUNCHES[model]["val"], **({"emd": 1} if eval_emd else {}))
+    val = {"phase": "completion", "config": config, "eval_emd": eval_emd,
            "run": "validate", "clouds": len(val_ds), "seconds": seconds,
            "clouds_per_s": len(val_ds) / seconds, "metrics": metrics,
-           "launches": val_launches}
+           "launches": _read(counters),
+           "expected_launches": _times(per_val, n_val // 32)}
     emit(val)
+    want = {"cd_p", "cd_t", "f1"} | ({"emd"} if eval_emd else set())
     if not all(np.isfinite(v) for v in metrics.values()) \
-            or set(metrics) != {"cd_p", "cd_t", "emd", "f1"}:
-        fail(f"validate metrics {metrics}")
+            or set(metrics) != want:
+        fail(f"{model} validate metrics {metrics}")
+    for run in (test, val):
+        if run["launches"] != run["expected_launches"]:
+            fail(f"{model} {run['run']} launches {run['launches']}, "
+                 f"expected {run['expected_launches']}")
     return test, val, trainer, val_ds
 
 
@@ -600,18 +882,60 @@ def phase_completion():
     counters = _completion_counters()
     with tempfile.TemporaryDirectory() as tmp:
         test, val, trainer, val_ds = run_completion(tmp, 64, 64, counters)
-        for run, launches in (("test_main", test["launches"]),
-                              ("validate", val["launches"])):
-            if launches["knn"] < 1 or launches["fps"] < 1:
-                fail(f"vrcnet {run} skipped a kernel: {launches}")
-        if val["launches"]["nn_both"] < 1 or val["launches"]["emd"] < 1:
-            fail(f"vrcnet validate skipped a kernel: {val['launches']}")
         # validate's first batch, on which the kernels line times emd
         batch = val_ds.get_batch(np.arange(32))
         emd_inputs = (trainer.predict_batch(batch, step=0),
                       torch.as_tensor(batch["gt"], device="cuda"))
-        run_completion(tmp, 1024, 256, counters)
+        del trainer
+        run_completion(tmp, 512, 128, counters)
     return {"test": test, "validate": val, "emd_inputs": emd_inputs}
+
+
+def phase_completion_models():
+    """PCN and ECG at the full width of cfgs/pcn.yaml and cfgs/ecg.yaml
+    (batch 32, 2048 points, 1024 coarse, ECG's encoder on 3072 points,
+    f32): ``test_main`` over 64 test clouds and ``validate`` with
+    ``eval_emd`` over 64 val clouds, each with its launch counts held
+    against the counts derived from the code; then the sweep over 512
+    clouds and ``validate`` without ``eval_emd`` over 128 for throughput.
+    Then ``test_main`` on cfgs/vrcnet.yaml with a 4096-point ground truth
+    from 2048-point scans (``num_points: 4096, num_input: 2048``) and no
+    local folding, 32 clouds, so that both of VRCNet's ``EFExpansion``s run:
+    the decoder's 3072 points of 256 channels are doubled, and after the FPS
+    to 2048 the 64-channel coarse features are doubled too."""
+    from houv_tpu_torch.train.cli import test_main
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    counters = _completion_counters()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model in ("pcn", "ecg"):
+            test, val, _, _ = run_completion(tmp, 64, 64, counters, model)
+            run_completion(tmp, 512, 128, counters, model, eval_emd=False)
+            out[model] = {"test": test, "validate": val}
+            torch.cuda.empty_cache()
+
+        # MVP's 4096-point ground truth with its 2048-point partial scans
+        _zero(counters)
+        res = test_main(["-c", _model_cfg(
+            tmp, "vrcnet", 32, num_points=4096, num_input=2048,
+            local_folding=False)])
+        launches = _read(counters)
+        fine = read_results_h5(res["results_h5"])
+        expected = dict(LAUNCHES["vrcnet"]["test"], knn_wide=2)
+        emit({"phase": "completion", "config": "cfgs/vrcnet.yaml",
+              "run": "test_main", "num_points": 4096, "num_input": 2048,
+              "local_folding": False, "clouds": res["n_clouds"],
+              "seconds": res["seconds"], "result": list(fine.shape),
+              "launches": launches, "expected_launches": expected,
+              "efexpansion_shapes": [[32, 3072, 256], [32, 2048, 64]]})
+        if fine.shape != (32, 4096, 3) or not np.isfinite(fine).all() \
+                or launches != expected:
+            fail(f"vrcnet with EFExpansion: result {fine.shape}, "
+                 f"launches {launches}, expected {expected}")
+        out["vrcnet_efexpansion"] = launches
+        torch.cuda.empty_cache()
+    return out
 
 
 def _small_train_cfg(**extra):
@@ -655,7 +979,9 @@ class _Picks:
 
     def __init__(self, fn, replay=None):
         self.fn, self.replay = fn, replay
-        self.kept, self.flips, self.launches = [], 0, 0
+        self.kept, self.flips = [], 0
+        # the wrappers count launches on whatever holds their name
+        self.launches = self.wide_launches = 0
         self.holders = [m for name, m in list(sys.modules.items())
                         if name.startswith("houv_tpu_torch")
                         and getattr(m, fn.__name__, None) is fn]
@@ -783,34 +1109,34 @@ def phase_train_reference():
              "largest entry")
 
 
-def _full_train_cfg(tmp, **extra):
-    with open(REPO / "cfgs" / "vrcnet.yaml") as f:
+def _full_train_cfg(tmp, model="vrcnet", **extra):
+    with open(REPO / "cfgs" / f"{model}.yaml") as f:
         raw = yaml.safe_load(f)
     raw.update(work_dir=str(tmp), **extra)
-    path = Path(tmp) / ("vrcnet_train_" + "_".join(
+    path = Path(tmp) / (f"{model}_train_" + "_".join(
         f"{k}{v}" for k, v in sorted(extra.items()) if k != "load_model")
         + ("_loaded" if "load_model" in extra else "") + ".yaml")
     path.write_text(yaml.safe_dump(raw))
     return str(path)
 
 
-def _repeated_batch(tmp, n_steps, use_remat, **extra):
-    """``n_steps`` train steps on one repeated batch of 32 clouds at full
-    width from the seeded initialisation: losses, steps/s, peak memory
-    (after a first step outside the clock) and the kernels' launches.
-    ``extra`` overrides keys of the config."""
+def _repeated_batch(tmp, n_steps, use_remat, model="vrcnet", **extra):
+    """``n_steps`` train steps of cfgs/<model>.yaml on one repeated batch
+    of 32 clouds at full width from the seeded initialisation: losses,
+    steps/s, peak memory (after a first step outside the clock) and the
+    kernels' launches. ``extra`` overrides keys of the config."""
     from houv_tpu_torch.train.cli import build_dataset
     from houv_tpu_torch.train.config import load_config
     from houv_tpu_torch.train.harness import CompletionTrainer
 
-    cfg = load_config(_full_train_cfg(tmp, use_remat=use_remat, **extra))
+    cfg = load_config(_full_train_cfg(tmp, model, use_remat=use_remat,
+                                      **extra))
     trainer = CompletionTrainer(cfg)
     trainer.init_state()
     batch = build_dataset(cfg, "train").get_batch(
         np.arange(32), rng=np.random.default_rng(0))
     counters = _completion_counters()
-    for c in counters.values():
-        c.launches = 0
+    _zero(counters)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses = [float(trainer.train_step(batch, 0, 0))]
@@ -820,10 +1146,10 @@ def _repeated_batch(tmp, n_steps, use_remat, **extra):
         losses.append(float(trainer.train_step(batch, 0, step)))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    rec = {"phase": "train_repeated_batch", "config": "cfgs/vrcnet.yaml",
+    rec = {"phase": "train_repeated_batch", "config": f"cfgs/{model}.yaml",
            "batch": 32, "use_remat": use_remat, "loss": cfg.loss,
            "steps": n_steps, "losses": losses,
-           "launches": {k: c.launches for k, c in counters.items()},
+           "launches": _read(counters),
            "steps_per_s": (n_steps - 1) / seconds,
            "clouds_per_s": 32 * (n_steps - 1) / seconds,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -833,106 +1159,110 @@ def _repeated_batch(tmp, n_steps, use_remat, **extra):
     return rec
 
 
-def phase_train():
-    """``train_main`` on cfgs/vrcnet.yaml at full width on the synthetic
+def run_train_main(tmp, model):
+    """``train_main`` on cfgs/<model>.yaml at full width on the synthetic
     split (128 train clouds: 4 steps an epoch at batch 32; 64 val clouds: 2
-    val batches an epoch), two epochs, without ``use_remat``; then
-    ``test_main`` with ``load_model`` on the checkpoint, and the
-    repeated-batch runs."""
+    val batches an epoch), two epochs, without ``use_remat``, the launch
+    counts held against the counts derived from the code; then the
+    checkpoint read back by a second trainer and by ``test_main`` with
+    ``load_model``, both to bit-equal predictions."""
     from houv_tpu_torch.train.cli import build_dataset, test_main, train_main
     from houv_tpu_torch.train.config import load_config
     from houv_tpu_torch.train.harness import CompletionTrainer
     from houv_tpu_torch.train.submission import read_results_h5
 
     counters = _completion_counters()
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    out = train_main(["-c", _full_train_cfg(tmp, model, nepoch=2)])
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer = out["trainer"]
+    steps, val_batches = len(out["losses"]), 2 * 2
+    expected = _sum(_times(LAUNCHES[model]["train"], steps),
+                    _times(LAUNCHES[model]["val"], val_batches))
+    net = trainer.model
+    fresh = CompletionTrainer(trainer.cfg)
+    fresh.init_state()
+    moved = sum(int(not torch.equal(p, q)) for p, q in zip(
+        net.parameters(), fresh.model.parameters()))
+    n_params = sum(1 for _ in net.parameters())
+    finite_grads = sum(int(p.grad is not None
+                           and bool(torch.isfinite(p.grad).all()))
+                       for p in net.parameters())
+    del fresh
+
+    cfg_loaded = _full_train_cfg(tmp, model, synthetic_size=64,
+                                 load_model=out["checkpoint"])
+    reloaded = CompletionTrainer(load_config(cfg_loaded))
+    reloaded.init_state()
+    test_ds = build_dataset(load_config(cfg_loaded), "test")
+    first = test_ds.get_batch(np.arange(32))
+    pred = trainer.predict_batch(first, step=0)
+    same_trainer = torch.equal(reloaded.predict_batch(first, step=0), pred)
+    res = test_main(["-c", cfg_loaded])
+    results = read_results_h5(res["results_h5"])
+    same_sweep = np.array_equal(results[:32], pred.cpu().numpy())
+    del reloaded
+    rec = {"phase": "train", "config": f"cfgs/{model}.yaml",
+           "run": "train_main", "batch": 32, "use_remat": False,
+           "epochs": 2, "steps": steps, "losses": out["losses"],
+           "seconds": out["seconds"],
+           "steps_per_s_with_validate_and_save": steps / out["seconds"],
+           "peak_memory_gib": peak, "best": trainer.best,
+           "launches": launches, "expected_launches": expected,
+           "launches_per_step": LAUNCHES[model]["train"],
+           "parameters": n_params, "parameters_moved": moved,
+           "parameters_with_finite_grad": finite_grads,
+           "checkpoint": os.path.basename(out["checkpoint"]),
+           "checkpoint_files": sorted(os.listdir(out["log_dir"])),
+           "reload_bit_equal": same_trainer,
+           "test_main_load_model_bit_equal": same_sweep,
+           "test_main_clouds": res["n_clouds"]}
+    emit(rec)
+    if steps < 8 or not np.isfinite(out["losses"]).all():
+        fail(f"{model} train_main: {steps} steps, losses {out['losses']}")
+    if launches != expected:
+        fail(f"{model} train_main launches {launches}, expected {expected}")
+    if moved != n_params or finite_grads != n_params:
+        fail(f"{model} train_main: {moved} of {n_params} parameters moved, "
+             f"{finite_grads} have a finite gradient")
+    if not (same_trainer and same_sweep):
+        fail(f"{model}: the checkpoint does not reload to bit-equal "
+             f"predictions (trainer {same_trainer}, test_main {same_sweep})")
+    if results.shape != (64, 2048, 3) or not np.isfinite(results).all():
+        fail(f"{model} test_main with load_model: results {results.shape}")
+    del trainer, net, pred
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _falling(rep, model):
+    if not (np.isfinite(rep["losses"]).all()
+            and rep["losses"][-1] < rep["losses"][0]):
+        fail(f"{model}: {rep['steps']} steps on one batch did not lower the "
+             f"loss: {rep['losses']}")
+    want = _times(LAUNCHES[model]["train"], rep["steps"])
+    if rep["loss"] == "cd" and rep["launches"] != want:
+        fail(f"{model} repeated batch launches {rep['launches']}, expected "
+             f"{want}")
+
+
+def phase_train():
+    """``train_main`` on cfgs/vrcnet.yaml (``run_train_main``), then the
+    repeated-batch runs: 10 steps (the loss must fall), 3 with
+    ``use_remat``, 4 with ``loss: emd``."""
     with tempfile.TemporaryDirectory() as tmp:
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        out = train_main(["-c", _full_train_cfg(tmp, nepoch=2)])
-        torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        trainer = out["trainer"]
-        steps, val_batches = len(out["losses"]), 2 * 2
-        # per train step: 4 calc_cd (one nn_both forward and, gt needing no
-        # gradient, one scatter backward each); fps of the gt, the decoder's
-        # 3-level pyramid and coarse_high 3072 -> 2048; 14 knn (8 graphs, 3
-        # pooling, 3 three-NN). per val batch: 1 nn_both, 4 fps, 14 knn.
-        expected = {"scatter_add": 4 * steps,
-                    "nn_both": 4 * steps + val_batches,
-                    "fps": 5 * steps + 4 * val_batches,
-                    "knn": 14 * steps + 14 * val_batches, "emd": 0}
-        model = trainer.model
-        fresh = CompletionTrainer(trainer.cfg)
-        fresh.init_state()
-        moved = sum(int(not torch.equal(p, q)) for p, q in zip(
-            model.parameters(), fresh.model.parameters()))
-        n_params = sum(1 for _ in model.parameters())
-        finite_grads = sum(int(p.grad is not None
-                               and bool(torch.isfinite(p.grad).all()))
-                           for p in model.parameters())
-        del fresh
-
-        # the checkpoint reloads to bit-equal predictions, in a trainer and
-        # through test_main with load_model
-        cfg_loaded = _full_train_cfg(tmp, synthetic_size=64,
-                                     load_model=out["checkpoint"])
-        reloaded = CompletionTrainer(load_config(cfg_loaded))
-        reloaded.init_state()
-        test_ds = build_dataset(load_config(cfg_loaded), "test")
-        first = test_ds.get_batch(np.arange(32))
-        pred = trainer.predict_batch(first, step=0)
-        same_trainer = torch.equal(reloaded.predict_batch(first, step=0),
-                                   pred)
-        res = test_main(["-c", cfg_loaded])
-        results = read_results_h5(res["results_h5"])
-        same_sweep = np.array_equal(results[:32], pred.cpu().numpy())
-        del reloaded
-        rec = {"phase": "train", "config": "cfgs/vrcnet.yaml",
-               "run": "train_main", "batch": 32, "use_remat": False,
-               "epochs": 2, "steps": steps, "losses": out["losses"],
-               "seconds": out["seconds"],
-               "steps_per_s_with_validate_and_save": steps / out["seconds"],
-               "peak_memory_gib": peak, "best": trainer.best,
-               "launches": launches, "expected_launches": expected,
-               "launches_per_step": {"scatter_add": 4, "nn_both": 4,
-                                     "fps": 5, "knn": 14},
-               "parameters": n_params, "parameters_moved": moved,
-               "parameters_with_finite_grad": finite_grads,
-               "checkpoint": os.path.basename(out["checkpoint"]),
-               "checkpoint_files": sorted(os.listdir(out["log_dir"])),
-               "reload_bit_equal": same_trainer,
-               "test_main_load_model_bit_equal": same_sweep,
-               "test_main_clouds": res["n_clouds"]}
-        emit(rec)
-        if steps < 8 or not np.isfinite(out["losses"]).all():
-            fail(f"train_main: {steps} steps, losses {out['losses']}")
-        if launches != expected:
-            fail(f"train_main launches {launches}, expected {expected}")
-        if moved != n_params or finite_grads != n_params:
-            fail(f"train_main: {moved} of {n_params} parameters moved, "
-                 f"{finite_grads} have a finite gradient")
-        if not (same_trainer and same_sweep):
-            fail("the checkpoint does not reload to bit-equal predictions "
-                 f"(trainer {same_trainer}, test_main {same_sweep})")
-        if results.shape != (64, 2048, 3) or not np.isfinite(results).all():
-            fail(f"test_main with load_model: results {results.shape}")
-        del trainer, model, pred
-        torch.cuda.empty_cache()
-
-        rep = _repeated_batch(tmp, 20, False)
-        if not (np.isfinite(rep["losses"]).all()
-                and rep["losses"][-1] < rep["losses"][0]):
-            fail(f"20 steps on one batch did not lower the loss: "
-                 f"{rep['losses']}")
+        rec = run_train_main(tmp, "vrcnet")
+        rep = _repeated_batch(tmp, 10, False)
+        _falling(rep, "vrcnet")
         remat = _repeated_batch(tmp, 3, True)
         # loss: emd. Per step four auctions (1024, 3072, 2048 and 2048
         # bidders for the gt's 2048 items), whose gradient needs no kernel;
         # the logged cd_t takes one nn_both and stays out of the backward.
         emd = _repeated_batch(tmp, 4, False, loss="emd")
-        want = {"emd": 16, "nn_both": 4, "scatter_add": 0, "fps": 20,
-                "knn": 56}
+        want = {"emd": 16, "nn_both": 4, "fps": 20, "knn": 56}
         if emd["launches"] != want or not (
                 np.isfinite(emd["losses"]).all()
                 and emd["losses"][-1] < emd["losses"][0]):
@@ -941,17 +1271,33 @@ def phase_train():
     return {"train": rec, "repeated": rep, "remat": remat, "emd": emd}
 
 
-def phase_scatter_solve():
-    """``houv_solve`` with ``grad_mode='scatter'`` beside the gather mode:
-    4 pairs of the structured split, cfgs/houv.yaml with the budget cut to
-    100 steps. One scatter launch per Adam step (the target needs no
-    gradient), in every angle window that runs."""
+def phase_train_models():
+    """PCN and ECG training at the full width of their configs:
+    ``train_main`` (``run_train_main``), then 10 steps on one repeated
+    batch (the loss must fall; launches per step as derived from the code);
+    for ECG also 3 steps with ``loss: emd`` (two auctions a step)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model in ("pcn", "ecg"):
+            rec = run_train_main(tmp, model)
+            rep = _repeated_batch(tmp, 10, False, model)
+            _falling(rep, model)
+            out[model] = {"train": rec, "repeated": rep}
+        emd = _repeated_batch(tmp, 3, False, "ecg", loss="emd")
+        want = {"knn_wide": 12, "knn": 48, "fps": 42, "emd": 6}
+        if emd["launches"] != want or not np.isfinite(emd["losses"]).all():
+            fail(f"ecg loss: emd training: launches {emd['launches']}, "
+                 f"expected {want}; losses {emd['losses']}")
+        out["ecg"]["emd"] = emd
+    return out
+
+
+def _short_solve_inputs():
+    """cfgs/houv.yaml's solver config with the budget cut to 100 steps, and
+    4 pairs of the structured split on the card: (config, src, tgt, gt)."""
     import dataclasses
 
     from houv_tpu_torch.data import synthesize_registration_pairs
-    from houv_tpu_torch.ops.scatter import scatter_add
-    from houv_tpu_torch.solvers.houv import (evaluate_solution, houv_solve,
-                                             init_params)
     from houv_tpu_torch.train.cli import solver_config
     from houv_tpu_torch.train.config import load_config
 
@@ -961,9 +1307,22 @@ def phase_scatter_solve():
         4, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
         max_trans=cfg.max_trans, seed=7, shape_mode="structured",
         rot_mix=True)
-    src = torch.as_tensor(d["rotated_src"], device="cuda")
-    tgt = torch.as_tensor(d["rotated_tgt"], device="cuda")
-    gt = torch.as_tensor(d["transforms"], device="cuda")
+    return base, *(torch.as_tensor(d[k], device="cuda")
+                   for k in ("rotated_src", "rotated_tgt", "transforms"))
+
+
+def phase_scatter_solve():
+    """``houv_solve`` with ``grad_mode='scatter'`` beside the gather mode:
+    4 pairs of the structured split, cfgs/houv.yaml with the budget cut to
+    100 steps. One scatter launch per Adam step (the target needs no
+    gradient), in every angle window that runs."""
+    import dataclasses
+
+    from houv_tpu_torch.ops.scatter import scatter_add
+    from houv_tpu_torch.solvers.houv import (evaluate_solution, houv_solve,
+                                             init_params)
+
+    base, src, tgt, gt = _short_solve_inputs()
     rec = {"phase": "scatter_solve", "config": "cfgs/houv.yaml", "pairs": 4,
            "restarts": base.kernel, "steps": 100}
     for mode in ("gather", "scatter"):
@@ -995,9 +1354,170 @@ def phase_scatter_solve():
     return rec
 
 
-def phase_profile_train():
-    """Where one VRCNet train step's time goes: torch.profiler over one
-    step of 32 clouds at full width, after two warm-up steps."""
+def phase_select_solve():
+    """``houv_solve`` with ``nn_select=True`` beside the default: 4 pairs
+    of the structured split, cfgs/houv.yaml with the budget cut to 100
+    steps. One nn_select launch per Adam step in every angle window that
+    runs, one more for each window's final objective, and no nn_both. The
+    first five steps' losses from the same restarts are held against the
+    default's at 1e-5 relative: the matched raw source rows come back as
+    R^T (c1 - t) and differ from the gathered rows by that product's
+    rounding."""
+    import dataclasses
+
+    from houv_tpu_torch.ops.chamfer import chamfer_indices, nn_select
+    from houv_tpu_torch.solvers.houv import (_adam_init, _adam_loop,
+                                             evaluate_solution, houv_solve,
+                                             init_params)
+
+    base, src, tgt, gt = _short_solve_inputs()
+    rec = {"phase": "select_solve", "config": "cfgs/houv.yaml", "pairs": 4,
+           "restarts": base.kernel, "steps": 100,
+           "loss_tolerance_rel": 1e-5}
+    first = {}
+    for select in (False, True):
+        name = "nn_select" if select else "default"
+        scfg = dataclasses.replace(base, nn_select=select)
+        params0 = init_params(torch.Generator().manual_seed(0), 4,
+                              scfg.kernel, device="cuda")
+        saved = (nn_select.launches, chamfer_indices.launches)
+        first[name] = _adam_loop(src, tgt, 0.0, scfg, params0,
+                                 _adam_init(params0), 5)[2].tolist()
+        nn_select.launches, chamfer_indices.launches = 0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = houv_solve(src, tgt, scfg, params0=params0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        r_err, _ = evaluate_solution(out["transform"], gt)
+        windows = 1 + (scfg.angle_passes - 1) * int(out["n_retry"] > 0)
+        rec[name] = {"seconds": seconds, "n_retry": out["n_retry"],
+                     "windows": windows, "first_losses": first[name],
+                     "rot_err_deg": r_err.tolist(),
+                     "rmse": out["rmse"].tolist(),
+                     "nn_select_launches": nn_select.launches,
+                     "nn_both_launches": chamfer_indices.launches}
+        want = (101 * windows, 0) if select else (0, 101 * windows)
+        got = (nn_select.launches, chamfer_indices.launches)
+        nn_select.launches, chamfer_indices.launches = saved
+        if got != want or not torch.isfinite(out["transform"]).all():
+            emit(rec)
+            fail(f"houv_solve nn_select={select}: (nn_select, nn_both) "
+                 f"launches {got}, expected {want}")
+    rec["first_losses_rel_diff"] = max(
+        abs(a - b) / abs(b) for a, b in zip(first["nn_select"],
+                                            first["default"]))
+    # The exported row gather (it has no caller in either package) on this
+    # solve's matches, as ``_pair_matches`` gathers them: both ways, bit for
+    # bit what ``gather_rows`` returns.
+    from houv_tpu_torch.ops import gather_rows, gather_rows_kernel
+    from houv_tpu_torch.solvers.houv import _apply, reparametrize
+
+    saved = chamfer_indices.launches
+    r, t = reparametrize(params0, 0.0, base.tran_mode)
+    n = src.shape[1]
+    i1, i2 = chamfer_indices(tgt, _apply(src, r, t).reshape(-1, n, 3))
+    chamfer_indices.launches = saved
+    gather_rows_kernel.launches = 0
+    rows = [(tgt, i2.reshape(4, -1)), (src, i1.reshape(4, -1))]
+    same = all(torch.equal(gather_rows_kernel(table, idx),
+                           gather_rows(table, idx)) for table, idx in rows)
+    rec["gather_rows"] = {"launches": gather_rows_kernel.launches,
+                          "src": list(src.shape),
+                          "idx": list(rows[0][1].shape),
+                          "bit_equal_to_gather_rows": same}
+    emit(rec)
+    if not same or gather_rows_kernel.launches != 2:
+        fail(f"the exported row gather on the solve's matches: "
+             f"{rec['gather_rows']}")
+    if not rec["first_losses_rel_diff"] <= 1e-5:
+        fail("houv_solve with nn_select: the first steps' losses differ "
+             f"from the default's by {rec['first_losses_rel_diff']:.3g}")
+    return rec
+
+
+def _small_ecg_step(cfg, batch, dev, dtype, picks=None):
+    """One forward and backward of the seeded small ECG on ``dev`` in
+    ``dtype``: total_loss, the gradients by name (f64, on the CPU), the
+    picks it made (FPS, both kNN forms, ball queries, chamfer matches, in
+    call order) and, with another run's ``picks``, how many of its own
+    differ from them; it then goes on with the given ones."""
+    from houv_tpu_torch.ops.chamfer import chamfer_indices
+    from houv_tpu_torch.ops.grouping import ball_query, knn_indices
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    model = CompletionTrainer(cfg, dev).init_state().to(dtype)
+    fns = {"fps": furthest_point_sample, "knn": knn_indices,
+           "ball": ball_query, "matches": chamfer_indices}
+    given = picks or dict.fromkeys(fns)
+    stand_ins = {k: _Picks(fn, given[k]) for k, fn in fns.items()}
+    for p in stand_ins.values():
+        p.__enter__()
+    try:
+        out = model(torch.as_tensor(batch["partial"], device=dev).to(dtype),
+                    torch.as_tensor(batch["gt"], device=dev).to(dtype),
+                    "train", alpha=0.5)
+    finally:
+        for p in stand_ins.values():
+            p.__exit__()
+    out["total_loss"].backward()
+    return (out["total_loss"].item(),
+            {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+            {k: p.kept for k, p in stand_ins.items()},
+            {k: p.flips for k, p in stand_ins.items()})
+
+
+def phase_train_reference_ecg():
+    """One ECG train step at the parity tests' size (256 points, 128
+    coarse, batch 8; the encoder's default hierarchy asks FPS for 1024 of
+    384 points) on the card against the port's CPU path in f64, as
+    ``phase_train_reference`` does for VRCNet: same seeded weights and
+    batch; the card computes its own picks (FPS, the coordinate and the
+    feature-space kNN, the ball queries, the chamfer matches) with the
+    kernels, counts where they differ from the f64 run's and goes on with
+    the f64 run's. total_loss to 1e-4 relative, every parameter's gradient
+    to 1e-3 of that tensor's largest f64 entry."""
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import Config
+
+    with open(REPO / "cfgs" / "ecg.yaml") as f:
+        raw = yaml.safe_load(f)
+    raw.update(num_points=256, num_coarse=128, batch_size=8,
+               synthetic_size=16)
+    cfg = Config.from_dict(raw)
+    batch = build_dataset(cfg, "train").get_batch(
+        np.arange(8), rng=np.random.default_rng(0))
+    ref_loss, ref_g, picks, _ = _small_ecg_step(cfg, batch, "cpu",
+                                                torch.float64)
+    loss, grads, _, flips = _small_ecg_step(cfg, batch, "cuda",
+                                            torch.float32, picks)
+    rows = sorted(((float((grads[n] - r).abs().max() / r.abs().max()), n,
+                    float(r.abs().max())) for n, r in ref_g.items()),
+                  reverse=True)
+    rec = {"phase": "train_reference", "model": "ecg", "clouds": 8,
+           "points": 256, "total_loss_cpu_f64": ref_loss,
+           "total_loss": loss,
+           "loss_rel_diff": abs(loss - ref_loss) / abs(ref_loss),
+           "loss_tolerance_rel": 1e-4,
+           "grad_tolerance_over_tensor_max": 1e-3,
+           "picks": {k: sum(t.numel() for v in kept
+                            for t in _index_tensors(v))
+                     for k, kept in picks.items()},
+           "picks_differing_from_f64": flips, "parameters": len(ref_g),
+           "worst_grads": [{"name": n, "err_over_tensor_max": e,
+                            "tensor_max": m} for e, n, m in rows[:4]]}
+    emit(rec)
+    if not (rec["loss_rel_diff"] <= 1e-4 and rows[0][0] <= 1e-3):
+        fail(f"ECG train step on the card differs from the f64 CPU path: "
+             f"loss {rec['loss_rel_diff']:.3g} relative, gradient of "
+             f"{rows[0][1]} {rows[0][0]:.3g} of its largest entry")
+
+
+def phase_profile_train(model="vrcnet"):
+    """Where one train step's time goes on cfgs/<model>.yaml:
+    torch.profiler over one step of 32 clouds at full width, after two
+    warm-up steps."""
     from torch.profiler import ProfilerActivity, profile
 
     from houv_tpu_torch.train.cli import build_dataset
@@ -1005,7 +1525,7 @@ def phase_profile_train():
     from houv_tpu_torch.train.harness import CompletionTrainer
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = load_config(_full_train_cfg(tmp))
+        cfg = load_config(_full_train_cfg(tmp, model))
         trainer = CompletionTrainer(cfg)
         trainer.init_state()
         batch = build_dataset(cfg, "train").get_batch(
@@ -1019,7 +1539,7 @@ def phase_profile_train():
             trainer.train_step(batch, 0, 2)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    emit({"phase": "profile", "config": "cfgs/vrcnet.yaml", "clouds": 32,
+    emit({"phase": "profile", "config": f"cfgs/{model}.yaml", "clouds": 32,
           "run": "train_step", **_profile_top(prof, wall_ms)})
     del trainer
     torch.cuda.empty_cache()
@@ -1131,12 +1651,108 @@ def _time_scatter(b, n, m, gen):
             "scan_ms_at_peak": b * n * m / PEAK_F32_FLOPS * 1e3}
 
 
-def phase_kernels(launches, nn_err, knn_err, emd_err, scatter_err,
-                  completion, train, solve, gen):
-    """``launches``: the houv_fast counts; ``completion``: the VRCNet runs
-    (their counts summed for knn and emd, and the first val batch's fine
-    and gt clouds, on which emd is timed); ``train``: the train_main run
-    (scatter_add's count); ``solve``: the scatter-mode solve."""
+def new_kernel_rows(gen, errs, launches):
+    """The ``kernels`` rows of knn_wide, nn_select and gather_rows at their
+    main-path shapes. ``errs``: each one's largest error against its plain
+    version; ``launches``: each one's count on its path."""
+    from houv_tpu_torch.ops import chamfer, grouping, scatter
+
+    out = []
+    # knn_wide at ECG's first DenseConv: 32 clouds of 3072 points with 24
+    # channels (after a ReLU), k 16; beside it the 48-channel level and
+    # EFExpansion's 256 channels
+    def time_wide(b, n, c, k):
+        x = torch.relu(torch.randn((b, n, c), generator=gen)).cuda()
+        saved = grouping.knn_indices.wide_launches
+        ms = cuda_ms(lambda: grouping.knn_indices(x, x, k), reps=5)
+        grouping.knn_indices.wide_launches = saved
+        plain_ms = cuda_ms(lambda: grouping._knn_plain(x, x, k), reps=1)
+        library_ms = cuda_ms(lambda: torch.topk(torch.cdist(x, x), k,
+                                                largest=False), reps=3)
+        # per pair and channel: 1 sub, 1 mul, 1 add; per pair 1 compare
+        # against the k-th
+        bound_ms, bound_by = bound(4 * b * n * c * 2 + 8 * b * n * k,
+                                   (3.0 * c + 1.0) * b * n * n)
+        return {"shape": {"query": [b, n, c], "ref": [b, n, c], "k": k},
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    out.append({"name": "knn_wide", "route": "cuda",
+                "source": "houv_tpu_torch/csrc/knn_wide.cu",
+                "replaces": "houv_tpu/ops/grouping.py:107",
+                "launches": launches["knn_wide"],
+                "max_abs_err": errs["knn_wide"], **time_wide(32, 3072, 24, 16),
+                "at_C48": time_wide(32, 1024, 48, 16),
+                "at_efexpansion_shape": time_wide(32, 3072, 256, 4)})
+    torch.cuda.empty_cache()
+
+    # nn_select at the solver's shape on cfgs/houv.yaml: 16 pairs x 64
+    # restarts, 2048 points a side, the target shared by its pair's restarts
+    bq, share, n = 16, 64, 2048
+    bk = bq * share
+    a = torch.rand((bq, n, 3), generator=gen).cuda() - 0.5
+    b = (a.repeat_interleave(share, 0)
+         + 0.05 * torch.randn((bk, n, 3), generator=gen).cuda())
+    a_rep = a.repeat_interleave(share, 0)
+    saved = chamfer.nn_select.launches
+    ms = cuda_ms(lambda: chamfer.nn_select(a, b), reps=5)
+    chamfer.nn_select.launches = saved
+    plain_ms = cuda_ms(lambda: chamfer._nn_select_plain(a, b), reps=1)
+
+    def library():
+        d = torch.cdist(a_rep, b)
+        i1 = d.argmin(-1)[..., None].expand(-1, -1, 3)
+        i2 = d.argmin(-2)[..., None].expand(-1, -1, 3)
+        return torch.gather(b, 1, i1), torch.gather(a_rep, 1, i2)
+
+    library_ms = cuda_ms(library, reps=2)
+    bound_ms, bound_by = bound(12 * bq * n + 12 * bk * n + 2 * 12 * bk * n,
+                               8.0 * bk * n * n)
+    out.append({"name": "nn_select", "route": "cuda",
+                "source": "houv_tpu_torch/csrc/nn_select.cu",
+                "replaces": "houv_tpu/ops/chamfer.py:273",
+                "shape": {"a": [bq, n, 3], "b": [bk, n, 3]},
+                "launches": launches["nn_select"],
+                "max_abs_err": errs["nn_select"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms})
+    del a, b, a_rep
+    torch.cuda.empty_cache()
+
+    # gather_rows at the solver's row gather: 16 clouds of 2048 rows, the
+    # matches of 64 restarts x 2048 points each
+    bsz, m, n = 16, 2048, 64 * 2048
+    src = torch.randn((bsz, m, 3), generator=gen).cuda()
+    idx = torch.randint(0, m, (bsz, n), generator=gen).cuda()
+    saved = scatter.gather_rows_kernel.launches
+    ms = cuda_ms(lambda: scatter.gather_rows_kernel(src, idx), reps=20)
+    scatter.gather_rows_kernel.launches = saved
+    plain_ms = cuda_ms(lambda: scatter._gather_rows_plain(src, idx), reps=10)
+    wide = idx[..., None].expand(-1, -1, 3)
+    library_ms = cuda_ms(lambda: torch.gather(src, 1, wide), reps=20)
+    bound_ms, bound_by = bound(12 * bsz * m + 8 * bsz * n + 12 * bsz * n, 0.0)
+    out.append({"name": "gather_rows", "route": "cuda",
+                "source": "houv_tpu_torch/csrc/gather_rows.cu",
+                "replaces": "houv_tpu/ops/scatter.py:55",
+                "shape": {"src": [bsz, m, 3], "idx": [bsz, n]},
+                "launches": launches["gather_rows"],
+                "max_abs_err": errs["gather_rows"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms})
+    return out
+
+
+def phase_kernels(launches, errs, completion, train, solve, models,
+                  models_train, select, gen):
+    """``launches``: the houv_fast counts; ``errs``: each kernel's largest
+    error against its plain version; ``completion``: the VRCNet runs (their
+    counts summed for knn and emd, and the first val batch's fine and gt
+    clouds, on which emd is timed); ``train``: the VRCNet train_main run
+    (scatter_add's count); ``solve``: the scatter-mode solve; ``models``
+    and ``models_train``: the PCN and ECG runs; ``select``: the nn_select
+    solve with the exported row gather."""
+    nn_err, knn_err, emd_err, scatter_err = (
+        errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import chamfer, emd, grouping, sampling
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1192,8 +1808,9 @@ def phase_kernels(launches, nn_err, knn_err, emd_err, scatter_err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None})
 
-    vrc = {k: completion["test"]["launches"][k]
-           + completion["validate"]["launches"][k] for k in ("knn", "emd")}
+    vrc = {k: completion["test"]["launches"].get(k, 0)
+           + completion["validate"]["launches"].get(k, 0)
+           for k in ("knn", "emd")}
     # knn at VRCNet's level-0 self-kNN: 32 clouds of 3072 points, k 20
     b, n, k = 32, 3072, 20
     pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
@@ -1256,9 +1873,18 @@ def phase_kernels(launches, nn_err, knn_err, emd_err, scatter_err,
                     solve["scatter"]["scatter_launches"],
                 "max_abs_err": scatter_err, **at_train,
                 "at_solver_shape": at_solver})
+    ecg = models["ecg"]
+    out += new_kernel_rows(gen, errs, {
+        "knn_wide": ecg["test"]["launches"]["knn_wide"]
+        + ecg["validate"]["launches"]["knn_wide"]
+        + models["vrcnet_efexpansion"]["knn_wide"],
+        "nn_select": select["nn_select"]["nn_select_launches"],
+        "gather_rows": select["gather_rows"]["launches"]})
     for row in out:
-        row["train_main_launches"] = train["train"]["launches"].get(
-            row["name"], 0)
+        row["train_main_launches"] = {
+            "vrcnet": train["train"]["launches"].get(row["name"], 0),
+            **{m: models_train[m]["train"]["launches"].get(row["name"], 0)
+               for m in ("pcn", "ecg")}}
     return out
 
 
@@ -1274,25 +1900,42 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
 
-    phase_build()
-    nn_err = phase_nn(gen)
-    phase_fps(gen)
-    knn_err = phase_knn(gen)
-    emd_err = phase_emd(gen)
-    scatter_err = phase_scatter(gen)
-    phase_chamfer_grad(gen)
-    fast = phase_main()
-    phase_completion_reference()
-    completion = phase_completion()
-    phase_train_reference()
-    train = phase_train()
-    solve = phase_scatter_solve()
-    phase_profile()
-    phase_profile_vrcnet()
-    phase_profile_train()
-    emit({"kernels": phase_kernels(fast["launches"], nn_err, knn_err,
-                                   emd_err, scatter_err, completion, train,
-                                   solve, gen)})
+    t0 = time.perf_counter()
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        emit({"phase_done": phase.__name__,
+              "seconds": round(time.perf_counter() - t, 1),
+              "total_seconds": round(time.perf_counter() - t0, 1)})
+        return out
+
+    timed(phase_build)
+    errs = {"nn_both": timed(phase_nn, gen)}
+    timed(phase_fps, gen)
+    errs["knn"] = timed(phase_knn, gen)
+    errs["knn_wide"] = timed(phase_knn_wide, gen)
+    errs["emd"] = timed(phase_emd, gen)
+    errs["scatter_add"] = timed(phase_scatter, gen)
+    errs["nn_select"] = timed(phase_nn_select, gen)
+    errs["gather_rows"] = timed(phase_gather_rows, gen)
+    timed(phase_chamfer_grad, gen)
+    fast = timed(phase_main)
+    timed(phase_completion_reference)
+    completion = timed(phase_completion)
+    models = timed(phase_completion_models)
+    timed(phase_train_reference)
+    timed(phase_train_reference_ecg)
+    train = timed(phase_train)
+    models_train = timed(phase_train_models)
+    solve = timed(phase_scatter_solve)
+    select = timed(phase_select_solve)
+    timed(phase_profile)
+    timed(phase_profile_vrcnet)
+    timed(phase_profile_train)
+    timed(phase_profile_train, "ecg")
+    emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
+                           train, solve, models, models_train, select, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -41,6 +41,13 @@ _SIGNATURES = {
     # idx, vals, b, n, m, c, out, stream
     "houv_scatter_add": [_P, _P, _I, _I, _I, _I, _P, _P],
     "houv_scatter_max_channels": [],
+    # query, ref, b, m, n, c, k, out, stream
+    "houv_knn_wide": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "houv_knn_wide_max_k": [],
+    # a, b, bq, bk, n, m, c1, c2, key2, stream
+    "houv_nn_select": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # src, idx, b, m, n, c, out, stream
+    "houv_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -3,9 +3,9 @@
 Layout: features last, (B, N, C), as in the JAX package; a flax ``Dense`` is
 an ``nn.Linear`` over the last axis. ``FlaxNamed`` modules record, for each
 child layer, the auto-name flax gives the same layer (``Dense_3``,
-``SKNResUnit_2``), so ``houv_tpu_torch.state.vrcnet_state_from_flax`` can
-carry JAX parameters across name by name. ``EFExpansion`` needs the wide
-kNN and is not ported yet (ROADMAP.md Queue 2, item 4).
+``SKNResUnit_2``), so ``houv_tpu_torch.state.state_from_flax`` can carry JAX
+parameters across name by name. ``get_graph_feature`` and ``EFExpansion``
+build their graphs in the feature space, on the wide kNN kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from houv_tpu_torch.ops.gather import gather_edge_features, gather_rows
-from houv_tpu_torch.ops.grouping import knn_points
+from houv_tpu_torch.ops.grouping import ball_query, knn_indices, knn_points
 from houv_tpu_torch.ops.sampling import furthest_point_sample
 
 
@@ -34,8 +34,8 @@ class FlaxNamed(nn.Module):
         self._flax_counts: dict[str, int] = {}
 
     def child(self, attr: str, module: nn.Module) -> nn.Module:
-        cls = "Dense" if isinstance(module, nn.Linear) else \
-            type(module).__name__
+        cls = {nn.Linear: "Dense", nn.Embedding: "Embed"}.get(
+            type(module), type(module).__name__)
         i = self._flax_counts.get(cls, 0)
         self._flax_counts[cls] = i + 1
         self.flax_names[f"{cls}_{i}"] = attr
@@ -66,6 +66,19 @@ def max_pool_points(x: torch.Tensor) -> torch.Tensor:
     return x.amax(-2)
 
 
+def gen_grid(num_grid_point: int) -> torch.Tensor:
+    """(num², 2) folding grid in [-0.05, 0.05]²."""
+    x = np.linspace(-0.05, 0.05, num_grid_point, dtype=np.float32)
+    gx, gy = np.meshgrid(x, x, indexing="ij")
+    return torch.from_numpy(np.stack([gx, gy], -1).reshape(-1, 2))
+
+
+def gen_1d_grid(num_grid_point: int) -> torch.Tensor:
+    """(num, 1) grid in [-0.05, 0.05]."""
+    return torch.from_numpy(np.linspace(
+        -0.05, 0.05, num_grid_point, dtype=np.float32).reshape(-1, 1))
+
+
 def gen_grid_up(up_ratio: int, grid_size: float = 0.2) -> torch.Tensor:
     """(up_ratio, 2) grid offsets for folding decoders."""
     sqrted = int(math.sqrt(up_ratio)) + 1
@@ -88,9 +101,9 @@ def get_edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def get_graph_feature(x: torch.Tensor, k: int = 20,
                       minus_center: bool = True) -> torch.Tensor:
     """DGCNN edge features: (B, N, C) -> (B, N, k, 2C), [center, neighbour -
-    center] (or [center, neighbour]). Its kNN runs in the feature space, so
-    for C > 8 it runs only on CPU tensors until the wide kernel is ported."""
-    idx = knn_points(x, x, k)[1]
+    center] (or [center, neighbour]). Its kNN runs in the feature space
+    (the wide kernel on CUDA tensors when C != 3) and carries no gradient."""
+    idx = knn_indices(x, x, k, device=x.device)
     neighbors = get_edge_features(x, idx)
     center = x[:, :, None, :].expand_as(neighbors)
     if minus_center:
@@ -117,3 +130,74 @@ def edge_preserve_sampling(features: torch.Tensor, points: torch.Tensor,
     neighbor = get_edge_features(features, pn_idx).amax(2)   # (B, M, C)
     center = gather_rows(features, p_idx)
     return torch.cat([center, neighbor], -1), p_idx, sampled
+
+
+class EFExpansion(FlaxNamed):
+    """Edge-aware feature expansion, upsampling by ``step_ratio``:
+    (B, N, input_size) -> (B, N·step_ratio, output_size). Each point's k
+    nearest neighbours in the feature space give k edge features; two Dense
+    layers widen them to ``step_ratio`` groups of ``output_size`` channels,
+    each group becomes a new point, and the new point keeps the maximum
+    over its k edges."""
+
+    def __init__(self, input_size: int, output_size: int = 64,
+                 step_ratio: int = 2, k: int = 4):
+        super().__init__()
+        self.output_size, self.step_ratio, self.k = output_size, step_ratio, k
+        self.child("fc1", nn.Linear(2 * input_size, output_size))
+        self.child("fc2", nn.Linear(2 * input_size + output_size,
+                                    output_size * step_ratio))
+        self.child("fc3", nn.Linear(output_size, output_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        edge = get_graph_feature(x, self.k, minus_center=False)
+        ef = torch.relu(torch.cat([self.fc1(edge), edge], -1))
+        ef = torch.relu(self.fc2(ef))
+        # (B, N, k, C_out·r) -> (B, N·r, k, C_out)
+        ef = ef.reshape(b, n, self.k, self.step_ratio, self.output_size)
+        ef = ef.transpose(2, 3).reshape(b, n * self.step_ratio, self.k,
+                                        self.output_size)
+        return self.fc3(ef).amax(2)
+
+
+def symmetric_sample(points: torch.Tensor, num: int) -> torch.Tensor:
+    """FPS, then the picks beside their mirror images in z:
+    (B, N, 3) -> (B, 2·num, 3)."""
+    fps = gather_rows(points, furthest_point_sample(points, num,
+                                                    device=points.device))
+    return torch.cat([fps, fps * fps.new_tensor([1.0, 1.0, -1.0])], 1)
+
+
+def get_repulsion_loss(pred: torch.Tensor, nsample: int = 20,
+                       radius: float = 0.07, h: float = 0.03) -> torch.Tensor:
+    """Repulsion loss over each point's 4 nearest neighbours (self
+    excluded)."""
+    d2 = -knn_points(pred, pred, nsample)[0][..., 1:5]
+    d2 = torch.clamp_min(d2, 1e-12)
+    weight = torch.exp(-d2 / (h * h))
+    return (radius - torch.sqrt(d2) * weight).mean()
+
+
+def get_uniform_loss(pcd: torch.Tensor,
+                     percentages=(0.004, 0.006, 0.008, 0.010, 0.012),
+                     radius: float = 1.0) -> torch.Tensor:
+    """Uniformity loss over FPS-seeded ball neighbourhoods: in each ball,
+    every point's distance to its nearest other point against the spacing
+    a uniform disk of that many points would have. (B, N, 3) -> scalar."""
+    b, n, _ = pcd.shape
+    npoint = max(int(n * 0.05), 1)
+    loss = 0.0
+    for p in percentages:
+        nsample = max(int(n * p), 2)
+        r = math.sqrt(p * radius)
+        expect_len = math.sqrt(math.pi * radius ** 2 * p / nsample)
+        seed_idx = furthest_point_sample(pcd, npoint, device=pcd.device)
+        idx = ball_query(0.0, r, nsample, pcd, gather_rows(pcd, seed_idx))
+        grouped = gather_rows(pcd, idx.reshape(b, -1)).reshape(
+            b * npoint, nsample, 3)
+        d2 = -knn_points(grouped, grouped, 2)[0][..., 1:]  # nearest non-self
+        dist = torch.sqrt(d2.abs() + 1e-8).mean(-1)
+        term = ((dist - expect_len) ** 2 / (expect_len + 1e-8)).mean()
+        loss = loss + term * (p * 100) ** 2
+    return loss / len(percentages)

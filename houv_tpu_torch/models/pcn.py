@@ -1,12 +1,22 @@
-"""PCN encoder (counterpart of ``houv_tpu/models/pcn.py:PCNEncoder``).
-The PCN model itself is not ported yet (ROADMAP.md Queue 1, item 11)."""
+"""PCN, the Point Completion Network (counterpart of
+``houv_tpu/models/pcn.py``): a two-stage PointNet encoder, an FC coarse
+decoder and a folding-grid fine decoder, with its in-model losses (CD or
+EMD, coarse + alpha·fine). Features last, (B, N, C)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
-from houv_tpu_torch.models.common import FlaxNamed, max_pool_points
+from houv_tpu_torch.metrics.cd import calc_cd
+from houv_tpu_torch.metrics.emd import calc_emd
+from houv_tpu_torch.models.common import (
+    FlaxNamed,
+    gen_grid_up,
+    max_pool_points,
+)
 
 
 class PCNEncoder(FlaxNamed):
@@ -25,3 +35,117 @@ class PCNEncoder(FlaxNamed):
         g = max_pool_points(h)
         h = torch.cat([h, g[:, None, :].expand_as(h)], -1)
         return max_pool_points(self.fc4(torch.relu(self.fc3(h))))
+
+
+class PCNEncoderLabel(FlaxNamed):
+    """Label-conditioned encoder: a 16-way class embedding joins the first
+    stage's global feature. (x (B, N, 3), label (B,) int) ->
+    (global feature (B, output_size), point feature (B, N, 1024))."""
+
+    def __init__(self, output_size: int = 1024):
+        super().__init__()
+        self.child("fc1", nn.Linear(3, 512))
+        self.child("embed", nn.Embedding(16, 256))
+        self.child("fc2", nn.Linear(512 + 768, 512))
+        self.child("fc3", nn.Linear(512, 1024))
+        self.child("fc4", nn.Linear(1024, output_size))
+
+    def forward(self, x: torch.Tensor, label: torch.Tensor):
+        h = torch.relu(self.fc1(x))
+        g = torch.cat([self.embed(label), max_pool_points(h)], -1)
+        h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)], -1)
+        point_feature = torch.relu(self.fc3(torch.relu(self.fc2(h))))
+        return max_pool_points(self.fc4(point_feature)), point_feature
+
+
+def fc_coarse(module: FlaxNamed, feat_size: int, num_coarse: int) -> None:
+    """Registers the FC coarse decoder's three layers on ``module``."""
+    module.child("fc1", nn.Linear(feat_size, 1024))
+    module.child("fc2", nn.Linear(1024, 1024))
+    module.child("fc3", nn.Linear(1024, num_coarse * 3))
+
+
+def run_fc_coarse(module: nn.Module, feat: torch.Tensor,
+                  num_coarse: int) -> torch.Tensor:
+    """(B, feat_size) -> the coarse cloud (B, num_coarse, 3)."""
+    h = torch.relu(module.fc2(torch.relu(module.fc1(feat))))
+    return module.fc3(h).reshape(feat.shape[0], num_coarse, 3)
+
+
+class PCNDecoder(FlaxNamed):
+    """FC coarse cloud, then a folding fine cloud: every coarse point is
+    repeated ``scale`` times beside a grid offset and the global feature,
+    and a pointwise MLP moves it. feat (B, G) -> (coarse (B, num_coarse, 3),
+    fine (B, num_fine, 3))."""
+
+    def __init__(self, num_coarse: int, num_fine: int, scale: int,
+                 feat_size: int = 1024):
+        super().__init__()
+        self.num_coarse, self.num_fine, self.scale = num_coarse, num_fine, scale
+        fc_coarse(self, feat_size, num_coarse)
+        self.child("fold1", nn.Linear(2 + 3 + feat_size, 512))
+        self.child("fold2", nn.Linear(512, 512))
+        self.child("fold3", nn.Linear(512, 3))
+
+    def forward(self, feat: torch.Tensor):
+        b = feat.shape[0]
+        coarse = run_fc_coarse(self, feat, self.num_coarse)
+        grid = gen_grid_up(2 ** int(math.log2(self.scale)), 0.05).to(
+            feat.device)                                      # (scale, 2)
+        grid_feat = grid[None, None].expand(
+            b, self.num_coarse, self.scale, 2).reshape(b, self.num_fine, 2)
+        point_feat = coarse.repeat_interleave(self.scale, dim=1)
+        global_feat = feat[:, None, :].expand(-1, self.num_fine, -1)
+        h = torch.cat([grid_feat, point_feat, global_feat], -1)
+        h = torch.relu(self.fold2(torch.relu(self.fold1(h))))
+        return coarse, self.fold3(h) + point_feat
+
+
+def completion_outputs(coarse, fine, gt, prefix, eval_emd):
+    """The 'val' and 'test' outputs PCN and ECG share: the fine cloud alone,
+    or both clouds with cd_p, cd_t, f1 per cloud (and emd)."""
+    if prefix == "test":
+        return {"result": fine}
+    if prefix != "val":
+        raise ValueError(
+            f"prefix is 'train', 'val' or 'test', got {prefix!r}")
+    cd_p, cd_t, f1 = calc_cd(fine, gt, calc_f1=True)
+    out = {"out1": coarse, "out2": fine, "cd_p": cd_p, "cd_t": cd_t, "f1": f1}
+    if eval_emd:
+        out["emd"] = calc_emd(fine, gt, eps=0.004, iterations=3000)
+    return out
+
+
+def coarse_and_fine_losses(coarse, fine, gt, train_loss):
+    """(loss of the coarse cloud, of the fine cloud), each (B,): cd_p, or
+    the auction EMD."""
+    if train_loss == "emd":
+        return calc_emd(coarse, gt), calc_emd(fine, gt)
+    return calc_cd(coarse, gt)[0], calc_cd(fine, gt)[0]
+
+
+class PCN(FlaxNamed):
+    """PCN with its in-model losses: x (B, N, 3) -> {'result': fine}
+    ('test'); with gt the metrics per cloud ('val'); or {'out2', 'loss2',
+    'total_loss'} ('train': mean coarse loss + alpha · mean fine loss). The
+    model draws no random numbers."""
+
+    def __init__(self, num_points: int = 2048, num_coarse: int = 1024,
+                 train_loss: str = "cd", eval_emd: bool = False):
+        super().__init__()
+        if train_loss not in ("cd", "emd"):
+            raise NotImplementedError("train loss is either cd or emd")
+        self.train_loss, self.eval_emd = train_loss, eval_emd
+        self.child("encoder", PCNEncoder())
+        self.child("decoder", PCNDecoder(num_coarse, num_points,
+                                         num_points // num_coarse))
+
+    def forward(self, x: torch.Tensor, gt: torch.Tensor | None = None,
+                prefix: str = "test", alpha: float | None = None) -> dict:
+        coarse, fine = self.decoder(self.encoder(x))
+        if prefix != "train":
+            return completion_outputs(coarse, fine, gt, prefix, self.eval_emd)
+        loss1, loss2 = coarse_and_fine_losses(coarse, fine, gt,
+                                              self.train_loss)
+        return {"out2": fine, "loss2": loss2,
+                "total_loss": loss1.mean() + loss2.mean() * alpha}

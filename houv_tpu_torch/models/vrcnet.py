@@ -16,8 +16,9 @@ graphs, the three-NN weights) runs on the ``knn`` and ``fps`` kernels; the
 20·(KL_rec + KL_g) (CD or EMD, KL or MMD); its chamfer terms are
 differentiated through the ``scatter`` kernel. All randomness (latent noise,
 dropout masks) is drawn from a ``torch.Generator`` handed in, or passed in
-as tensors. ``EFExpansion`` (``up_scale >= 2``, and the non-folding fine stage) waits
-for the wide kNN kernel.
+as tensors. ``EFExpansion`` (when the fine cloud has at least twice the
+decoder's points, and as the fine stage without ``local_folding``) builds
+its graph in the feature space, on the wide kNN kernel.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from houv_tpu_torch.metrics.cd import calc_cd
 from houv_tpu_torch.metrics.emd import calc_emd
 from houv_tpu_torch.models.common import (
+    EFExpansion,
     FlaxNamed,
     edge_preserve_sampling,
     gen_grid_up,
@@ -45,10 +47,6 @@ from houv_tpu_torch.ops.interpolate import (
     three_nn_upsampling,
 )
 from houv_tpu_torch.ops.sampling import furthest_point_sample
-
-_EF_EXPANSION = ("EFExpansion needs the wide kNN kernel, not ported yet "
-                 "(ROADMAP.md Queue 2, item 4)")
-
 
 class SAModule(FlaxNamed):
     """Point self-attention over a kNN graph: x (B, N, C), idx (B, N, k) ->
@@ -294,17 +292,19 @@ class MSAPSKNDecoder(FlaxNamed):
         self.num_coarse, self.num_fine = num_coarse, num_fine
         self.knn_list, self.pk = tuple(knn_list), pk
         self.points_label = points_label
-        total = num_coarse_raw + n_input
-        if math.ceil(num_fine / (num_coarse_raw + 2048)) >= 2:
-            raise NotImplementedError(_EF_EXPANSION)
-        n_fps = min(total, num_fps)
+        up_scale = math.ceil(num_fine / (num_coarse_raw + 2048))
+        n_fps = min((num_coarse_raw + n_input) * max(up_scale, 1), num_fps)
         n_coarse = min(n_fps, num_coarse)
         self.child("fc1", nn.Linear(global_size, 1024))
         self.child("fc2", nn.Linear(1024, 1024))
         self.child("fc_raw", nn.Linear(1024, num_coarse_raw * 3))
         self.child("encoder", SASKNResEncoder(
             3 + int(points_label), knn_list, pk, 256, layers, remat))
-        self.child("feat", nn.Linear(256, 64))
+        self.expand = None
+        if up_scale >= 2:
+            self.expand = self.child("expand", EFExpansion(
+                256, 64, step_ratio=up_scale, k=4))
+        self.child("feat", nn.Linear(64 if up_scale >= 2 else 256, 64))
         self.child("high", nn.Linear(64, 3))
         self.score = n_fps > num_coarse
         if self.score:
@@ -312,11 +312,15 @@ class MSAPSKNDecoder(FlaxNamed):
             self.child("score2", nn.Linear(16, 8))
             self.child("score3", nn.Linear(8, 1))
         self.fold = n_coarse < num_fine
+        self.local_folding = local_folding
         if self.fold:
-            if not local_folding:
-                raise NotImplementedError(_EF_EXPANSION)
-            self.ratio = num_fine // n_coarse
-            self.child("folding", Folding(global_size + 64, 256, self.ratio))
+            self.ratio = num_fine // num_coarse
+            if local_folding:
+                self.child("folding", Folding(global_size + 64, 256,
+                                              self.ratio))
+            else:
+                self.child("folding", EFExpansion(
+                    64, 256, step_ratio=self.ratio, k=4))
             # flax builds the outer Dense(3) before the inner Dense(64)
             self.child("fine_out", nn.Linear(64, 3))
             self.child("fine_hidden", nn.Linear(256, 64))
@@ -339,12 +343,14 @@ class MSAPSKNDecoder(FlaxNamed):
         t = points.shape[1]
         geo = saskn_geometry(points[..., :3], (t, t // 2, t // 4, t // 8),
                              self.knn_list, self.pk)
-        coarse_features = torch.relu(self.feat(
-            self.encoder(points, geo, dropout)))
+        dense_feat = self.encoder(points, geo, dropout)
+        if self.expand is not None:
+            dense_feat = self.expand(dense_feat)
+        coarse_features = torch.relu(self.feat(dense_feat))
         coarse_high = self.high(coarse_features)
 
         coarse, feats = coarse_high, coarse_features
-        if t > self.num_fps:
+        if coarse_high.shape[1] > self.num_fps:
             idx = furthest_point_sample(coarse_high, self.num_fps,
                                         device=coarse_high.device)
             coarse, feats = gather_rows(coarse, idx), gather_rows(feats, idx)
@@ -357,9 +363,13 @@ class MSAPSKNDecoder(FlaxNamed):
             coarse, feats = gather_rows(coarse, idx), gather_rows(feats, idx)
         if not self.fold:
             return coarse_raw, coarse_high, coarse, coarse
-        up = self.folding(feats, global_feat)
-        center = coarse.repeat_interleave(self.ratio, dim=1)
-        fine = self.fine_out(torch.relu(self.fine_hidden(up))) + center
+        if self.local_folding:
+            up = self.folding(feats, global_feat)
+            center = coarse.repeat_interleave(self.ratio, dim=1)
+            fine = self.fine_out(torch.relu(self.fine_hidden(up))) + center
+        else:
+            fine = self.fine_out(torch.relu(self.fine_hidden(
+                self.folding(feats))))
         return coarse_raw, coarse_high, coarse, fine
 
 

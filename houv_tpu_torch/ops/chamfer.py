@@ -6,7 +6,10 @@ hand-written CUDA kernel ``csrc/nn_both.cu`` (replacing the TPU kernel
 ``_nn_both_plain``, on CPU tensors. ``chamfer`` recomputes exact distances
 from those indices and carries the gradient of ``_nn_both_gather``: direct
 terms elementwise, cross terms through ``ops/scatter.py:scatter_add`` (the
-``scatter`` kernel on CUDA tensors). ``pairwise_sqdist`` and
+``scatter`` kernel on CUDA tensors). ``nn_select`` is the same search
+emitting the matched neighbours' coordinates instead of their indices
+(``csrc/nn_select.cu``, replacing the TPU kernel ``_nn_select_kernel``; its
+plain version is ``_nn_select_plain``). ``pairwise_sqdist`` and
 ``chamfer_reference`` are the dense golden model.
 
 Unlike the TPU kernel, which selects by a key holding 16 index bits (2^-12
@@ -112,6 +115,69 @@ def chamfer_indices(a: torch.Tensor, b: torch.Tensor,
 
 
 chamfer_indices.launches = 0
+
+
+def _nn_select_plain(a: torch.Tensor, b: torch.Tensor):
+    """The kernel's result in plain PyTorch: ``_nn_both_plain``'s indices
+    (exact diff-form distances, first index on ties), then the rows they
+    name, copied exactly."""
+    i1, i2 = _nn_both_plain(a, b)
+    share = b.shape[0] // a.shape[0]
+    rows = torch.arange(b.shape[0], device=b.device) // share
+    return gather_rows(b, i1), a[rows[:, None], i2]
+
+
+def _nn_select_cuda(a: torch.Tensor, b: torch.Tensor):
+    from houv_tpu_torch.kernels import check, load
+
+    lib = load()
+    bq, n, _ = a.shape
+    bk, m, _ = b.shape
+    c1 = torch.empty((bk, n, 3), dtype=torch.float32, device=b.device)
+    c2 = torch.empty((bk, m, 3), dtype=torch.float32, device=b.device)
+    key2 = torch.empty((bk, m), dtype=torch.int64, device=b.device)
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        err = lib.houv_nn_select(a.data_ptr(), b.data_ptr(), bq, bk, n, m,
+                                 c1.data_ptr(), c2.data_ptr(),
+                                 key2.data_ptr(), stream)
+    check(lib, err, "nn_select")
+    nn_select.launches += 1
+    return c1, c2
+
+
+def nn_select(a: torch.Tensor, b: torch.Tensor,
+              device: str | torch.device = "cuda"):
+    """The matched neighbours' coordinates both ways, no gradients:
+    c1[r, i] = the row of b[r] nearest to a_i (Bk, N, 3), c2[r, j] = the row
+    of a nearest to b[r]_j (Bk, M, 3); exact f32 copies, ties to the smaller
+    index.
+
+    Shared-query layout as ``chamfer_indices``: each ``a`` row (Bq, N, 3)
+    serves Bk / Bq consecutive rows of ``b`` (Bk, M, 3). On ``cuda`` this
+    launches ``csrc/nn_select.cu`` and counts the launch in
+    ``nn_select.launches``; the plain version runs only for tensors on the
+    CPU, with ``device="cpu"``."""
+    dev = resolve_device(device)
+    check_on(dev, a, b)
+    if a.dim() != 3 or b.dim() != 3 or a.shape[-1] != 3 or b.shape[-1] != 3:
+        raise ValueError(f"expected (B, N, 3) clouds, got {a.shape}, {b.shape}")
+    if a.shape[0] == 0 or b.shape[0] % a.shape[0]:
+        raise ValueError(
+            f"query batch {a.shape[0]} does not divide {b.shape[0]}")
+    if a.shape[1] < 1 or b.shape[1] < 1:
+        raise ValueError("nn_select takes at least one point per cloud")
+    a = a.detach().float().contiguous()
+    b = b.detach().float().contiguous()
+    if dev.type == "cuda":
+        if a.shape[1] >= 2**31 or b.shape[1] >= 2**31:
+            raise ValueError("nn_select takes fewer than 2^31 points per "
+                             "cloud")
+        return _nn_select_cuda(a, b)
+    return _nn_select_plain(a, b)
+
+
+nn_select.launches = 0
 
 
 def _chamfer_forward(a: torch.Tensor, b: torch.Tensor):

@@ -1,20 +1,23 @@
 """k nearest neighbours and point gathers.
 
-Counterpart of ``houv_tpu/ops/grouping.py``. ``knn_points`` launches the
-hand-written CUDA kernel ``csrc/knn.cu`` (replacing the TPU kernel
-``_knn_kernel``, the coordinate form) on CUDA tensors and runs its plain
-PyTorch version ``_knn_plain`` on CPU tensors. The contract:
+Counterpart of ``houv_tpu/ops/grouping.py``. ``knn_points`` launches a
+hand-written CUDA kernel on CUDA tensors, ``csrc/knn.cu`` for 3-D points
+(replacing the TPU kernel ``_knn_kernel``, the coordinate form) and
+``csrc/knn_wide.cu`` for any other channel count (replacing
+``_knn_kernel_wide``, the feature-space form), and runs their plain PyTorch
+version ``_knn_plain`` on CPU tensors. The contract:
 
 - indices (B, M, k) int64 ascending by distance, ties to the smaller index;
 - values are the NEGATED squared distances, descending, recomputed from the
   selected pairs (differentiable in both clouds, as through ``top_k``).
 
-Both the kernel and the plain version select on the exact f32 diff-form
-distance; the TPU kernel selected at 2^-(23-idx_bits) relative and the JAX
-package's XLA path on the expansion form, so indices differ from JAX only at
-near-ties. The wide feature-space form (C > 8, ``_knn_kernel_wide``) is not
-ported to CUDA yet and runs only on CPU tensors. ``ball_query`` and
-``query_and_group`` are not ported yet.
+Both kernels and the plain version select on the exact f32 diff-form
+distance Σ_c (q_c - r_c)², summed in ascending c and rounded op by op; the
+TPU kernels selected at 2^-(23-idx_bits) relative, the wide one on the
+expansion form |q|² - 2q·r + |r|² clamped at 0, as the JAX package's XLA
+path does, so indices differ from JAX only at near-ties (commoner in a
+learned feature space than on coordinates). ``ball_query`` and
+``query_and_group`` are plain tensor code, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from houv_tpu_torch._device import check_on, resolve_device
+from houv_tpu_torch.ops.chamfer import pairwise_sqdist
 
 # Keeps the plain version's (rows, M, N) temporaries under ~1 GB.
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -81,20 +85,28 @@ def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
     from houv_tpu_torch.kernels import check, load
 
     lib = load()
-    if k > lib.houv_knn_max_k():
-        raise ValueError(
-            f"the knn kernel takes k <= {lib.houv_knn_max_k()}, got {k}")
-    bsz, m, _ = query.shape
+    bsz, m, c = query.shape
     n = ref.shape[1]
+    wide = c != 3
+    max_k = lib.houv_knn_wide_max_k() if wide else lib.houv_knn_max_k()
+    if k > max_k:
+        raise ValueError(f"the knn kernels take k <= {max_k}, got {k}")
     out = torch.empty((bsz, m, k), dtype=torch.int64, device=query.device)
     if bsz == 0 or m == 0:
         return out
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
-        err = lib.houv_knn(query.data_ptr(), ref.data_ptr(), bsz, m, n, k,
-                           out.data_ptr(), stream)
-    check(lib, err, "knn")
-    knn_indices.launches += 1
+        if wide:
+            err = lib.houv_knn_wide(query.data_ptr(), ref.data_ptr(), bsz, m,
+                                    n, c, k, out.data_ptr(), stream)
+        else:
+            err = lib.houv_knn(query.data_ptr(), ref.data_ptr(), bsz, m, n,
+                               k, out.data_ptr(), stream)
+    check(lib, err, "knn_wide" if wide else "knn")
+    if wide:
+        knn_indices.wide_launches += 1
+    else:
+        knn_indices.launches += 1
     return out
 
 
@@ -103,9 +115,10 @@ def knn_indices(query: torch.Tensor, ref: torch.Tensor, k: int,
     """(B, M, C) × (B, N, C) -> (B, M, k) int64 indices of the k nearest
     refs, ascending by distance, ties to the smaller index; no gradients.
 
-    On ``cuda`` this launches ``csrc/knn.cu`` (C == 3) and counts the launch
-    in ``knn_indices.launches``; the plain version runs only for tensors on
-    the CPU, with ``device="cpu"``."""
+    On ``cuda`` this launches ``csrc/knn.cu`` (C == 3), counted in
+    ``knn_indices.launches``, or ``csrc/knn_wide.cu`` (any other C), counted
+    in ``knn_indices.wide_launches``; the plain version runs only for
+    tensors on the CPU, with ``device="cpu"``."""
     dev = resolve_device(device)
     check_on(dev, query, ref)
     if query.dim() != 3 or ref.dim() != 3 or query.shape[0] != ref.shape[0] \
@@ -117,18 +130,12 @@ def knn_indices(query: torch.Tensor, ref: torch.Tensor, k: int,
     query = query.detach().float().contiguous()
     ref = ref.detach().float().contiguous()
     if dev.type == "cuda":
-        if query.shape[-1] > 8:
-            raise NotImplementedError(
-                "the wide (C > 8) kNN kernel is not ported yet "
-                "(ROADMAP.md Queue 2, item 4: K6-wide)")
-        if query.shape[-1] != 3:
-            raise ValueError("the knn kernel takes 3-D points (C == 3), "
-                             f"got C={query.shape[-1]}")
         return _knn_cuda(query, ref, k)
     return _knn_plain(query, ref, k)
 
 
 knn_indices.launches = 0
+knn_indices.wide_launches = 0
 
 
 def knn_points(query: torch.Tensor, ref: torch.Tensor, k: int):
@@ -151,4 +158,52 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
     """Self-kNN over channel-major features: (B, C, N) -> (B, N, k) indices
     (includes self)."""
     pts = x.transpose(1, 2)
-    return knn_points(pts, pts, k)[1]
+    return knn_indices(pts, pts, k, device=x.device)
+
+
+def ball_query(min_radius: float, max_radius: float, nsample: int,
+               xyz: torch.Tensor, center_xyz: torch.Tensor) -> torch.Tensor:
+    """Fixed-radius neighbourhood indices: xyz (B, N, 3), center_xyz
+    (B, M, 3) -> (B, M, nsample) int64.
+
+    - a point qualifies if d² == 0 or min_r² <= d² < max_r² (d² in the
+      expansion form, as in the JAX package),
+    - the first ``nsample`` qualifying points in index order are returned,
+    - slots past the count repeat the first qualifying index,
+    - centers with no qualifying point return all zeros."""
+    n = xyz.shape[1]
+    d2 = pairwise_sqdist(center_xyz.detach(), xyz.detach())      # (B, M, N)
+    mask = (d2 == 0.0) | ((d2 >= min_radius ** 2) & (d2 < max_radius ** 2))
+    # key = own index where valid, n + index where not: the nsample smallest
+    # keys are the first valid indices in index order
+    pos = torch.arange(n, device=xyz.device)
+    keys = torch.where(mask, pos, pos + n)
+    idx = torch.topk(keys, nsample, dim=-1, largest=False).indices
+    count = mask.sum(-1, keepdim=True)
+    slot = torch.arange(nsample, device=xyz.device)
+    idx = torch.where(slot < count, idx, idx[..., :1])
+    return torch.where(count > 0, idx, torch.zeros_like(idx))
+
+
+def query_and_group(xyz: torch.Tensor, center_xyz: torch.Tensor,
+                    features: torch.Tensor | None, *, nsample: int,
+                    max_radius: float | None, min_radius: float = 0.0,
+                    use_xyz: bool = True,
+                    normalize_xyz: bool = False) -> torch.Tensor:
+    """Ball query (or kNN when ``max_radius`` is None), grouping and centre
+    subtraction: xyz (B, N, 3), center_xyz (B, M, 3), features (B, C, N) or
+    None -> (B, C(+3), M, nsample)."""
+    if max_radius is None:
+        idx = knn_indices(center_xyz, xyz, nsample, device=xyz.device)
+    else:
+        idx = ball_query(min_radius, max_radius, nsample, xyz, center_xyz)
+    grouped_xyz = grouping_operation(xyz.transpose(1, 2), idx)
+    grouped_xyz = grouped_xyz - center_xyz.transpose(1, 2)[..., None]
+    if normalize_xyz and max_radius is not None:
+        grouped_xyz = grouped_xyz / max_radius
+    if features is None:
+        return grouped_xyz
+    grouped = grouping_operation(features, idx)
+    if use_xyz:
+        return torch.cat([grouped_xyz, grouped], 1)
+    return grouped

@@ -1,6 +1,8 @@
-"""Batched scatter-add, the chamfer backward's op.
+"""Batched scatter-add, the chamfer backward's op, and its transpose, the
+batched row gather.
 
-Counterpart of ``houv_tpu/ops/scatter.py:scatter_add_matmul``.
+Counterpart of ``houv_tpu/ops/scatter.py``: ``scatter_add_matmul`` and
+``gather_rows_matmul``.
 ``scatter_add`` launches the hand-written CUDA kernel ``csrc/scatter.cu``
 (replacing the TPU kernel ``_scatter_kernel``) on CUDA tensors and runs its
 plain PyTorch version, ``_scatter_add_plain``, on CPU tensors:
@@ -11,6 +13,13 @@ Indices outside [0, m) are dropped. The sum is f32 and is taken in ascending
 ``i`` by the kernel and by the plain version alike, so the two are equal bit
 for bit and a result does not change from run to run. (The TPU kernel
 rounds ``vals`` to bf16 for its matrix unit; that is not carried over.)
+
+``gather_rows_kernel`` launches ``csrc/gather_rows.cu`` (replacing the TPU
+kernel ``_gather_kernel``) on CUDA tensors and runs ``_gather_rows_plain`` on
+CPU tensors: out[b, i, :] = src[b, idx[b, i], :], an exact copy, a row of
+zeros for an index outside [0, M). Like its TPU counterpart it is an
+exported op with no caller in the package: the models and the solver gather
+with ``ops/gather.py:gather_rows``.
 """
 
 from __future__ import annotations
@@ -98,3 +107,58 @@ def scatter_add(idx: torch.Tensor, vals: torch.Tensor, m: int,
 
 
 scatter_add.launches = 0
+
+
+def _gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The kernel's copy in plain PyTorch: rows by index, zeros where the
+    index names no row."""
+    ok = (idx >= 0) & (idx < src.shape[1])
+    rows = torch.arange(src.shape[0], device=src.device)[:, None]
+    out = src[rows, torch.where(ok, idx, torch.zeros_like(idx))]
+    return out * ok[..., None].to(out.dtype)
+
+
+def _gather_rows_cuda(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    from houv_tpu_torch.kernels import check, load
+
+    lib = load()
+    bsz, m, c = src.shape
+    n = idx.shape[1]
+    out = torch.empty((bsz, n, c), dtype=torch.float32, device=src.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.houv_gather_rows(src.data_ptr(), idx.data_ptr(), bsz, m, n,
+                                   c, out.data_ptr(), stream)
+    check(lib, err, "gather_rows")
+    gather_rows_kernel.launches += 1
+    return out
+
+
+def gather_rows_kernel(src: torch.Tensor, idx: torch.Tensor,
+                       device: str | torch.device = "cuda") -> torch.Tensor:
+    """(B, M, C) f32 × (B, N) int64 -> (B, N, C) f32 with
+    out[b, i] = src[b, idx[b, i]], copied exactly; an index < 0 or >= M
+    gives a row of zeros. No gradients.
+
+    On ``cuda`` this launches ``csrc/gather_rows.cu`` and counts the launch
+    in ``gather_rows_kernel.launches``; the plain version runs only for
+    tensors on the CPU, with ``device="cpu"``."""
+    dev = resolve_device(device)
+    check_on(dev, src, idx)
+    if src.dim() != 3 or idx.dim() != 2 or src.shape[0] != idx.shape[0]:
+        raise ValueError(f"expected src (B, M, C) and idx (B, N), got "
+                         f"{tuple(src.shape)}, {tuple(idx.shape)}")
+    if idx.dtype != torch.int64:
+        raise ValueError(f"idx must be int64, got {idx.dtype}")
+    if max(src.shape[1], idx.shape[1], src.shape[2]) >= 2**31:
+        raise ValueError("gather_rows_kernel takes M, N, C < 2^31")
+    src = src.detach().float().contiguous()
+    idx = idx.detach().contiguous()
+    if dev.type == "cuda":
+        return _gather_rows_cuda(src, idx)
+    return _gather_rows_plain(src, idx)
+
+
+gather_rows_kernel.launches = 0

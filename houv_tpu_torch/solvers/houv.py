@@ -18,6 +18,9 @@ Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective (and its
   through ``metrics/cd.py:calc_cd_percent`` on the transformed cloud, whose
   backward is the chamfer gradient's scatter-add (``ops/scatter.py``, a CUDA
   kernel on the card), and can add the projected ``loss_view`` terms.
+  ``nn_select=True`` takes the matched rows as coordinates straight from
+  the search (``ops/chamfer.py:nn_select``, a CUDA kernel on the card)
+  instead of indices and row gathers.
 - Adam(lr) for ``steps`` steps over all (pair, restart) replicas, phase by
   phase of the coarse-to-fine schedule (coarse phases run on FPS-downsampled
   clouds, ``ops/sampling.py``); the best restart wins.
@@ -48,7 +51,7 @@ from houv_tpu_torch.metrics.cd import (
     loss_view,
     smallest_k_sqrt_mean_fast,
 )
-from houv_tpu_torch.ops.chamfer import chamfer_indices
+from houv_tpu_torch.ops.chamfer import chamfer_indices, nn_select
 from houv_tpu_torch.ops.gather import gather_rows
 from houv_tpu_torch.ops.sampling import furthest_point_sample
 
@@ -60,7 +63,6 @@ _PARAM_NAMES = ("v_c", "angle_c", "tran_c", "tran_s")
 UNPORTED_DEFAULTS = {
     "objective": "trunc",
     "two_bracket": False,
-    "nn_select": False,
     "voxel_downsample": None,
     "window_select": "loss",
     "rotation_mode": "axis_angle",
@@ -95,11 +97,14 @@ class HOUVConfig:
     grad_mode: str = "gather"
     # adds min(cd_p, cd_t) of the three axis projections; 'scatter' only
     use_view_loss: bool = False
+    # 'gather' only: the search emits the matched neighbours' coordinates
+    # (ops/chamfer.py:nn_select) instead of indices for two row gathers; the
+    # matched raw src rows are recovered as R0^T (c1 - t0)
+    nn_select: bool = False
     # Options that raise NotImplementedError unless left at their default
     # (UNPORTED_DEFAULTS).
     objective: str = "trunc"
     two_bracket: bool = False
-    nn_select: bool = False
     voxel_downsample: int | None = None
     window_select: str = "loss"
     rotation_mode: str = "axis_angle"
@@ -117,6 +122,8 @@ class HOUVConfig:
             raise NotImplementedError(
                 "use_view_loss is ported for grad_mode='scatter' only; "
                 "see ROADMAP.md Queue 1, item 7c")
+        if self.nn_select and self.grad_mode != "gather":
+            raise ValueError("nn_select applies to grad_mode='gather' only")
         if self.tran_mode not in ("mvp", "bounded"):
             raise ValueError(f"unknown tran_mode {self.tran_mode!r}")
         if self.retry_mode not in ("threshold", "always"):
@@ -175,14 +182,26 @@ def _trunc_mean_sqrt(d: torch.Tensor, k: int, fast: bool) -> torch.Tensor:
     return _safe_sqrt(_smallest_k(d, k)).mean(-1)
 
 
-def _pair_matches(src, tgt, src_t):
+def _pair_matches(src, tgt, src_t, r=None, t=None, select=False):
     """One nearest-neighbour pass -> matched rows, without gradients:
     tg (B, K, N, 3), the matched tgt row per src point, and s_sel
     (B, K, M, 3), the matched RAW src row per tgt point. Direction as in
     cd(gt=tgt, out=src_t): i1 is per tgt point, i2 per src point. Shared
-    query layout: tgt (B, M, 3) serves the K restarts of its pair."""
+    query layout: tgt (B, M, 3) serves the K restarts of its pair.
+
+    ``select``: the search returns coordinates (``nn_select``): tg is its
+    per-src output, and the matched raw src rows are the matched transformed
+    ones taken back through (r, t): s_sel = R^T (c1 - t), equal to gathering
+    raw src rows up to that product's rounding."""
     bsz, kernel, n = src_t.shape[:3]
     m = tgt.shape[1]
+    if select:
+        c1, c2 = nn_select(tgt, src_t.reshape(bsz * kernel, n, 3),
+                           device=src.device)
+        tg = c2.reshape(bsz, kernel, n, 3)
+        sel_t = c1.reshape(bsz, kernel, m, 3)
+        s_sel = torch.einsum("bkmd,bkdc->bkmc", sel_t - t[:, :, None, :], r)
+        return tg, s_sel
     i1, i2 = chamfer_indices(tgt, src_t.reshape(bsz * kernel, n, 3),
                              device=src.device)
     tg = gather_rows(tgt, i2.reshape(bsz, kernel * n)).reshape(
@@ -207,7 +226,8 @@ def _objective_matches(params, src, tgt, angle_base, cfg: HOUVConfig):
     """The match half of the objective: one search at the current (R, T)."""
     with torch.no_grad():
         r, t = reparametrize(params, angle_base, cfg.tran_mode)
-        return _pair_matches(src, tgt, _apply(src, r, t))
+        return _pair_matches(src, tgt, _apply(src, r, t), r, t,
+                             select=cfg.nn_select)
 
 
 def _objective_cached(params, matches, src, tgt, angle_base,

@@ -3,9 +3,9 @@
 ``params_from_jax`` turns the output of ``houv_tpu.solvers.houv.init_params``
 (converted to numpy by the caller) into the port's parameter tensors, so both
 packages can be fed the same restarts. ``config_from_jax`` converts a JAX
-``HOUVConfig`` field by field. ``vrcnet_state_from_flax`` turns the JAX
-VRCNet's flax parameters into the port's ``state_dict``. None imports
-anything of the JAX package.
+``HOUVConfig`` field by field. ``state_from_flax`` turns the flax parameters
+of a JAX completion model (PCN, ECG, VRCNet, or one of their modules) into
+the port's ``state_dict``. None imports anything of the JAX package.
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ def _flax_to_torch(module: nn.Module, tree: dict, prefix: str,
                    out: dict) -> None:
     """Walk a flax parameter tree beside ``module``: each flax child name
     maps to the torch attribute recorded in ``module.flax_names``; a flax
-    ``Dense`` kernel (in, out) becomes ``Linear.weight`` (out, in)."""
+    ``Dense`` kernel (in, out) becomes ``Linear.weight`` (out, in), an
+    ``Embed`` table ``Embedding.weight``."""
     for flax_name, sub in tree.items():
         try:
             attr = module.flax_names[flax_name]
@@ -69,19 +70,28 @@ def _flax_to_torch(module: nn.Module, tree: dict, prefix: str,
             if "bias" in sub:
                 out[f"{prefix}{attr}.bias"] = torch.tensor(
                     np.asarray(sub["bias"], np.float32))
+        elif isinstance(child, nn.Embedding):
+            out[f"{prefix}{attr}.weight"] = torch.tensor(
+                np.asarray(sub["embedding"], np.float32))
         else:
             _flax_to_torch(child, sub, f"{prefix}{attr}.", out)
 
 
-def vrcnet_state_from_flax(params: dict, model: nn.Module) -> dict:
-    """The JAX VRCNet's parameters (the nested dict of ``init``'s
+def state_from_flax(params: dict, model: nn.Module) -> dict:
+    """A JAX completion model's parameters (the nested dict of ``init``'s
     ``params``, leaves as numpy arrays, with or without the top-level
-    ``'params'`` key) -> a ``state_dict`` for ``model``, the port's
-    ``models.vrcnet.VRCNet`` of the same configuration (or one of its
-    modules, given that module's flax parameters). Every flax name must
-    have a counterpart; ``model.load_state_dict(..., strict=True)`` then
-    checks the converse."""
+    ``'params'`` key) -> a ``state_dict`` for ``model``, the port's model of
+    the same class and configuration (``PCN``, ``ECG``, ``VRCNet``, or one
+    of their ``FlaxNamed`` modules, given that module's flax parameters).
+    Layers pair up by flax auto-name (``PCNEncoder_0``, ``ECGDecoder_0``,
+    ``EFEncoder_0``, ``DenseConv_2``, ``EFExpansion_0``, ``Dense_7``). Every
+    flax name must have a counterpart; ``model.load_state_dict(...,
+    strict=True)`` then checks the converse."""
     tree = params.get("params", params)
     out: dict = {}
     _flax_to_torch(model, tree, "", out)
     return out
+
+
+# the name it had while VRCNet was the only model carried across
+vrcnet_state_from_flax = state_from_flax

@@ -1,12 +1,13 @@
 """Command-line entries (counterpart of ``houv_tpu/train/cli.py`` on one
-device): the test sweep (HOUV registration, VRCNet completion) and VRCNet
-training.
+device): the test sweep (HOUV registration; PCN, ECG or VRCNet completion)
+and the training of a completion model.
 
     python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml [-l L -r R]
         [--data-path FILE] [--device cuda|cpu]
     python -m houv_tpu_torch.train.cli -c cfgs/vrcnet.yaml [--device cpu]
     python -m houv_tpu_torch.train.cli train -c cfgs/vrcnet.yaml
         [--data-path FILE] [--device cuda|cpu]
+    (likewise cfgs/pcn.yaml and cfgs/ecg.yaml)
 
 The sweep runs the test split batch by batch and writes ``results.h5`` (the
 (N, 4, 4) transforms, or the (N, num_points, 3) completions) and
@@ -68,7 +69,8 @@ def build_dataset(cfg: Config, split: str, index_range=None):
                 index_range=index_range, category=cfg.category,
                 with_voxels=with_voxels)
         data = synthesize_completion_set(
-            max(n // 8, 2), views_per_model=8, n_partial=cfg.num_points,
+            max(n // 8, 2), views_per_model=8,
+            n_partial=cfg.num_input or cfg.num_points,
             n_complete=cfg.num_points, seed=seed)
         return MVPCompletionDataset(
             split, data=data, views_per_model=8, scale_aug=cfg.scale_aug,

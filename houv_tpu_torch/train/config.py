@@ -50,6 +50,10 @@ class Config:
     dataset: str = "mvp_rg"
     data_path: str | None = None
     num_points: int = 2048
+    # points of a partial scan, where they differ from num_points (MVP's
+    # scans hold 2048 at every resolution of the ground truth); the model
+    # fixes its stages from it, and the synthetic split is made at it
+    num_input: int | None = None
     batch_size: int = 32
     max_angle: float = 45.0          # registration pose synthesis (degrees)
     max_trans: float = 0.5

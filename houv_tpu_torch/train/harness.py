@@ -26,8 +26,8 @@ import torch
 
 from houv_tpu_torch._device import resolve_device
 from houv_tpu_torch.data.pipeline import batch_iterator
+from houv_tpu_torch.models import MODELS, get_model
 from houv_tpu_torch.models.common import init_like_flax
-from houv_tpu_torch.models.vrcnet import VRCNet
 from houv_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from houv_tpu_torch.train.config import Config
 from houv_tpu_torch.train.schedules import alpha_schedule, lr_schedule
@@ -37,30 +37,39 @@ logger = logging.getLogger("houv_tpu_torch")
 
 # completion models of the JAX package the port does not run yet
 _NOT_PORTED = {
-    "pcn": "ROADMAP.md Queue 1, item 11",
-    "ecg": "ROADMAP.md Queue 1, item 11, and the wide kNN, Queue 2, item 4",
     "transformer": "ROADMAP.md Queue 1, item 11",
     "vrcnet_knn": "ROADMAP.md Queue 1, items 8 and 11",
 }
 
+# models that draw random numbers (latent noise, dropout) and so take a
+# generator; PCN and ECG draw none
+_MODEL_RNGS = {"vrcnet"}
 
-def model_from_config(cfg: Config) -> VRCNet:
-    """The config's completion model; VRCNet only, f32 only."""
-    if cfg.model_name != "vrcnet":
-        where = _NOT_PORTED.get(cfg.model_name, "ROADMAP.md Queue 1")
+
+def model_from_config(cfg: Config) -> torch.nn.Module:
+    """The config's completion model (pcn, ecg or vrcnet), f32 only: the
+    config's keys mapped onto the model's constructor."""
+    name = cfg.model_name
+    if name not in MODELS:
+        where = _NOT_PORTED.get(name, "ROADMAP.md Queue 1")
         raise NotImplementedError(
-            f"completion model {cfg.model_name!r} is not ported yet ({where})")
+            f"completion model {name!r} is not ported yet ({where})")
     if cfg.compute_dtype not in (None, "float32"):
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: only f32 is ported "
             "(ROADMAP.md Queue 1, item 11)")
-    return VRCNet(
-        num_points=cfg.num_points, num_coarse_raw=cfg.num_coarse_raw,
-        num_fps=cfg.num_fps, num_coarse=cfg.num_coarse,
-        layers=tuple(cfg.layers), knn_list=tuple(cfg.knn_list), pk=cfg.pk,
-        points_label=cfg.points_label, local_folding=cfg.local_folding,
-        eval_emd=cfg.eval_emd, remat=cfg.use_remat,
-        distribution_loss=cfg.distribution_loss, train_loss=cfg.loss)
+    kw = dict(num_points=cfg.num_points, num_coarse=cfg.num_coarse,
+              train_loss=cfg.loss, eval_emd=cfg.eval_emd)
+    if name == "ecg":
+        kw.update(num_input=cfg.num_input or cfg.num_points)
+    elif name == "vrcnet":
+        kw.update(n_input=cfg.num_input,
+                  num_coarse_raw=cfg.num_coarse_raw, num_fps=cfg.num_fps,
+                  layers=tuple(cfg.layers), knn_list=tuple(cfg.knn_list),
+                  pk=cfg.pk, points_label=cfg.points_label,
+                  local_folding=cfg.local_folding, remat=cfg.use_remat,
+                  distribution_loss=cfg.distribution_loss)
+    return get_model(name, **kw)
 
 
 def _seeded(*entropy: int) -> torch.Generator:
@@ -86,7 +95,8 @@ def _make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
 
 
 class CompletionTrainer:
-    """VRCNet training, validation and inference on one device."""
+    """Training, validation and inference of a completion model (pcn, ecg,
+    vrcnet) on one device."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -106,7 +116,14 @@ class CompletionTrainer:
         if cfg.eval_emd:
             self.best["emd"] = (0, float("inf"))
 
-    def init_state(self) -> VRCNet:
+    def _rng(self, generator: torch.Generator) -> dict:
+        """The model call's ``generator`` argument, for a model that draws
+        random numbers."""
+        if self.cfg.model_name in _MODEL_RNGS:
+            return {"generator": generator}
+        return {}
+
+    def init_state(self) -> torch.nn.Module:
         """Seeded flax-like initialisation (``manual_seed``, default 2021),
         then ``load_model``'s weights (and optimizer state and epoch, when
         the checkpoint has them) over it."""
@@ -136,14 +153,14 @@ class CompletionTrainer:
         out = self.model(self._tensor(batch, "partial"),
                          self._tensor(batch, "gt"), prefix="train",
                          alpha=alpha_schedule(self.cfg, epoch),
-                         generator=_seeded(self.seed, step))
+                         **self._rng(_seeded(self.seed, step)))
         loss = out["total_loss"]
         loss.backward()
         self.optimizer.step()
         return loss.detach()
 
     def fit_steps(self, loader, n_steps: int, epoch_len: int = 1000,
-                  val_ds=None) -> VRCNet:
+                  val_ds=None) -> torch.nn.Module:
         """Step-based training from a loader with ``next_batch()``."""
         meter = AverageValueMeter()
         t0 = time.time()
@@ -159,7 +176,7 @@ class CompletionTrainer:
             self.validate(val_ds, epoch=n_steps // epoch_len)
         return self.model
 
-    def fit(self, train_ds, val_ds=None) -> VRCNet:
+    def fit(self, train_ds, val_ds=None) -> torch.nn.Module:
         """Epochs ``start_epoch`` .. ``nepoch`` over shuffled full batches;
         ``network.ckpt`` after each ``epoch_interval_to_save``-th epoch,
         ``validate`` after each ``epoch_interval_to_val``-th. The per-step
@@ -194,7 +211,7 @@ class CompletionTrainer:
         """The no-gt test step on one batch: (B, num_points, 3)."""
         with torch.inference_mode():
             return self.model(self._tensor(batch, "partial"), prefix="test",
-                              generator=latent_generator(step))["result"]
+                              **self._rng(latent_generator(step)))["result"]
 
     def validate(self, val_ds, epoch: int = 0) -> dict:
         """Mean cd_p, cd_t, f1 (and emd with ``eval_emd``) over the full
@@ -210,7 +227,7 @@ class CompletionTrainer:
             with torch.inference_mode():
                 out = self.model(self._tensor(batch, "partial"),
                                  self._tensor(batch, "gt"), prefix="val",
-                                 generator=latent_generator(i))
+                                 **self._rng(latent_generator(i)))
             for m, meter in meters.items():
                 meter.update(float(out[m].mean()), len(batch["partial"]))
             n_batches += 1

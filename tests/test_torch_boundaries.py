@@ -11,12 +11,12 @@ import pytest
 import torch
 
 import houv_tpu_torch
-from houv_tpu_torch.ops.chamfer import chamfer_indices
+from houv_tpu_torch.ops.chamfer import chamfer_indices, nn_select
 from houv_tpu_torch.ops.emd import emd_auction, emd_auction_with_stats
 from houv_tpu_torch.ops.grouping import knn_indices, knn_points
 from houv_tpu_torch.ops.interpolate import three_nn
 from houv_tpu_torch.ops.sampling import furthest_point_sample
-from houv_tpu_torch.ops.scatter import scatter_add
+from houv_tpu_torch.ops.scatter import gather_rows_kernel, scatter_add
 from houv_tpu_torch.solvers.houv import HOUVConfig, houv_solve
 from houv_tpu_torch.train.cli import main as torch_cli_main
 from houv_tpu_torch.train.cli import test_main as torch_test_main
@@ -109,6 +109,20 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         torch_cli_main(["train", "-c", str(cfg)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         scatter_add(torch.zeros(1, 16, dtype=torch.int64), pts, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nn_select(pts, pts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gather_rows_kernel(pts, torch.zeros(1, 16, dtype=torch.int64))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        knn_indices(torch.randn(1, 16, 24), torch.randn(1, 16, 24), 4)
+    for model in ("pcn", "ecg"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            CompletionTrainer(Config(model_name=model))
+        cfg.write_text(f"model_name: {model}\ndataset: mvp_cp\n")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            torch_test_main(["-c", str(cfg)])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            torch_train_main(["-c", str(cfg)])
     # asking for the CPU with tensors elsewhere is an error, not a move
     with pytest.raises(ValueError):
         chamfer_indices(pts, pts, device="meta")
@@ -179,3 +193,54 @@ def test_the_scatter_kernel_is_bound_and_has_no_fallback():
                   and isinstance(n.func, ast.Attribute)}
         assert not called & {"scatter_add_", "index_add_", "index_add",
                              "compile"}, (rel, called)
+
+
+def test_cpu_pcn_ecg_and_select_paths_never_count_as_kernel_launches():
+    """The three newest counters (``knn_indices.wide_launches``,
+    ``nn_select.launches``, ``gather_rows_kernel.launches``) count kernel
+    launches only: an ECG train step, an ``nn_select`` solve and the row
+    gather on CPU tensors leave them, and every other count, at 0."""
+    from houv_tpu_torch.models import get_model
+    from houv_tpu_torch.models.common import init_like_flax
+
+    counters = [(knn_indices, "launches"), (knn_indices, "wide_launches"),
+                (nn_select, "launches"), (gather_rows_kernel, "launches"),
+                (chamfer_indices, "launches"), (scatter_add, "launches"),
+                (furthest_point_sample, "launches")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    model = get_model("ecg", num_points=64, num_coarse=32, num_input=64)
+    init_like_flax(model, torch.Generator().manual_seed(0))
+    x = torch.rand(1, 64, 3) - 0.5
+    model(x, x.flip(1), "train", alpha=0.5)["total_loss"].backward()
+    houv_solve(x, x.flip(1), HOUVConfig(kernel=2, steps=2, angle_passes=1,
+                                        nn_select=True), device="cpu")
+    gather_rows_kernel(x, torch.zeros(1, 4, dtype=torch.int64), device="cpu")
+    assert [getattr(fn, attr) for fn, attr in counters] == [0] * len(counters)
+
+
+def test_the_new_kernels_are_bound_and_have_no_fallback():
+    """knn_wide, nn_select and gather_rows: each source and ctypes signature
+    is registered with the build; the wrappers' modules have no ``try`` to
+    fall back through; and no CUDA route calls a library's distance
+    product, selection or gather in its kernel's place."""
+    from houv_tpu_torch.kernels import _build, sources
+
+    assert {"knn_wide.cu", "nn_select.cu", "gather_rows.cu"} <= \
+        {p.name for p in sources()}
+    assert {"houv_knn_wide", "houv_nn_select", "houv_gather_rows"} <= \
+        set(_build._SIGNATURES)
+    routes = {"ops/grouping.py": "_knn_cuda",
+              "ops/chamfer.py": "_nn_select_cuda",
+              "ops/scatter.py": "_gather_rows_cuda"}
+    for rel, route in routes.items():
+        with open(os.path.join(_PKG, rel)) as f:
+            tree = ast.parse(f.read())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), rel
+        fn = next(n for n in ast.walk(tree)
+                  if isinstance(n, ast.FunctionDef) and n.name == route)
+        called = {n.func.attr for n in ast.walk(fn)
+                  if isinstance(n, ast.Call)
+                  and isinstance(n.func, ast.Attribute)}
+        assert not called & {"cdist", "matmul", "einsum", "topk", "sort",
+                             "gather", "argmin", "compile"}, (rel, called)

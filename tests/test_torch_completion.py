@@ -1,6 +1,6 @@
 """The port's completion sweep on the CPU: its data layer against the JAX
 package's (byte-identical fixtures and batches), and ``test_main`` and
-``validate`` end to end on a tiny VRCNet."""
+``validate`` end to end on a tiny VRCNet, PCN and ECG."""
 
 import os
 
@@ -124,8 +124,86 @@ def test_completion_test_main_and_validate_on_cpu(tmp_path):
     assert trainer.best["cd_p"] == (0, metrics["cd_p"])
 
 
+@pytest.mark.parametrize("extra,points,expansions", [
+    # the fine stage without local folding: 128 coarse points doubled
+    (dict(local_folding=False, num_coarse=128, num_input=128), 256,
+     ("folding",)),
+    # a ground truth past num_coarse_raw + 2048 points from shorter scans:
+    # the decoder's 144 points of 256 channels doubled, then 288 x 8
+    (dict(local_folding=False, num_points=2304, num_input=80,
+          num_coarse_raw=64, num_fps=288, num_coarse=288), 2304,
+     ("expand", "folding")),
+])
+def test_vrcnet_efexpansion_through_test_main_on_cpu(tmp_path, extra, points,
+                                                     expansions):
+    """``num_input`` sizes the partial scans apart from the ground truth,
+    so both of VRCNet's ``EFExpansion`` branches are reached from a config:
+    ``test_main`` completes to (16, num_points, 3) and ``validate`` runs."""
+    path = _tiny_cfg(tmp_path, **extra)
+    cfg = load_config(path)
+    decoder = model_from_config(cfg).decoder
+    for name in expansions:
+        assert type(getattr(decoder, name)).__name__ == "EFExpansion"
+    ds = build_dataset(cfg, "val")
+    batch = ds.get_batch(np.arange(2))
+    assert batch["partial"].shape == (2, extra["num_input"], 3)
+    assert batch["gt"].shape == (2, points, 3)
+    out = torch_test_main(["-c", path, "--device", "cpu"])
+    results = read_results_h5(out["results_h5"])
+    assert results.shape == (16, points, 3) and np.isfinite(results).all()
+    trainer = CompletionTrainer(cfg, "cpu")
+    trainer.init_state()
+    metrics = trainer.validate(ds)
+    assert all(np.isfinite(v) for v in metrics.values())
+
+
+def _tiny_model_cfg(tmp_path, model, **extra):
+    with open(os.path.join(_REPO, "cfgs", f"{model}.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(batch_size=5, num_points=128, num_coarse=64,
+               synthetic_size=16, work_dir=str(tmp_path), **extra)
+    path = tmp_path / f"{model}_tiny.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+@pytest.mark.parametrize("model", ["pcn", "ecg"])
+def test_pcn_and_ecg_test_main_and_validate_on_cpu(tmp_path, model):
+    """cfgs/pcn.yaml and cfgs/ecg.yaml at 128 points and 64 coarse: 16 test
+    clouds in batches of 5, the last one padded, then ``validate`` with and
+    without ``eval_emd``. Neither model draws random numbers, so a second
+    sweep gives the same clouds."""
+    path = _tiny_model_cfg(tmp_path, model)
+    cfg = load_config(path)
+    assert type(model_from_config(cfg)).__name__ == model.upper()
+    out = torch_test_main(["-c", path, "--device", "cpu"])
+    results = read_results_h5(out["results_h5"])
+    assert out["n_clouds"] == 16 and results.shape == (16, 128, 3)
+    assert np.isfinite(results).all()
+    assert os.path.dirname(out["results_h5"]) == str(tmp_path / model)
+    assert os.path.getsize(out["submission"]) > 0
+    trainer = CompletionTrainer(cfg, "cpu")
+    trainer.init_state()
+    first = build_dataset(cfg, "test").get_batch(np.arange(5))
+    np.testing.assert_array_equal(
+        results[:5], trainer.predict_batch(first, step=3).numpy())
+
+    metrics = trainer.validate(build_dataset(cfg, "val"))
+    assert set(metrics) == {"cd_p", "cd_t", "f1"}
+    with_emd = CompletionTrainer(
+        load_config(_tiny_model_cfg(tmp_path, model, eval_emd=True)), "cpu")
+    with_emd.init_state()
+    more = with_emd.validate(build_dataset(cfg, "val"))
+    assert set(more) == {"cd_p", "cd_t", "emd", "f1"}
+    assert all(np.isfinite(v) for v in more.values())
+    for key, value in metrics.items():
+        assert more[key] == value
+    assert more["emd"] > 0 and 0 <= more["f1"] <= 1
+    assert with_emd.best["emd"] == (0, more["emd"])
+
+
 def test_completion_branch_raises_what_is_not_ported(tmp_path):
-    for extra, match in ((dict(model_name="pcn"), "item 11"),
+    for extra, match in ((dict(model_name="transformer"), "item 11"),
                          (dict(model_name="vrcnet_knn"), "items 8"),
                          (dict(compute_dtype="bfloat16"), "f32")):
         cfg = load_config(_tiny_cfg(tmp_path, **extra))

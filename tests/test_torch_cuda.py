@@ -179,3 +179,108 @@ def test_chamfer_gradient_on_the_card(gen):
     d1, d2, _, _ = chamfer.chamfer(a.detach(), b)
     (d1.sum() + d2.sum()).backward()
     assert scatter.scatter_add.launches == before + 1
+
+
+@pytest.mark.parametrize("b,m,n,c,k", [(32, 256, 256, 48, 16),
+                                       (2, 300, 257, 24, 17),
+                                       (1, 1025, 70, 9, 40),
+                                       (3, 129, 700, 513, 64),
+                                       (2, 5, 3, 12, 3), (4, 100, 90, 1, 4)])
+def test_knn_wide_kernel_matches_plain_exactly(gen, b, m, n, c, k):
+    from houv_tpu_torch.ops import grouping
+
+    q = torch.relu(torch.randn((b, m, c), generator=gen)).cuda()
+    r = torch.relu(torch.randn((b, n, c), generator=gen)).cuda()
+    before = (grouping.knn_indices.launches,
+              grouping.knn_indices.wide_launches)
+    ki = grouping.knn_indices(q, r, k)
+    assert (grouping.knn_indices.launches,
+            grouping.knn_indices.wide_launches) == (before[0], before[1] + 1)
+    # both sum the diff form in ascending c, op by op: equal, not close
+    torch.testing.assert_close(ki, grouping._knn_plain(q, r, k),
+                               rtol=0, atol=0)
+
+
+def test_knn_wide_self_match_and_exact_ties(gen):
+    from houv_tpu_torch.ops import grouping
+
+    x = torch.randn((2, 600, 24), generator=gen)
+    x[:, 300:] = x[:, :300]                 # every row twice
+    neg, ki = grouping.knn_points(x.cuda(), x.cuda(), 6)
+    torch.testing.assert_close(ki.cpu(), grouping._knn_plain(x, x, 6),
+                               rtol=0, atol=0)
+    assert bool((neg[..., :2] == 0).all())  # itself and its copy, exactly
+    assert bool((ki[:, :, 0].cpu() == torch.arange(600) % 300).all())
+
+
+@pytest.mark.parametrize("bq,share,n,m", [(2, 8, 300, 257), (1, 1, 1025, 3),
+                                          (3, 5, 1, 700), (2, 64, 513, 600)])
+def test_nn_select_kernel_matches_plain_bit_for_bit(gen, bq, share, n, m):
+    a = torch.randn((bq, n, 3), generator=gen).cuda()
+    b = torch.randn((bq * share, m, 3), generator=gen).cuda()
+    b[:, -1] = b[:, 0]                      # an exact tie in every cloud
+    before = chamfer.nn_select.launches
+    k1, k2 = chamfer.nn_select(a, b)
+    assert chamfer.nn_select.launches == before + 1
+    p1, p2 = chamfer._nn_select_plain(a, b)
+    torch.testing.assert_close(k1, p1, rtol=0, atol=0)
+    torch.testing.assert_close(k2, p2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,m,n,c", [(16, 2048, 4096, 3), (3, 777, 1999, 1),
+                                     (5, 130, 300, 8), (2, 40, 64, 67)])
+def test_gather_rows_kernel_matches_plain_bit_for_bit(gen, b, m, n, c):
+    from houv_tpu_torch.ops import scatter
+
+    src = torch.randn((b, m, c), generator=gen).cuda()
+    idx = torch.randint(-3, m + 3, (b, n), generator=gen).cuda()
+    before = scatter.gather_rows_kernel.launches
+    out = scatter.gather_rows_kernel(src, idx)
+    assert scatter.gather_rows_kernel.launches == before + 1
+    torch.testing.assert_close(out, scatter._gather_rows_plain(src, idx),
+                               rtol=0, atol=0)
+    inside = idx.clamp(0, m - 1)
+    torch.testing.assert_close(
+        scatter.gather_rows_kernel(src, inside),
+        torch.gather(src, 1, inside[..., None].expand(-1, -1, c)),
+        rtol=0, atol=0)
+
+
+def test_cuda_tensors_never_reach_a_plain_version(gen, monkeypatch):
+    """With tensors on the card every wrapper launches its kernel: the plain
+    versions are made to raise here, and each count goes up by one."""
+    from houv_tpu_torch.ops import emd, grouping, scatter
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain version ran for CUDA tensors")
+
+    for mod, name in ((chamfer, "_nn_both_plain"),
+                      (chamfer, "_nn_select_plain"),
+                      (sampling, "_fps_plain"), (grouping, "_knn_plain"),
+                      (emd, "_auction_plain"),
+                      (scatter, "_scatter_add_plain"),
+                      (scatter, "_gather_rows_plain")):
+        monkeypatch.setattr(mod, name, no_plain)
+    pts = torch.rand((2, 64, 3), generator=gen).cuda()
+    feats = torch.rand((2, 64, 24), generator=gen).cuda()
+    idx = torch.randint(0, 64, (2, 64), generator=gen).cuda()
+    counts = {"nn_both": (chamfer.chamfer_indices, "launches"),
+              "nn_select": (chamfer.nn_select, "launches"),
+              "fps": (sampling.furthest_point_sample, "launches"),
+              "knn": (grouping.knn_indices, "launches"),
+              "knn_wide": (grouping.knn_indices, "wide_launches"),
+              "emd": (emd.emd_auction_with_stats, "launches"),
+              "scatter": (scatter.scatter_add, "launches"),
+              "gather_rows": (scatter.gather_rows_kernel, "launches")}
+    before = {k: getattr(fn, attr) for k, (fn, attr) in counts.items()}
+    chamfer.chamfer_indices(pts, pts)
+    chamfer.nn_select(pts, pts)
+    sampling.furthest_point_sample(pts, 8)
+    grouping.knn_indices(pts, pts, 4)
+    grouping.knn_indices(feats, feats, 4)
+    emd.emd_auction_with_stats(pts, pts.flip(1), 0.01, 10)
+    scatter.scatter_add(idx, pts, 64)
+    scatter.gather_rows_kernel(pts, idx)
+    torch.cuda.synchronize()
+    assert {k: getattr(fn, attr) - before[k]
+            for k, (fn, attr) in counts.items()} == dict.fromkeys(counts, 1)

@@ -103,8 +103,8 @@ def test_knn_self_and_gathers(rng):
 
 
 def test_knn_feature_space_runs_plain_on_the_cpu(rng):
-    """The wide form (C > 8) has no CUDA kernel yet; on CPU tensors the
-    plain version serves it, with the same contract."""
+    """The wide form (any C but 3) on CPU tensors: the plain version serves it,
+    with the coordinate form's contract."""
     q = rng.standard_normal((2, 50, 24)).astype(np.float32)
     r = rng.standard_normal((2, 80, 24)).astype(np.float32)
     neg, idx = tg.knn_points(torch.tensor(q), torch.tensor(r), 5)
@@ -115,14 +115,69 @@ def test_knn_feature_space_runs_plain_on_the_cpu(rng):
                                np.sort(d, -1)[..., :5], rtol=1e-5)
 
 
-def test_knn_wide_raises_on_cuda(monkeypatch):
-    """C > 8 asked of the card raises NotImplementedError naming the
-    ROADMAP item (a card and the tensors' placement are faked here, since
-    the check comes before any launch)."""
+class _FakeLib:
+    """Stands in for the built kernel library: records which entry the
+    wrapper calls and with what sizes, and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def houv_knn_max_k(self):
+        return 64
+
+    def houv_knn_wide_max_k(self):
+        return 64
+
+    def houv_knn(self, q, r, b, m, n, k, out, stream):
+        self.calls.append(("houv_knn", b, m, n, k))
+        return 0
+
+    def houv_knn_wide(self, q, r, b, m, n, c, k, out, stream):
+        self.calls.append(("houv_knn_wide", b, m, n, c, k))
+        return 0
+
+
+@pytest.mark.parametrize("c,entry", [(24, "houv_knn_wide"), (5, "houv_knn_wide"),
+                                     (3, "houv_knn")])
+def test_knn_on_cuda_takes_its_kernel_and_never_the_plain_version(
+        monkeypatch, c, entry):
+    """With ``device="cuda"`` the wide form (any C but 3) reaches
+    ``_knn_cuda``'s wide entry, the coordinate form the other, each counted
+    in its own counter, and ``_knn_plain`` is never called. A card, the
+    tensors' placement, the stream and the library are faked here: the
+    routing is Python."""
+    import contextlib
+    import types
+
+    from houv_tpu_torch import kernels
+
+    lib = _FakeLib()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(tg, "check_on", lambda dev, *tensors: None)
-    q = torch.zeros((1, 16, 24))
-    with pytest.raises(NotImplementedError, match="K6-wide"):
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+
+    def no_plain(*args):
+        raise AssertionError("the plain version ran for device='cuda'")
+
+    monkeypatch.setattr(tg, "_knn_plain", no_plain)
+    monkeypatch.setattr(tg.knn_indices, "launches", 0)
+    monkeypatch.setattr(tg.knn_indices, "wide_launches", 0)
+    q = torch.zeros((2, 16, c))
+    out = tg.knn_indices(q, q[:, :9], 4, device="cuda")
+    assert out.shape == (2, 16, 4) and out.dtype == torch.int64
+    wide = entry == "houv_knn_wide"
+    assert lib.calls == [(entry, 2, 16, 9) + ((c, 4) if wide else (4,))]
+    assert (tg.knn_indices.launches, tg.knn_indices.wide_launches) == \
+        ((0, 1) if wide else (1, 0))
+    # a launch the card refuses raises: nothing falls back
+    lib.houv_knn_wide = lambda *a: 1
+    lib.houv_knn = lambda *a: 1
+    lib.houv_error_string = lambda err: b"invalid argument"
+    with pytest.raises(RuntimeError, match="launch failed"):
         tg.knn_indices(q, q, 4, device="cuda")
 
 

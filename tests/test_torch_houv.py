@@ -244,7 +244,7 @@ def test_quality_gate_on_mvp_statistics_fixture():
 
 @pytest.mark.parametrize("field,value", [
     ("objective", "multi_percent"), ("use_view_loss", True),
-    ("two_bracket", True), ("nn_select", True),
+    ("two_bracket", True),
     ("voxel_downsample", 32), ("window_select", "consensus"),
     ("rotation_mode", "euler"), ("reparam", "sigmoid"),
 ])

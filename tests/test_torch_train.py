@@ -437,6 +437,79 @@ def test_train_main_on_cpu_writes_checkpoints_test_main_loads(tmp_path):
         results[:4], untrained.predict_batch(first, step=0).numpy())
 
 
+def _model_raw_cfg(tmp_path, model, **extra):
+    with open(os.path.join(_REPO, "cfgs", f"{model}.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(dict(num_points=128, num_coarse=64, batch_size=4,
+                    synthetic_size=16, scale_aug=False,
+                    work_dir=str(tmp_path)), **extra)
+    return raw
+
+
+@pytest.mark.parametrize("model", ["pcn", "ecg"])
+def test_train_main_on_cpu_for_pcn_and_ecg(tmp_path, model):
+    """Two epochs of four steps of cfgs/pcn.yaml and cfgs/ecg.yaml at 128
+    points through the command line's entry: the checkpoints, a falling
+    loss on a repeated batch, and the sweep with ``load_model`` completing
+    with the trained weights, bit for bit."""
+    path = tmp_path / f"{model}_small.yaml"
+    path.write_text(yaml.safe_dump(_model_raw_cfg(tmp_path, model, nepoch=2)))
+    out = tcli.main(["train", "-c", str(path), "--device", "cpu"])
+    trainer = out["trainer"]
+    assert len(out["losses"]) == 8 and np.isfinite(out["losses"]).all()
+    assert os.path.basename(out["log_dir"]) == f"{model}_cd_debug"
+    for name in ("network.ckpt", "best_cd_p_network.ckpt",
+                 "best_cd_t_network.ckpt", "best_f1_network.ckpt",
+                 "train.log"):
+        assert os.path.getsize(os.path.join(out["log_dir"], name)) > 0
+    assert trainer.epoch == 1
+    for p in trainer.model.parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all()
+
+    path.write_text(yaml.safe_dump(_model_raw_cfg(
+        tmp_path, model, load_model=out["checkpoint"])))
+    res = tcli.main(["-c", str(path), "--device", "cpu"])
+    results = read_results_h5(res["results_h5"])
+    cfg = tconfig.load_config(str(path))
+    ds = tcli.build_dataset(cfg, "test")
+    first = ds.get_batch(np.arange(4))
+    np.testing.assert_array_equal(
+        results[:4], trainer.predict_batch(first, step=0).numpy())
+    cfg.load_model = None
+    untrained = tharness.CompletionTrainer(cfg, "cpu")
+    untrained.init_state()
+    assert not np.array_equal(
+        results[:4], untrained.predict_batch(first, step=0).numpy())
+
+    batch = tcli.build_dataset(cfg, "train").get_batch(np.arange(4))
+    untrained.cfg.lr = 1e-3
+    losses = [float(untrained.train_step(batch, 0, s)) for s in range(4)]
+    assert losses[-1] < losses[0], losses
+
+
+def test_three_pcn_train_steps_match_the_jax_trainer(rng, tmp_path):
+    """Three optimizer steps (Adam, lr 1e-3) of PCN on one batch: the JAX
+    trainer's jitted optax step against the port's ``train_step``, from the
+    JAX trainer's own initial weights. PCN draws no random numbers and picks
+    nothing in its forward; the chamfer matches hold still under 1e-6
+    differences, so three steps stay within 1e-4 relative."""
+    raw = _model_raw_cfg(tmp_path, "pcn", lr=1e-3, batch_size=BATCH)
+    jcfg = jconfig.Config.from_dict(raw)
+    tcfg = tconfig.Config.from_dict(raw)
+    batch = {"partial": _cloud(rng, BATCH, 128), "gt": _cloud(rng, BATCH, 128)}
+    jtrainer = jharness.CompletionTrainer(jcfg)
+    jtrainer.init_state(batch)
+    params0 = jax.tree_util.tree_map(np.asarray, jtrainer.state["params"])
+    jlosses = [float(jtrainer.train_step(batch, 0, s)) for s in range(3)]
+    trainer = tharness.CompletionTrainer(tcfg, "cpu")
+    trainer.model.load_state_dict(
+        vrcnet_state_from_flax(params0, trainer.model), strict=True)
+    losses = [float(trainer.train_step(batch, 0, s)) for s in range(3)]
+    assert losses[0] != losses[1] != losses[2]
+    np.testing.assert_allclose(losses[0], jlosses[0], rtol=1e-5)
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-4)
+
+
 def test_fit_steps_and_repeated_batch_lowers_the_loss(tmp_path):
     """``fit_steps`` from a loader; twelve steps on one repeated batch end
     below where they started (the JAX package's own training check)."""
@@ -465,7 +538,7 @@ def test_what_training_does_not_run_yet_raises(tmp_path):
     for body, match in (("model_name: houv\n", "nothing to train"),
                         ("model_name: dcp\ndataset: mvp_rg\n", "item"),
                         ("model_name: icp\n", "item"),
-                        ("model_name: pcn\ndataset: mvp_cp\n", "item 11")):
+                        ("model_name: transformer\ndataset: mvp_cp\n", "item 11")):
         cfg.write_text(body)
         with pytest.raises(NotImplementedError, match=match):
             tcli.train_main(["-c", str(cfg), "--device", "cpu"])
