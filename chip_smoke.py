@@ -19,8 +19,10 @@ failed check exits non-zero:
    ECG's DenseConv, EFExpansion's shape, ragged cases in every k bucket and
    duplicated rows (exact indices); the auction ``emd`` (train and eval
    settings, a permuted copy, clouds of different sizes); ``scatter`` (bit
-   for bit, and against the dense one-hot product) and ``gather_rows`` (bit
-   for bit, out-of-range indices included); the chamfer gradient against
+   for bit, at the kernel's edges too: order-sensitive sums, -0.0, one row
+   of 65536, 200,000 rows, 70,000 batch entries; and against the dense
+   one-hot product) and ``gather_rows`` (bit for bit, out-of-range indices
+   and 70,000 batch entries included); the chamfer gradient against
    autograd through the gathered form;
 3. the registration path: the port's ``test_main`` on
    ``cfgs/houv_fast.yaml`` at full width over a 16-pair synthetic split,
@@ -92,12 +94,17 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of fn() on the current stream (CUDA events)."""
+    """Mean milliseconds of fn() on the current stream (CUDA events). The
+    card first spins for ~10 ms, so that the host has queued the launches
+    before the start event: a call shorter than its host overhead is timed
+    on the device, not at the host's enqueue rate. (A fn that synchronises
+    inside is timed with its host gaps.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -342,20 +349,22 @@ def phase_emd(gen):
     return err
 
 
-def check_scatter(idx, vals, m, name):
-    """Kernel vs plain: every element bit for bit (both add in ascending
-    i); returns the largest absolute difference (0 when equal)."""
+def check_scatter(idx, vals, m, name, ref=None):
+    """Kernel vs plain (or ``ref``, a sum in the same order): every element
+    bit for bit, so that -0.0 and +0.0 differ (both add in ascending i from
+    +0.0); returns the largest absolute difference (0 when equal)."""
     from houv_tpu_torch.ops import scatter
 
     saved = scatter.scatter_add.launches
     out = scatter.scatter_add(idx, vals, m)
     again = scatter.scatter_add(idx, vals, m)
     scatter.scatter_add.launches = saved
-    plain = scatter._scatter_add_plain(idx, vals, m)
+    plain = scatter._scatter_add_plain(idx, vals, m) if ref is None else ref
     torch.cuda.synchronize()
-    mism = int((out != plain).sum())
+    mism = int((out.view(torch.int32) != plain.view(torch.int32)).sum())
     err = float((out - plain).abs().max()) if out.numel() else 0.0
     emit({"phase": "scatter_check", "case": name, "idx": list(idx.shape),
+          "reference": "plain" if ref is None else "sequential",
           "rows": m, "channels": vals.shape[-1],
           "dropped": int(((idx < 0) | (idx >= m)).sum()),
           "fullest_row": int(torch.bincount(torch.cat([
@@ -363,8 +372,9 @@ def check_scatter(idx, vals, m, name):
                [:, None])[(idx >= 0) & (idx < m)],
               idx.new_zeros(1)])).max()),
           "mismatches": mism, "max_abs_err": err,
-          "run_to_run_mismatches": int((out != again).sum())})
-    if mism or not torch.equal(out, again):
+          "run_to_run_mismatches": int((out.view(torch.int32)
+                                        != again.view(torch.int32)).sum())})
+    if mism or not torch.equal(out.view(torch.int32), again.view(torch.int32)):
         fail(f"scatter_add {name}: {mism} elements differ from the plain "
              f"version (max {err:.3g})")
     return err
@@ -374,9 +384,13 @@ def phase_scatter(gen):
     """At the train steps' shapes (VRCNet's (64, 2048) -> 1024, 3072, 2048
     rows, PCN's and ECG's (32, 2048) -> 1024, 2048) and
     the solver's scatter mode ((1024, 2048) -> 2048), a ragged case, eight
-    channels, every index equal, indices out of range; and against the
-    dense one-hot product at a small size (another order of summation:
-    1e-5)."""
+    channels, every index equal, indices out of range; at the kernel's
+    edges: sums that change with their order, -0.0 alone in its row, one
+    row receiving all of 65536 indices (16 chunks; held against the
+    sequential sum in ascending i, which the plain version's 65536 rank
+    passes would take seconds to reach), 200,000 rows (49 row blocks) and
+    70,000 batch entries (two launches); and against the dense one-hot
+    product at a small size (another order of summation: 1e-5)."""
     def case(b, n, m, c, lo=0, hi=None):
         idx = torch.randint(lo, m if hi is None else hi, (b, n),
                             generator=gen).cuda()
@@ -400,6 +414,43 @@ def phase_scatter(gen):
     err = max(err, check_scatter(*case(4, 2048, 500, 3, lo=-100, hi=600),
                                  500, "negative_and_past_the_end"))
     from houv_tpu_torch.ops import scatter
+
+    # every row receives +-1e8 and +-1 (16 values on average): the sum
+    # changes with its order, and the reversed order must show it
+    idx, vals = case(4, 2048, 128, 3)
+    big = torch.rand(vals.shape, generator=gen).cuda() < 0.5
+    vals = torch.where(big, 1e8, 1.0) * vals.sign()
+    rev = scatter._scatter_add_plain(idx.flip(1), vals.flip(1), 128)
+    fwd = scatter._scatter_add_plain(idx, vals, 128)
+    if torch.equal(rev.view(torch.int32), fwd.view(torch.int32)):
+        fail("scatter order case: the reversed sum is the same")
+    err = max(err, check_scatter(idx, vals, 128, "order_sensitive_1e8_1"))
+    # -0.0 alone in its row gives +0.0 (the sum starts from +0.0)
+    idx = torch.stack([torch.randperm(1024, generator=gen)[:512]
+                       for _ in range(4)]).cuda()
+    vals = torch.randn((4, 512, 3), generator=gen).cuda()
+    vals[:, ::2] = -0.0
+    check_scatter(idx, vals, 1024, "negative_zero_single_match")
+    out = scatter._scatter_add_plain(idx, vals, 1024)
+    if torch.signbit(out[torch.arange(4, device="cuda")[:, None],
+                             idx[:, ::2]]).any():
+        fail("scatter: a row holding only -0.0 is not +0.0")
+    # one row receives every index: 16 chunks of one row
+    vals = (torch.randn((2, 65536, 3), generator=gen)
+            * 10 ** (6 * torch.rand((2, 65536, 1), generator=gen) - 3))
+    seq = np.add.accumulate(np.concatenate(
+        [np.zeros((2, 1, 3), np.float32), vals.numpy()], 1), axis=1)[:, -1]
+    ref = torch.zeros((2, 16, 3))
+    ref[:, 7] = torch.from_numpy(seq)
+    err = max(err, check_scatter(torch.full((2, 65536), 7).cuda(),
+                                 vals.cuda(), 16, "one_row_N65536",
+                                 ref=ref.cuda()))
+    # beyond one row block: 49 blocks of 4096 rows
+    err = max(err, check_scatter(*case(2, 4096, 200000, 3, lo=-5,
+                                       hi=200005), 200000, "rows_M200000"))
+    # past the grid's 65535 batch entries
+    err = max(err, check_scatter(*case(70000, 4, 4, 3, lo=-1, hi=5), 4,
+                                 "batch_B70000_N4_M4"))
 
     idx, vals = case(4, 256, 128, 3)
     saved = scatter.scatter_add.launches
@@ -535,7 +586,8 @@ def check_gather_rows(src, idx, name):
 
 def phase_gather_rows(gen):
     """At the solver's shape (16 clouds of 2048 rows, 64 x 2048 indices
-    each), eight channels, a ragged case and indices out of range."""
+    each), eight channels, a ragged case, 67 channels, 70,000 batch entries
+    of one channel (two launches) and indices out of range."""
     def case(b, m, n, c, lo=0, hi=None):
         idx = torch.randint(lo, m if hi is None else hi, (b, n),
                             generator=gen).cuda()
@@ -546,6 +598,8 @@ def phase_gather_rows(gen):
     err = max(err, check_gather_rows(*case(5, 130, 300, 8), "channels_8"))
     err = max(err, check_gather_rows(*case(3, 777, 1999, 1), "ragged_C1"))
     err = max(err, check_gather_rows(*case(2, 40, 64, 67), "wide_C67"))
+    err = max(err, check_gather_rows(*case(70000, 8, 16, 1, lo=-2, hi=10),
+                                     "batch_B70000_C1"))
     return max(err, check_gather_rows(
         *case(4, 500, 2048, 3, lo=-100, hi=600), "negative_and_past_the_end"))
 
@@ -1545,7 +1599,15 @@ def phase_profile_train(model="vrcnet"):
     torch.cuda.empty_cache()
 
 
+# the port's own kernels, by their __global__ names in csrc/*.cu
+PORT_KERNELS = ("nn_both_kernel", "nn_select_kernel", "nn_select_columns",
+                "fps_kernel", "knn_kernel", "knn_wide_kernel", "emd_kernel",
+                "scatter_kernel", "gather_rows_kernel")
+
+
 def _profile_top(prof, wall_ms):
+    """Device time by kernel: the ten largest, and every one of the port's
+    own kernels (its instantiations summed), wherever it ranks."""
     kernels = []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total",
@@ -1554,12 +1616,20 @@ def _profile_top(prof, wall_ms):
             kernels.append((t / 1e3, ev.count, ev.key))
     kernels.sort(reverse=True)
     device_ms = sum(k[0] for k in kernels)
+    port = {}
+    for ms, count, key in kernels:
+        for name in PORT_KERNELS:
+            if f"::{name}<" in key or f"::{name}(" in key:
+                ms0, count0 = port.get(name, (0.0, 0))
+                port[name] = (ms0 + ms, count0 + count)
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "device_ops": sum(k[1] for k in kernels),
             "top": [{"name": k[2][:60], "ms": k[0], "count": k[1],
                      "share_of_device": k[0] / max(device_ms, 1e-9)}
-                    for k in kernels[:10]]}
+                    for k in kernels[:10]],
+            "port_kernels": {name: {"ms": ms, "count": count}
+                             for name, (ms, count) in port.items()}}
 
 
 def phase_profile_vrcnet():
@@ -1624,11 +1694,7 @@ def phase_profile():
 def _time_scatter(b, n, m, gen):
     """scatter_add at idx (b, n) -> m rows, 3 channels: kernel, plain and
     ``Tensor.scatter_add_`` milliseconds, and the function's bound: idx,
-    vals and out moved once, and b*n*3 additions, whichever takes longer.
-    The kernel's owner scan compares every index with every row; those
-    b*n*m compares are its algorithm's work, not the function's, and stand
-    beside the bound as ``scan_compares`` and ``scan_ms_at_peak`` (at the
-    CUDA cores' f32 rate; the table has no separate integer rate)."""
+    vals and out moved once, and b*n*3 additions, whichever takes longer."""
     from houv_tpu_torch.ops import scatter
 
     idx = torch.randint(0, m, (b, n), generator=gen).cuda()
@@ -1646,16 +1712,14 @@ def _time_scatter(b, n, m, gen):
                                3.0 * b * n)
     return {"shape": {"idx": [b, n], "vals": [b, n, 3], "rows": m},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "scan_compares": b * n * m,
-            "scan_ms_at_peak": b * n * m / PEAK_F32_FLOPS * 1e3}
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def new_kernel_rows(gen, errs, launches):
     """The ``kernels`` rows of knn_wide, nn_select and gather_rows at their
     main-path shapes. ``errs``: each one's largest error against its plain
     version; ``launches``: each one's count on its path."""
-    from houv_tpu_torch.ops import chamfer, grouping, scatter
+    from houv_tpu_torch.ops import chamfer, grouping
 
     out = []
     # knn_wide at ECG's first DenseConv: 32 clouds of 3072 points with 24
@@ -1719,8 +1783,21 @@ def new_kernel_rows(gen, errs, launches):
     del a, b, a_rep
     torch.cuda.empty_cache()
 
-    # gather_rows at the solver's row gather: 16 clouds of 2048 rows, the
-    # matches of 64 restarts x 2048 points each
+    out.append({"name": "gather_rows", "route": "cuda",
+                "source": "houv_tpu_torch/csrc/gather_rows.cu",
+                "replaces": "houv_tpu/ops/scatter.py:55",
+                "launches": launches["gather_rows"],
+                "max_abs_err": errs["gather_rows"], **_time_gather_rows(gen)})
+    return out
+
+
+def _time_gather_rows(gen):
+    """gather_rows at the solver's row gather, 16 clouds of 2048 rows and
+    the matches of 64 restarts x 2048 points each: kernel, plain and
+    ``torch.gather`` milliseconds, and the bytes bound (src, idx and out
+    moved once)."""
+    from houv_tpu_torch.ops import scatter
+
     bsz, m, n = 16, 2048, 64 * 2048
     src = torch.randn((bsz, m, 3), generator=gen).cuda()
     idx = torch.randint(0, m, (bsz, n), generator=gen).cuda()
@@ -1731,15 +1808,9 @@ def new_kernel_rows(gen, errs, launches):
     wide = idx[..., None].expand(-1, -1, 3)
     library_ms = cuda_ms(lambda: torch.gather(src, 1, wide), reps=20)
     bound_ms, bound_by = bound(12 * bsz * m + 8 * bsz * n + 12 * bsz * n, 0.0)
-    out.append({"name": "gather_rows", "route": "cuda",
-                "source": "houv_tpu_torch/csrc/gather_rows.cu",
-                "replaces": "houv_tpu/ops/scatter.py:55",
-                "shape": {"src": [bsz, m, 3], "idx": [bsz, n]},
-                "launches": launches["gather_rows"],
-                "max_abs_err": errs["gather_rows"], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms})
-    return out
+    return {"shape": {"src": [bsz, m, 3], "idx": [bsz, n]}, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def phase_kernels(launches, errs, completion, train, solve, models,

@@ -38,8 +38,8 @@ _SIGNATURES = {
     "houv_emd": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
     "houv_emd_smem_bytes": [_I, _I],
     "houv_emd_max_smem_bytes": [],
-    # idx, vals, b, n, m, c, out, stream
-    "houv_scatter_add": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # idx, vals, b, n, m, c, rows, out, stream
+    "houv_scatter_add": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "houv_scatter_max_channels": [],
     # query, ref, b, m, n, c, k, out, stream
     "houv_knn_wide": [_P, _P, _I, _I, _I, _I, _I, _P, _P],

@@ -53,6 +53,20 @@ def _scatter_add_plain(idx: torch.Tensor, vals: torch.Tensor,
     return out.reshape(bsz, m, c)
 
 
+# A block of csrc/scatter.cu keeps the running sums of its rows in shared
+# memory, rows * C words beside a chunk's 2048 vals rows and items: at most
+# 125 KB of the card's 227 KB.
+_SCATTER_SUM_WORDS = 12288
+
+
+def _scatter_rows(m: int, c: int) -> int:
+    """Output rows per block of ``csrc/scatter.cu``; each of the
+    ceil(m / rows) blocks of a batch entry reads the entry's indices. One
+    block covers all m rows while m * C <= 12288, as at every shape of the
+    train steps and the solver."""
+    return max(1, min(m, _SCATTER_SUM_WORDS // c))
+
+
 def _scatter_add_cuda(idx: torch.Tensor, vals: torch.Tensor,
                       m: int) -> torch.Tensor:
     from houv_tpu_torch.kernels import check, load
@@ -75,7 +89,8 @@ def _scatter_add_cuda(idx: torch.Tensor, vals: torch.Tensor,
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.houv_scatter_add(idx.data_ptr(), vals.data_ptr(), bsz, n,
-                                   m, c, out.data_ptr(), stream)
+                                   m, c, _scatter_rows(m, c), out.data_ptr(),
+                                   stream)
     check(lib, err, "scatter_add")
     scatter_add.launches += 1
     return out

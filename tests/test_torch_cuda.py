@@ -143,6 +143,59 @@ def test_scatter_kernel_matches_plain_bit_for_bit(gen, b, n, m, c):
                                rtol=0, atol=0)
 
 
+def _scatter_edge(case, gen):
+    """(idx, vals, m) on the card for one of the kernel's edges."""
+    if case == "order_sensitive":           # +-1e8 and +-1 in every row
+        idx = torch.randint(0, 128, (4, 2048), generator=gen)
+        big = torch.rand((4, 2048, 3), generator=gen) < 0.5
+        sign = torch.randn((4, 2048, 3), generator=gen).sign()
+        return idx.cuda(), (torch.where(big, 1e8, 1.0) * sign).cuda(), 128
+    if case == "negative_zero":             # -0.0 alone in its row
+        idx = torch.stack([torch.randperm(1024, generator=gen)[:512]
+                           for _ in range(4)])
+        vals = torch.randn((4, 512, 3), generator=gen)
+        vals[:, ::2] = -0.0
+        return idx.cuda(), vals.cuda(), 1024
+    if case == "one_row_N8192":             # two chunks of one row
+        vals = (torch.randn((2, 8192, 3), generator=gen)
+                * 10 ** (6 * torch.rand((2, 8192, 1), generator=gen) - 3))
+        return torch.full((2, 8192), 7).cuda(), vals.cuda(), 16
+    b, n, m = {"rows_M200000": (2, 4096, 200000),
+               "batch_B70000": (70000, 4, 4)}[case]
+    idx = torch.randint(-1, m + 1, (b, n), generator=gen)
+    return idx.cuda(), torch.randn((b, n, 3), generator=gen).cuda(), m
+
+
+@pytest.mark.parametrize("case", ["order_sensitive", "negative_zero",
+                                  "one_row_N8192", "rows_M200000",
+                                  "batch_B70000"])
+def test_scatter_kernel_at_its_edges_bit_for_bit(gen, case):
+    """Bits, not values: -0.0 and +0.0 differ there."""
+    from houv_tpu_torch.ops import scatter
+
+    idx, vals, m = _scatter_edge(case, gen)
+    out = scatter.scatter_add(idx, vals, m)
+    plain = scatter._scatter_add_plain(idx, vals, m)
+    torch.testing.assert_close(out.view(torch.int32), plain.view(torch.int32),
+                               rtol=0, atol=0)
+    again = scatter.scatter_add(idx, vals, m)
+    torch.testing.assert_close(again.view(torch.int32),
+                               out.view(torch.int32), rtol=0, atol=0)
+
+
+def test_scatter_kernel_calls_no_library_scatter(gen, monkeypatch):
+    from houv_tpu_torch.ops import scatter
+
+    def no_library(*args, **kwargs):
+        raise AssertionError("a library scatter or gather ran")
+
+    for owner, name in ((torch.Tensor, "scatter_add_"),
+                        (torch.Tensor, "index_add_"), (torch, "gather")):
+        monkeypatch.setattr(owner, name, no_library)
+    idx, vals, m = _scatter_edge("order_sensitive", gen)
+    assert scatter.scatter_add(idx, vals, m).shape == (4, 128, 3)
+
+
 def test_scatter_kernel_rejects_what_it_does_not_take(gen):
     from houv_tpu_torch.ops import scatter
 
@@ -244,6 +297,17 @@ def test_gather_rows_kernel_matches_plain_bit_for_bit(gen, b, m, n, c):
         scatter.gather_rows_kernel(src, inside),
         torch.gather(src, 1, inside[..., None].expand(-1, -1, c)),
         rtol=0, atol=0)
+
+
+def test_gather_rows_kernel_past_the_grid_limit(gen):
+    """70,000 batch entries of one channel: two launches of the grid."""
+    from houv_tpu_torch.ops import scatter
+
+    src = torch.randn((70000, 8, 1), generator=gen).cuda()
+    idx = torch.randint(-2, 10, (70000, 16), generator=gen).cuda()
+    torch.testing.assert_close(scatter.gather_rows_kernel(src, idx),
+                               scatter._gather_rows_plain(src, idx),
+                               rtol=0, atol=0)
 
 
 def test_cuda_tensors_never_reach_a_plain_version(gen, monkeypatch):

@@ -60,3 +60,15 @@ def test_gather_rows_kernel_checks_its_arguments():
                              device="cpu")
     assert out.shape == (2, 0, 3)
     assert ts.gather_rows_kernel.launches == before
+
+
+def test_many_batch_entries_of_one_channel(rng):
+    """70,000 batch entries (more than a CUDA grid's 65535 in y) of one
+    channel: rows by index, zero rows outside [0, M)."""
+    src = rng.standard_normal((70000, 8, 1)).astype(np.float32)
+    idx = rng.integers(-2, 10, (70000, 16))
+    ours = gather_rows_kernel(torch.tensor(src), torch.tensor(idx),
+                              device="cpu").numpy()
+    ok = (idx >= 0) & (idx < 8)
+    ref = np.take_along_axis(src, np.where(ok, idx, 0)[..., None], 1)
+    np.testing.assert_array_equal(ours, np.where(ok[..., None], ref, 0))
