@@ -16,8 +16,11 @@ failed check exits non-zero:
    losses' seeds included); ``knn`` at VRCNet's shapes and at ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
    with repeated points) and ``knn_wide`` at the four self-kNN shapes of
-   ECG's DenseConv, EFExpansion's shape, ragged cases in every k bucket and
-   duplicated rows (exact indices); the auction ``emd`` (train and eval
+   ECG's DenseConv, EFExpansion's two shapes, ragged cases in every k
+   bucket, the edges of its design (compiled widths and their neighbours,
+   bucket and queue edges of k, split refs, unaligned rows) and duplicated
+   rows across lanes, warps, blocks and parts (exact indices); the auction
+   ``emd`` (train and eval
    settings, a permuted copy, clouds of different sizes); ``scatter`` (bit
    for bit, at the kernel's edges too: order-sensitive sums, -0.0, one row
    of 65536, 200,000 rows, 70,000 batch entries; and against the dense
@@ -57,7 +60,8 @@ failed check exits non-zero:
    step;
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
-   library yardstick, with its launches on the paths above.
+   library yardstick, with its launches on the paths above; ``knn_wide``
+   at all six of its path shapes, each with the floor of its contract.
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
 the repository around this file; imports nothing of JAX.
@@ -500,8 +504,13 @@ def phase_knn_wide(gen):
     """At the four self-kNN shapes of ECG's DenseConv on cfgs/ecg.yaml
     (batch 32: 3072 points of 24 channels, then 1024, 256 and 64 points of
     48, k 16; features after a ReLU, so many are exactly 0), at
-    EFExpansion's shape in VRCNet (3072 points of 256 channels, k 4), and on
-    ragged cases that reach every k bucket."""
+    EFExpansion's shapes in VRCNet (3072 points of 256 channels and 2048 of
+    64, k 4), on ragged cases that reach every k bucket, and at the edges of
+    the kernel's design: C on and beside each compiled width, k at each
+    bucket's and the queue's edges, refs split into parts that do not
+    divide N or exceed it, fewer queries than a block, rows that are not
+    16-byte aligned, and exact duplicates in other lanes, warps, blocks and
+    parts."""
     def feats(b, n, c, relu=True):
         x = torch.randn((b, n, c), generator=gen).cuda()
         return torch.relu(x) if relu else x
@@ -510,17 +519,48 @@ def phase_knn_wide(gen):
     for n, c in ((3072, 24), (1024, 48), (256, 48), (64, 48)):
         x = feats(32, n, c)
         err = max(err, check_knn_wide(x, x, 16, f"denseconv_B32_N{n}_C{c}"))
-    x = feats(32, 3072, 256, relu=False)
-    err = max(err, check_knn_wide(x, x, 4, "efexpansion_B32_N3072_C256"))
+    for n, c in ((3072, 256), (2048, 64)):
+        x = feats(32, n, c, relu=False)
+        err = max(err, check_knn_wide(x, x, 4, f"efexpansion_B32_N{n}_C{c}"))
     del x
     for (m, n, c, k) in ((1999, 777, 37, 17), (300, 500, 9, 40),
                          (130, 70, 513, 8), (5, 3, 12, 3)):
         q, r = feats(2, m, c, False), feats(2, n, c, False)
         err = max(err, check_knn_wide(q, r, k, f"ragged_M{m}_N{n}_C{c}_k{k}"))
+    # the compiled widths (24, 48, 64, 256) and their neighbours
+    for c in (23, 24, 25, 47, 48, 49, 63, 64, 65, 255, 256, 257):
+        q, r = feats(2, 300, c), feats(2, 1000, c)
+        err = max(err, check_knn_wide(q, r, 16, f"width_C{c}_k16"))
+    # k at each bucket's edge (4, 8, 16, 32, 64) and the queue's (32 slots)
+    for k in (1, 4, 5, 8, 9, 16, 17, 31, 32, 33, 63, 64):
+        q, r = feats(2, 200, 48), feats(2, 500, 48)
+        err = max(err, check_knn_wide(q, r, k, f"bucket_C48_k{k}"))
+    # parts of the refs: N not a multiple of a part, N below one part; M
+    # below a block's 128 queries
+    for (b, m, n, c, k) in ((3, 50, 70, 24, 16), (2, 7, 5, 24, 3),
+                            (8, 100, 333, 48, 16), (1, 1, 3000, 256, 4)):
+        q, r = feats(b, m, c), feats(b, n, c)
+        err = max(err, check_knn_wide(q, r, k,
+                                      f"parts_B{b}_M{m}_N{n}_C{c}_k{k}"))
+    # rows off 16-byte alignment: the run-time-C path at a compiled width
+    flat = torch.randn(2 * 400 * 24 + 1, generator=gen).cuda()
+    x = flat[1:].view(2, 400, 24)
+    err = max(err, check_knn_wide(x, x, 16, "misaligned_B2_N400_C24"))
     # duplicated rows: exact ties, which go to the smaller index
     x = feats(4, 512, 24)
     x = torch.cat([x, x[:, :256]], 1)
-    return max(err, check_knn_wide(x, x, 16, "duplicates_B4_N768_C24"))
+    err = max(err, check_knn_wide(x, x, 16, "duplicates_B4_N768_C24"))
+    # copies 1, 33 and 130 rows on (another lane, warp and block of
+    # queries), and 192 rows on: across the 4 parts of 64 refs at ECG's
+    # 256-point level; at 256 channels (the chunk path, one part) likewise
+    for n, c in ((256, 48), (600, 256)):
+        x = feats(32, n, c)
+        x[:, 192:256] = x[:, :64]
+        for i in (0, 5, 40):
+            for shift in (1, 33, 130):
+                x[:, i + shift] = x[:, i]
+        err = max(err, check_knn_wide(x, x, 16, f"duplicates_B32_N{n}_C{c}"))
+    return err
 
 
 def check_nn_select(a, b, name):
@@ -1601,7 +1641,8 @@ def phase_profile_train(model="vrcnet"):
 
 # the port's own kernels, by their __global__ names in csrc/*.cu
 PORT_KERNELS = ("nn_both_kernel", "nn_select_kernel", "nn_select_columns",
-                "fps_kernel", "knn_kernel", "knn_wide_kernel", "emd_kernel",
+                "fps_kernel", "knn_kernel", "knn_wide_kernel",
+                "knn_wide_chunk_kernel", "knn_wide_merge_kernel", "emd_kernel",
                 "scatter_kernel", "gather_rows_kernel")
 
 
@@ -1715,39 +1756,65 @@ def _time_scatter(b, n, m, gen):
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+# knn_wide on its paths: ECG's four DenseConv levels (self-kNN after a
+# ReLU, k 16) and VRCNet's two EFExpansions (k 4); (B, N, C, k)
+KNN_WIDE_SHAPES = ((32, 3072, 24, 16), (32, 1024, 48, 16), (32, 256, 48, 16),
+                   (32, 64, 48, 16), (32, 3072, 256, 4), (32, 2048, 64, 4))
+
+
+def _sm_max_clock_mhz() -> float:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(smi.stdout.split()[0])
+
+
+def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
+    """knn_wide's self-kNN on b clouds of n points with c channels: kernel
+    milliseconds, and with ``yardsticks`` the plain version's and ``cdist``
+    + ``topk``'s, the bound (clouds and indices moved once; per pair and
+    channel a sub, a mul and an add, and per pair a compare, at the f32
+    rate) and the floor of this contract: 3 f32 instructions per pair and
+    channel (no FMA) at 132 SMs x 128 lanes a clock of the card's maximum
+    SM clock."""
+    from houv_tpu_torch.ops import grouping
+
+    x = torch.randn((b, n, c), generator=gen).cuda()
+    if k == 16:
+        x = torch.relu(x)      # DenseConv's features; EFExpansion's are not
+    saved = grouping.knn_indices.wide_launches
+    ms = cuda_ms(lambda: grouping.knn_indices(x, x, k), reps=5)
+    grouping.knn_indices.wide_launches = saved
+    row = {"shape": {"query": [b, n, c], "ref": [b, n, c], "k": k}, "ms": ms}
+    if not yardsticks:
+        return row
+    row["plain_ms"] = cuda_ms(lambda: grouping._knn_plain(x, x, k), reps=1)
+    row["library_ms"] = cuda_ms(
+        lambda: torch.topk(torch.cdist(x, x), k, largest=False), reps=3)
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * b * n * c * 2 + 8 * b * n * k, (3.0 * c + 1.0) * b * n * n)
+    clock_mhz = _sm_max_clock_mhz()
+    row["floor_ms"] = 3.0 * b * n * n * c / (132 * 128 * clock_mhz * 1e3)
+    row["floor_clock_mhz"] = clock_mhz
+    return row
+
+
 def new_kernel_rows(gen, errs, launches):
     """The ``kernels`` rows of knn_wide, nn_select and gather_rows at their
     main-path shapes. ``errs``: each one's largest error against its plain
     version; ``launches``: each one's count on its path."""
-    from houv_tpu_torch.ops import chamfer, grouping
+    from houv_tpu_torch.ops import chamfer
 
     out = []
-    # knn_wide at ECG's first DenseConv: 32 clouds of 3072 points with 24
-    # channels (after a ReLU), k 16; beside it the 48-channel level and
-    # EFExpansion's 256 channels
-    def time_wide(b, n, c, k):
-        x = torch.relu(torch.randn((b, n, c), generator=gen)).cuda()
-        saved = grouping.knn_indices.wide_launches
-        ms = cuda_ms(lambda: grouping.knn_indices(x, x, k), reps=5)
-        grouping.knn_indices.wide_launches = saved
-        plain_ms = cuda_ms(lambda: grouping._knn_plain(x, x, k), reps=1)
-        library_ms = cuda_ms(lambda: torch.topk(torch.cdist(x, x), k,
-                                                largest=False), reps=3)
-        # per pair and channel: 1 sub, 1 mul, 1 add; per pair 1 compare
-        # against the k-th
-        bound_ms, bound_by = bound(4 * b * n * c * 2 + 8 * b * n * k,
-                                   (3.0 * c + 1.0) * b * n * n)
-        return {"shape": {"query": [b, n, c], "ref": [b, n, c], "k": k},
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms}
-
+    shapes = [_time_knn_wide(b, n, c, k, gen) for b, n, c, k in
+              KNN_WIDE_SHAPES]
     out.append({"name": "knn_wide", "route": "cuda",
                 "source": "houv_tpu_torch/csrc/knn_wide.cu",
                 "replaces": "houv_tpu/ops/grouping.py:107",
                 "launches": launches["knn_wide"],
-                "max_abs_err": errs["knn_wide"], **time_wide(32, 3072, 24, 16),
-                "at_C48": time_wide(32, 1024, 48, 16),
-                "at_efexpansion_shape": time_wide(32, 3072, 256, 4)})
+                "max_abs_err": errs["knn_wide"], **shapes[0],
+                "at_shapes": shapes})
     torch.cuda.empty_cache()
 
     # nn_select at the solver's shape on cfgs/houv.yaml: 16 pairs x 64

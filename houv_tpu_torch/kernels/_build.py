@@ -41,8 +41,8 @@ _SIGNATURES = {
     # idx, vals, b, n, m, c, rows, out, stream
     "houv_scatter_add": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "houv_scatter_max_channels": [],
-    # query, ref, b, m, n, c, k, out, stream
-    "houv_knn_wide": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # query, ref, b, m, n, c, k, len, scratch, out, stream
+    "houv_knn_wide": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "houv_knn_wide_max_k": [],
     # a, b, bq, bk, n, m, c1, c2, key2, stream
     "houv_nn_select": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],

@@ -30,6 +30,12 @@ from houv_tpu_torch.ops.chamfer import pairwise_sqdist
 # Keeps the plain version's (rows, M, N) temporaries under ~1 GB.
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
+# csrc/knn_wide.cu's launch plan: queries per block, the card's SMs, and the
+# step of a part's length (a multiple of the refs a thread sums at once)
+_WIDE_QUERIES = 128
+_WIDE_SMS = 132
+_WIDE_STEP = 16
+
 
 def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, C, N) × (B, M) int -> (B, C, M)."""
@@ -81,6 +87,21 @@ def _knn_plain(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
     return idx
 
 
+def _wide_plan(b: int, m: int, n: int, k: int) -> tuple[int, int]:
+    """(refs per part, parts) of ``csrc/knn_wide.cu`` for B clouds of M
+    queries and N refs. With fewer blocks (B * ceil(M / 128)) than SMs, the
+    refs split into parts of consecutive indices until about two blocks an
+    SM are in flight; a part holds at least k refs, in multiples of 16, and
+    a merge pass joins the parts' lists."""
+    blocks = b * -(-m // _WIDE_QUERIES)
+    want = 1 if blocks >= _WIDE_SMS else -(-2 * _WIDE_SMS // blocks)
+    length = max(-(-n // want), k)
+    length = -(-length // _WIDE_STEP) * _WIDE_STEP
+    if length >= n:
+        return n, 1
+    return length, -(-n // length)
+
+
 def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
     from houv_tpu_torch.kernels import check, load
 
@@ -97,8 +118,15 @@ def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         if wide:
-            err = lib.houv_knn_wide(query.data_ptr(), ref.data_ptr(), bsz, m,
-                                    n, c, k, out.data_ptr(), stream)
+            length, parts = _wide_plan(bsz, m, n, k)
+            # the parts' (distance, index) lists, merged by the kernel
+            scratch = None if parts == 1 else torch.empty(
+                2 * parts * bsz * m * k, dtype=torch.int32,
+                device=query.device)
+            err = lib.houv_knn_wide(
+                query.data_ptr(), ref.data_ptr(), bsz, m, n, c, k, length,
+                None if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), stream)
         else:
             err = lib.houv_knn(query.data_ptr(), ref.data_ptr(), bsz, m, n,
                                k, out.data_ptr(), stream)

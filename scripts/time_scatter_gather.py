@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Times of the ordered scatter-add (K4) and the row gather (K5) of the
-``houv_tpu_torch`` in the working directory, and the end-to-end rates
-around them, all taken by this repository's ``chip_smoke.py``, so that an
-older checkout can be timed beside this one on one card, in turns:
+"""Times of the ordered scatter-add (K4), the row gather (K5) and the
+feature-space kNN (K6-wide) of the ``houv_tpu_torch`` in the working
+directory, and the end-to-end rates around them, all taken by this
+repository's ``chip_smoke.py``, so that an older checkout can be timed
+beside this one on one card, in turns:
 
     (cd <old checkout> && python3 <this repo>/scripts/time_scatter_gather.py)
-    python3 scripts/time_scatter_gather.py
+    python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide steps]
 
-- K4 and K5 at the shapes of PERF.md's kernel table (``_time_scatter``,
-  ``_time_gather_rows``: device time, plain version, library yardstick);
-- train steps/s of 10 steps on one repeated batch of cfgs/vrcnet.yaml,
-  cfgs/pcn.yaml and cfgs/ecg.yaml (``_repeated_batch``; 4, 2 and 2 K4
-  launches a step);
-- pairs/s of ``test_main`` on cfgs/houv_fast.yaml over 100 pairs
-  (``run_sweep``; no K4 or K5: the host's speed on this machine).
+(the named parts only; all four without arguments)
+
+- scatter, gather_rows: K4 and K5 at the shapes of PERF.md's kernel table
+  (``_time_scatter``, ``_time_gather_rows``: device time, plain version,
+  library yardstick);
+- knn_wide: K6-wide's device time at its six path shapes
+  (``KNN_WIDE_SHAPES``, ``_time_knn_wide``);
+- steps: train steps/s of 10 steps on one repeated batch of
+  cfgs/vrcnet.yaml, cfgs/pcn.yaml and cfgs/ecg.yaml (``_repeated_batch``;
+  4, 2 and 2 K4 launches a step), and pairs/s of ``test_main`` on
+  cfgs/houv_fast.yaml over 100 pairs (``run_sweep``; no K4 or K5: the
+  host's speed on this machine).
 
 Only the package comes from the working directory. Prints one JSON line
 after chip_smoke's own; needs CUDA and builds the checkout's kernels at
@@ -34,23 +40,39 @@ import chip_smoke  # noqa: E402  (imports no package of the port itself)
 sys.path.insert(0, os.getcwd())         # the checkout's houv_tpu_torch
 
 
+PARTS = ("scatter", "gather_rows", "knn_wide", "steps")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_scatter_gather: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    parts = sys.argv[1:] or list(PARTS)
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        print(f"time_scatter_gather: no part {sorted(unknown)}; the parts "
+              f"are {list(PARTS)}", file=sys.stderr)
+        return 2
     gen = torch.Generator().manual_seed(0)
-    out = {"checkout": os.getcwd(), "card": torch.cuda.get_device_name(0),
-           "scatter_add": [chip_smoke._time_scatter(b, 2048, m, gen)
-                           for b, m in ((64, 3072), (1024, 2048))],
-           "gather_rows": chip_smoke._time_gather_rows(gen)}
-    with tempfile.TemporaryDirectory() as tmp:
-        out["train_steps_per_s"] = {
-            model: chip_smoke._repeated_batch(tmp, 10, False,
-                                              model)["steps_per_s"]
-            for model in ("vrcnet", "pcn", "ecg")}
-        out["houv_fast_pairs_per_s"] = chip_smoke.run_sweep(
-            "houv_fast.yaml", 100, Path(tmp))["pairs_per_s"]
+    out = {"checkout": os.getcwd(), "card": torch.cuda.get_device_name(0)}
+    if "scatter" in parts:
+        out["scatter_add"] = [chip_smoke._time_scatter(b, 2048, m, gen)
+                              for b, m in ((64, 3072), (1024, 2048))]
+    if "gather_rows" in parts:
+        out["gather_rows"] = chip_smoke._time_gather_rows(gen)
+    if "knn_wide" in parts:
+        out["knn_wide"] = [
+            chip_smoke._time_knn_wide(b, n, c, k, gen, yardsticks=False)
+            for b, n, c, k in chip_smoke.KNN_WIDE_SHAPES]
+    if "steps" in parts:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["train_steps_per_s"] = {
+                model: chip_smoke._repeated_batch(tmp, 10, False,
+                                                  model)["steps_per_s"]
+                for model in ("vrcnet", "pcn", "ecg")}
+            out["houv_fast_pairs_per_s"] = chip_smoke.run_sweep(
+                "houv_fast.yaml", 100, Path(tmp))["pairs_per_s"]
     print(json.dumps(out), flush=True)
     return 0
 

@@ -266,6 +266,70 @@ def test_knn_wide_self_match_and_exact_ties(gen):
     assert bool((ki[:, :, 0].cpu() == torch.arange(600) % 300).all())
 
 
+def _knn_wide_exact(q, r, k):
+    """One wide launch, and the plain version's indices exactly."""
+    from houv_tpu_torch.ops import grouping
+
+    before = grouping.knn_indices.wide_launches
+    ki = grouping.knn_indices(q, r, k)
+    assert grouping.knn_indices.wide_launches == before + 1
+    torch.testing.assert_close(ki, grouping._knn_plain(q, r, k),
+                               rtol=0, atol=0)
+    return ki
+
+
+@pytest.mark.parametrize("c", [23, 24, 25, 47, 48, 49, 63, 64, 65, 255, 256,
+                               257])
+def test_knn_wide_kernel_on_and_beside_its_compiled_widths(gen, c):
+    q = torch.relu(torch.randn((2, 150, c), generator=gen)).cuda()
+    r = torch.relu(torch.randn((2, 700, c), generator=gen)).cuda()
+    _knn_wide_exact(q, r, 16)
+    _knn_wide_exact(q, r, 4)
+
+
+@pytest.mark.parametrize("k", [1, 4, 5, 8, 9, 16, 17, 31, 32, 33, 63, 64])
+def test_knn_wide_kernel_at_its_bucket_and_queue_edges(gen, k):
+    q = torch.relu(torch.randn((2, 130, 24), generator=gen)).cuda()
+    r = torch.relu(torch.randn((2, 400, 24), generator=gen)).cuda()
+    _knn_wide_exact(q, r, k)
+
+
+@pytest.mark.parametrize("b,m,n,c,k", [(32, 256, 256, 48, 16),
+                                       (32, 64, 64, 48, 16),
+                                       (3, 50, 70, 24, 16),
+                                       (2, 7, 5, 48, 3),
+                                       (1, 1, 3000, 256, 4),
+                                       (4, 100, 333, 9, 33)])
+def test_knn_wide_kernel_with_its_refs_in_parts(gen, b, m, n, c, k):
+    """Refs split into parts (N not a multiple of a part, N below one part),
+    fewer queries than a block, and the merge of the parts' lists."""
+    from houv_tpu_torch.ops import grouping
+
+    assert grouping._wide_plan(b, m, n, k)[1] > 1 or n < 16
+    q = torch.relu(torch.randn((b, m, c), generator=gen)).cuda()
+    r = torch.relu(torch.randn((b, n, c), generator=gen)).cuda()
+    _knn_wide_exact(q, r, k)
+
+
+@pytest.mark.parametrize("n,c", [(256, 48), (600, 24), (600, 256),
+                                 (300, 37)])
+def test_knn_wide_exact_ties_across_lanes_warps_blocks_and_parts(gen, n, c):
+    x = torch.relu(torch.randn((32, n, c), generator=gen))
+    for i in (0, 5, 40):
+        for shift in (1, 33, 130):        # another lane, warp, block
+            x[:, i + shift] = x[:, i]
+    x[:, 192:256] = x[:, :64]             # another part at 256 points
+    ki = _knn_wide_exact(x.cuda(), x.cuda(), 16)
+    assert bool((ki[:, 192:256, 0] < 64).all())
+
+
+def test_knn_wide_kernel_on_rows_off_16_byte_alignment(gen):
+    flat = torch.randn(2 * 400 * 24 + 1, generator=gen).cuda()
+    x = flat[1:].view(2, 400, 24)
+    assert x.data_ptr() % 16 != 0
+    _knn_wide_exact(x, x, 16)
+
+
 @pytest.mark.parametrize("bq,share,n,m", [(2, 8, 300, 257), (1, 1, 1025, 3),
                                           (3, 5, 1, 700), (2, 64, 513, 600)])
 def test_nn_select_kernel_matches_plain_bit_for_bit(gen, bq, share, n, m):

@@ -132,8 +132,10 @@ class _FakeLib:
         self.calls.append(("houv_knn", b, m, n, k))
         return 0
 
-    def houv_knn_wide(self, q, r, b, m, n, c, k, out, stream):
+    def houv_knn_wide(self, q, r, b, m, n, c, k, length, scratch, out,
+                      stream):
         self.calls.append(("houv_knn_wide", b, m, n, c, k))
+        self.plan = (length, scratch is not None)
         return 0
 
 
@@ -179,6 +181,34 @@ def test_knn_on_cuda_takes_its_kernel_and_never_the_plain_version(
     lib.houv_error_string = lambda err: b"invalid argument"
     with pytest.raises(RuntimeError, match="launch failed"):
         tg.knn_indices(q, q, 4, device="cuda")
+
+
+@pytest.mark.parametrize("m,n,k,plan", [(16, 9, 4, (9, False)),
+                                        (16, 300, 4, (16, True)),
+                                        (300, 70, 40, (48, True))])
+def test_wide_knn_hands_the_kernel_its_plan_and_scratch(monkeypatch, m, n, k,
+                                                        plan):
+    """The wrapper passes ``_wide_plan``'s part length, and scratch for the
+    parts' lists only when the refs split (faked card, as above)."""
+    import contextlib
+    import types
+
+    from houv_tpu_torch import kernels
+
+    lib = _FakeLib()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tg, "check_on", lambda dev, *tensors: None)
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tg.knn_indices, "wide_launches", 0)
+    tg.knn_indices(torch.zeros((1, m, 24)), torch.zeros((1, n, 24)), k,
+                   device="cuda")
+    assert lib.plan == plan
+    assert plan[0] == tg._wide_plan(1, m, n, k)[0]
+    assert tg.knn_indices.wide_launches == 1
 
 
 def test_knn_rejects_k_above_n():

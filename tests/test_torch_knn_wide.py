@@ -127,3 +127,98 @@ def test_ball_query_and_grouping_match_jax_on_random_clouds(rng, min_r,
                 None if f is None else jnp.asarray(f), nsample=8, **kw)
             np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                        rtol=1e-6, atol=1e-7)
+
+
+# csrc/knn_wide.cu's plan and selection, modelled on the CPU: the kernel
+# itself runs only on the card (tests/test_torch_cuda.py, chip_smoke.py)
+
+@pytest.mark.parametrize("b,m,n,k,plan", [
+    (32, 3072, 3072, 16, (3072, 1)),   # ECG's first DenseConv level
+    (32, 1024, 1024, 16, (1024, 1)),
+    (32, 256, 256, 16, (64, 4)),       # 64 blocks: the refs split in four
+    (32, 64, 64, 16, (16, 4)),
+    (32, 3072, 3072, 4, (3072, 1)),    # VRCNet's two EFExpansions
+    (32, 2048, 2048, 4, (2048, 1)),
+])
+def test_wide_plan_at_the_paths_shapes(b, m, n, k, plan):
+    assert tg._wide_plan(b, m, n, k) == plan
+
+
+def test_wide_plan_keeps_its_parts_whole():
+    """Every part non-empty, at least k refs (or all N), a multiple of 16
+    refs unless it is the only one, and the grid's z within its limit."""
+    for b in (1, 2, 5, 32):
+        for m in (1, 5, 64, 127, 129, 256, 1999):
+            for n in (1, 3, 15, 16, 17, 70, 257, 777, 100000):
+                for k in (1, 4, 16, 17, 64):
+                    if k > n:
+                        continue
+                    length, parts = tg._wide_plan(b, m, n, k)
+                    assert (parts - 1) * length < n <= parts * length
+                    assert length >= k
+                    assert parts == 1 or length % 16 == 0
+                    assert 1 <= parts <= 2 * 132
+                    if b * -(-m // 128) >= 132:
+                        assert parts == 1
+
+
+def _insert(d, j, x, jx):
+    """The kernel's sorted insertion: an equal entry stays ahead."""
+    if not x < d[-1]:
+        return
+    t = len(d) - 1
+    while t > 0 and x < d[t - 1]:
+        d[t], j[t] = d[t - 1], j[t - 1]
+        t -= 1
+    d[t], j[t] = x, jx
+
+
+def _wide_model(dist, k, length, flush_rng):
+    """The kernel's selection on one query's distances (N,) f32: per part of
+    ``length`` refs, 16 refs at a time tested against the list's last entry,
+    hits queued (32 slots) and merged into the top-K list when the queue may
+    overflow or, at random, when another lane of the warp forces a merge;
+    then the parts' first-k lists merged in part order."""
+    big_k = next(x for x in (4, 8, 16, 32, 64) if k <= x)
+    n = len(dist)
+    lists = []
+    for jb in range(0, n, length):
+        d, j, queue = [np.inf] * big_k, [0] * big_k, []
+        je = min(n, jb + length)
+        for s0 in range(jb, je, 16):
+            queue += [(dist[x], x) for x in range(s0, min(s0 + 16, je))
+                      if dist[x] < d[-1]]
+            if len(queue) > 16 or flush_rng.random() < 0.3:
+                for x, jx in queue:
+                    _insert(d, j, x, jx)
+                queue = []
+        for x, jx in queue:
+            _insert(d, j, x, jx)
+        lists.append((d[:k], j[:k]))
+    d, j = [np.inf] * big_k, [0] * big_k
+    d[:k], j[:k] = lists[0]
+    for pd, pj in lists[1:]:
+        for x, jx in zip(pd, pj):
+            _insert(d, j, x, jx)
+    return j[:k]
+
+
+@pytest.mark.parametrize("n,k,length", [(200, 16, 16), (200, 16, 64),
+                                        (200, 5, 48), (200, 17, 32),
+                                        (90, 33, 48), (70, 40, 200)])
+def test_wide_selection_model_keeps_the_tie_rule(rng, n, k, length):
+    """Exact ties everywhere (4 ReLU channels: many rows all 0, and every
+    row copied to indices 33 and 130 further on, across lanes, warps and
+    parts): the queued, merged and part-merged selection equals the plain
+    version's stable sort index for index, whatever the merge times."""
+    x = np.maximum(rng.standard_normal((1, n, 4)), 0).astype(np.float32)
+    for shift in (s for s in (33, 130) if s < n):
+        x[:, shift:] = np.where(rng.random((1, n - shift, 1)) < 0.5,
+                                x[:, :n - shift], x[:, shift:])
+    xt = torch.tensor(x)
+    want = tg._knn_plain(xt[:, :40], xt, k)[0].numpy()
+    dist = tg._sqdist_diff(xt[:, :40], xt)[0].numpy()
+    flush_rng = np.random.default_rng(1)
+    got = np.array([_wide_model(dist[i], k, length, flush_rng)
+                    for i in range(40)])
+    np.testing.assert_array_equal(got, want)
