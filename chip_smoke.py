@@ -9,9 +9,12 @@ failed check exits non-zero:
 1. the card (nvidia-smi name and power limit) and the kernel build
    (nvcc, sm_90a, from ``houv_tpu_torch/csrc``, one nvcc per source);
 2. each of the eight kernels against its plain PyTorch version on the card:
-   the nearest-neighbour search ``nn_both`` (shared-query layout, the train
-   steps' shapes, ragged) and its coordinate form ``nn_select`` (the
-   solver's shape, unshared, ragged, duplicates: bit for bit); ``fps``
+   the nearest-neighbour search ``nn_both``, index for index (shared-query
+   layout, houv.yaml's 6400 rows, the train steps' shapes, ragged, tiny M,
+   the tile and block edges of its launch plan with exact copies planted
+   across threads, tiles and blocks, integer grids) and its coordinate form
+   ``nn_select`` (the solver's shape, unshared, ragged, duplicates: bit for
+   bit); ``fps``
    (exact indices at the solver's, VRCNet's and ECG's shapes, the uniform
    losses' seeds included); ``knn`` at VRCNet's shapes and at ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
@@ -60,8 +63,9 @@ failed check exits non-zero:
    step;
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
-   library yardstick, with its launches on the paths above; ``knn_wide``
-   at all six of its path shapes, each with the floor of its contract.
+   library yardstick, with its launches on the paths above; ``nn_both`` at
+   its seven path shapes and ``knn_wide`` at its six, each with the floor
+   of its contract.
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
 the repository around this file; imports nothing of JAX.
@@ -123,11 +127,16 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_build():
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_build():
+    card = card_line()
     print(card, flush=True)
     from houv_tpu_torch import kernels
 
@@ -149,8 +158,8 @@ def _nn_dists(a_rows, b, i1, i2):
 
 
 def check_nn(a, b, name):
-    """Kernel vs plain: recomputed distances to 1e-6 relative; indices equal
-    except where the two picks are candidates within that tolerance."""
+    """Kernel vs plain: indices equal, index for index (both round each
+    distance op by op); the recomputed distances to 1e-6 relative."""
     from houv_tpu_torch.ops import chamfer
 
     ki1, ki2 = chamfer.chamfer_indices(a, b)
@@ -168,9 +177,39 @@ def check_nn(a, b, name):
           "a": list(a.shape), "b": list(b.shape), "index_mismatches": mism,
           "max_rel_dist_err": rel, "max_abs_dist_err": err,
           "tolerance_rel": 1e-6})
-    if rel > 1e-6:
-        fail(f"nn_both {name}: distances differ by {rel:.3g} relative")
+    if mism or rel > 1e-6:
+        fail(f"nn_both {name}: {mism} indices differ, distances "
+             f"{rel:.3g} relative")
     return err
+
+
+def planted_copies(x, offsets, gen):
+    """x (B, P, 3) with exact copies planted: for each offset o, a few rows
+    i get x[:, i + o] = x[:, i], so that a point and its copy lie in
+    different threads, warps, tiles or blocks of the kernel."""
+    x = x.clone()
+    p = x.shape[1]
+    for k, o in enumerate(offsets):
+        if o >= p:
+            continue
+        src = torch.randperm(p - o, generator=gen)[:4 + k]
+        x[:, src + o] = x[:, src]
+    return x
+
+
+# K1's edges, (Bq, share, N, M): tiles of 128 and their float4 halves of 64;
+# blocks of 128 split queries (few rows) against whole rows (528 rows fill
+# 132 SMs 4 times over); 3072 references a block
+NN_EDGES = ((2, 1, 127, 129), (2, 1, 129, 127), (2, 1, 63, 65),
+            (2, 1, 65, 64), (2, 1, 255, 300), (2, 1, 257, 385),
+            (8, 66, 2047, 2049), (8, 66, 2049, 2047), (8, 66, 129, 3073),
+            (1, 1, 300, 3071), (1, 1, 300, 3073), (1, 1, 129, 6145),
+            (3, 1, 1, 700))
+# offsets of the planted copies: the next query, thread row (8), tile (128),
+# block of split queries (128 too) or of a whole row (2048); the next ref,
+# lane (4), float4 half (64), tile (128), block of refs (3072)
+NN_QUERY_COPIES = (1, 8, 64, 128, 256, 2048)
+NN_REF_COPIES = (1, 4, 64, 128, 2048, 3072)
 
 
 def phase_nn(gen):
@@ -179,6 +218,12 @@ def phase_nn(gen):
     b = (a.repeat_interleave(64, 0)
          + 0.05 * torch.randn((128, 2048, 3), generator=gen).to(dev))
     err = check_nn(a, b, "shared_B2_K64_N2048_M2048")
+    # houv.yaml's step: 100 pairs x 64 restarts in one call
+    a = torch.rand((100, 2048, 3), generator=gen).to(dev) - 0.5
+    b = (a.repeat_interleave(64, 0)
+         + 0.05 * torch.randn((6400, 2048, 3), generator=gen).to(dev))
+    err = max(err, check_nn(a, b, "houv_B100_K64_N2048_M2048"))
+    del a, b
     # the train step's four calc_cd terms: 64 rows of 2048 gt points against
     # coarse_raw (1024), coarse_high (3072) and coarse and fine (2048)
     gt = torch.rand((64, 2048, 3), generator=gen).to(dev) - 0.5
@@ -190,10 +235,30 @@ def phase_nn(gen):
     for m in (1024, 2048):
         out = torch.rand((32, m, 3), generator=gen).to(dev) - 0.5
         err = max(err, check_nn(gt, out, f"train_B32_N2048_M{m}"))
+    for m in (1, 3, 257):
+        out = torch.rand((4, m, 3), generator=gen).to(dev) - 0.5
+        err = max(err, check_nn(gt[:4].contiguous(), out,
+                                f"share1_B4_N2048_M{m}"))
     del gt, out
     a = torch.randn((1, 2047, 3), generator=gen).to(dev)
     b = torch.randn((1, 1500, 3), generator=gen).to(dev)
-    return max(err, check_nn(a, b, "ragged_N2047_M1500"))
+    err = max(err, check_nn(a, b, "ragged_N2047_M1500"))
+    for bq, share, n, m in NN_EDGES:
+        a = torch.randn((bq, n, 3), generator=gen)
+        b = torch.randn((bq * share, m, 3), generator=gen)
+        name = f"edge_B{bq}_K{share}_N{n}_M{m}"
+        err = max(err, check_nn(a.to(dev), b.to(dev), name))
+        a = planted_copies(a, NN_QUERY_COPIES, gen)
+        b = planted_copies(b, NN_REF_COPIES, gen)
+        err = max(err, check_nn(a.to(dev), b.to(dev), f"{name}_copies"))
+    # integer coordinates: most distances tie with many others
+    a = torch.randint(0, 4, (2, 700, 3), generator=gen).float()
+    b = torch.randint(0, 4, (6, 900, 3), generator=gen).float()
+    err = max(err, check_nn(a.to(dev), b.to(dev), "grid_B2_K3_N700_M900"))
+    a = torch.randint(0, 6, (8, 1100, 3), generator=gen).float()
+    b = torch.randint(0, 6, (528, 1300, 3), generator=gen).float()
+    return max(err, check_nn(a.to(dev), b.to(dev),
+                             "grid_B8_K66_N1100_M1300"))
 
 
 def phase_fps(gen):
@@ -1640,10 +1705,11 @@ def phase_profile_train(model="vrcnet"):
 
 
 # the port's own kernels, by their __global__ names in csrc/*.cu
-PORT_KERNELS = ("nn_both_kernel", "nn_select_kernel", "nn_select_columns",
-                "fps_kernel", "knn_kernel", "knn_wide_kernel",
-                "knn_wide_chunk_kernel", "knn_wide_merge_kernel", "emd_kernel",
-                "scatter_kernel", "gather_rows_kernel")
+PORT_KERNELS = ("nn_both_kernel", "nn_both_unpack_kernel", "nn_select_kernel",
+                "nn_select_columns", "fps_kernel", "knn_kernel",
+                "knn_wide_kernel", "knn_wide_chunk_kernel",
+                "knn_wide_merge_kernel", "emd_kernel", "scatter_kernel",
+                "gather_rows_kernel")
 
 
 def _profile_top(prof, wall_ms):
@@ -1800,6 +1866,62 @@ def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
     return row
 
 
+# K1's path shapes, (Bq, share, N, M): houv_fast's final phase (16 pairs x
+# 64 restarts), houv.yaml's step (100 pairs x 64), the train steps' calc_cd
+# (64 rows against coarse_raw, coarse_high, coarse and fine) and PCN's and
+# ECG's (32 rows against coarse and fine)
+NN_SHAPES = ((16, 64, 2048, 2048), (100, 64, 2048, 2048),
+             (64, 1, 2048, 1024), (64, 1, 2048, 3072), (64, 1, 2048, 2048),
+             (32, 1, 2048, 1024), (32, 1, 2048, 2048))
+
+
+def _time_nn_both(bq, share, n, m, gen, yardsticks=True, plain=True):
+    """nn_both on bq query clouds of n points, each serving ``share`` rows
+    of m references: kernel milliseconds, and with ``yardsticks`` the bound
+    (clouds read and indices written once; 8 flops a pair at the f32 rate),
+    the floor of the contract (8 non-FMA f32 instructions a pair at 132 SMs
+    x 128 lanes a clock of the card's maximum SM clock), ``cdist`` + 2
+    ``argmin`` (one call up to 1024 rows of 2048², beyond that in chunks of
+    whole pairs whose distance matrix stays within 16 GiB: the full one at
+    houv.yaml's 6400 rows would be 107 GB), and with ``plain`` too the plain
+    version's."""
+    from houv_tpu_torch.ops import chamfer
+
+    bk = bq * share
+    a = torch.rand((bq, n, 3), generator=gen).cuda() - 0.5
+    if share > 1:    # restarts of a pair: the target near each source
+        b = (a.repeat_interleave(share, 0)[:, :m]
+             + 0.05 * torch.randn((bk, m, 3), generator=gen).cuda())
+    else:
+        b = torch.rand((bk, m, 3), generator=gen).cuda() - 0.5
+    saved = chamfer.chamfer_indices.launches
+    ms = cuda_ms(lambda: chamfer.chamfer_indices(a, b), reps=5)
+    chamfer.chamfer_indices.launches = saved
+    row = {"shape": {"a": [bq, n, 3], "b": [bk, m, 3]}, "ms": ms}
+    if not yardsticks:
+        return row
+    if plain:
+        row["plain_ms"] = cuda_ms(lambda: chamfer._nn_both_plain(a, b),
+                                  reps=1)
+    step = max(1, (1 << 32) // (n * m * share)) * share
+
+    def library():
+        for r0 in range(0, bk, step):
+            rows = b[r0:r0 + step]
+            d = torch.cdist(a[r0 // share:(r0 + step) // share]
+                            .repeat_interleave(share, 0), rows)
+            d.argmin(-1), d.argmin(-2)
+
+    row["library_ms"] = cuda_ms(library, reps=2)
+    row["bound_ms"], row["bound_by"] = bound(
+        12 * bq * n + 12 * bk * m + 8 * bk * n + 8 * bk * m,
+        8.0 * bk * n * m)
+    clock_mhz = _sm_max_clock_mhz()
+    row["floor_ms"] = 8.0 * bk * n * m / (132 * 128 * clock_mhz * 1e3)
+    row["floor_clock_mhz"] = clock_mhz
+    return row
+
+
 def new_kernel_rows(gen, errs, launches):
     """The ``kernels`` rows of knn_wide, nn_select and gather_rows at their
     main-path shapes. ``errs``: each one's largest error against its plain
@@ -1895,34 +2017,14 @@ def phase_kernels(launches, errs, completion, train, solve, models,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
-    # nn_both at the final phase of houv_fast: 16 pairs x 64 restarts, 2048
-    # points each side, the target cloud shared by its pair's restarts
-    bq, share, n = 16, 64, 2048
-    a = torch.rand((bq, n, 3), generator=gen).cuda() - 0.5
-    b = (a.repeat_interleave(share, 0)
-         + 0.05 * torch.randn((bq * share, n, 3), generator=gen).cuda())
-    a_rep = a.repeat_interleave(share, 0)
-    saved = chamfer.chamfer_indices.launches
-    ms = cuda_ms(lambda: chamfer.chamfer_indices(a, b), reps=5)
-    chamfer.chamfer_indices.launches = saved
-    plain_ms = cuda_ms(lambda: chamfer._nn_both_plain(a, b), reps=1)
-
-    def library():
-        d = torch.cdist(a_rep, b)
-        return d.argmin(-1), d.argmin(-2)
-
-    library_ms = cuda_ms(library, reps=2)
-    bk = bq * share
-    n_bytes = 12 * bq * n + 12 * bk * n + 8 * bk * n + 8 * bk * n
-    bound_ms, bound_by = bound(n_bytes, 8.0 * bk * n * n)
+    # nn_both at its path shapes; the plain version timed at the first two
+    shapes = [_time_nn_both(*shape, gen, plain=i < 2)
+              for i, shape in enumerate(NN_SHAPES)]
     out.append({"name": "nn_both", "route": "cuda",
                 "source": "houv_tpu_torch/csrc/nn_both.cu",
                 "replaces": "houv_tpu/ops/chamfer.py:84",
-                "shape": {"a": [bq, n, 3], "b": [bk, n, 3]},
                 "launches": launches["nn_both"], "max_abs_err": nn_err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms})
-    del a, b, a_rep
+                **shapes[0], "at_shapes": shapes})
     torch.cuda.empty_cache()
 
     # fps at the N/2 phase of houv_fast: 16 clouds of 2048 -> 1024

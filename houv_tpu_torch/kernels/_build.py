@@ -26,8 +26,8 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # a, b, bq, bk, n, m, i1, key2, stream
-    "houv_nn_both": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # a, b, bq, bk, n, m, qlen, rlen, i1, i2, stream
+    "houv_nn_both": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # pts, b, n, k, out, stream
     "houv_fps": [_P, _I, _I, _I, _P, _P],
     "houv_fps_max_points": [],

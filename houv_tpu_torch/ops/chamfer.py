@@ -13,8 +13,10 @@ plain version is ``_nn_select_plain``). ``pairwise_sqdist`` and
 ``chamfer_reference`` are the dense golden model.
 
 Unlike the TPU kernel, which selects by a key holding 16 index bits (2^-12
-relative on distances), both the CUDA kernel and the plain version select on
-the exact f32 diff-form distance, so indices differ only at near-ties.
+relative on distances), both CUDA kernels and the plain versions select on
+the exact f32 diff-form distance rounded op by op, so the kernels' picks
+equal the plain versions' index for index (and differ from the TPU's only
+at near-ties).
 """
 
 from __future__ import annotations
@@ -70,21 +72,60 @@ def _nn_both_plain(a: torch.Tensor, b: torch.Tensor):
     return i1, i2
 
 
+# csrc/nn_both.cu's tiles: a block owns queries and references in whole
+# tiles of 128, and at most 3072 references (its shared memory: 2 blocks a SM
+# fit at 3072, 3 up to 2048).
+_NN_TILE = 128
+_NN_MAX_REFS = 3072
+_NN_MAX_QUERIES = 1 << 20       # keeps a block's query offsets in 32 bits
+# blocks a SM before queries split: 3 fit at once (256 threads of at most 80
+# registers), so this asks for a wave and a third
+_NN_MIN_BLOCKS_PER_SM = 4
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def _nn_plan(bk: int, n: int, m: int, sms: int) -> tuple[int, int]:
+    """The kernel's launch plan: (queries, references) a block owns, both
+    multiples of 128. All of a row's references fit one block up to 3072,
+    beyond that they split evenly. The queries stay whole, so that both
+    directions complete inside one block per row and are written directly,
+    while the rows alone give ``sms`` SMs 4 blocks each (houv.yaml's 6400
+    rows, houv_fast's 1024); with fewer rows (the train steps' 32 or 64)
+    they halve until they do, or until one tile of 128 is left, and the
+    columns merge across blocks."""
+    rparts = -(-m // _NN_MAX_REFS)
+    rlen = _round_up(-(-m // rparts), _NN_TILE)
+    qlen = min(_round_up(n, _NN_TILE), _NN_MAX_QUERIES)
+    while (qlen > _NN_TILE
+           and bk * -(-n // qlen) * rparts < _NN_MIN_BLOCKS_PER_SM * sms):
+        qlen = _round_up(-(-qlen // 2), _NN_TILE)
+    return qlen, rlen
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _nn_both_cuda(a: torch.Tensor, b: torch.Tensor):
     from houv_tpu_torch.kernels import check, load
 
     lib = load()
     bq, n, _ = a.shape
     bk, m, _ = b.shape
+    qlen, rlen = _nn_plan(bk, n, m, _sm_count(b.device))
     i1 = torch.empty((bk, n), dtype=torch.int64, device=b.device)
-    key2 = torch.empty((bk, m), dtype=torch.int64, device=b.device)
+    i2 = torch.empty((bk, m), dtype=torch.int64, device=b.device)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = lib.houv_nn_both(a.data_ptr(), b.data_ptr(), bq, bk, n, m,
-                               i1.data_ptr(), key2.data_ptr(), stream)
+                               qlen, rlen, i1.data_ptr(), i2.data_ptr(),
+                               stream)
     check(lib, err, "nn_both")
     chamfer_indices.launches += 1
-    return i1, key2 & 0xFFFFFFFF
+    return i1, i2
 
 
 def chamfer_indices(a: torch.Tensor, b: torch.Tensor,

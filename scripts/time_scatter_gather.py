@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Times of the ordered scatter-add (K4), the row gather (K5) and the
-feature-space kNN (K6-wide) of the ``houv_tpu_torch`` in the working
-directory, and the end-to-end rates around them, all taken by this
+"""Times of the ordered scatter-add (K4), the row gather (K5), the
+feature-space kNN (K6-wide) and the nearest-neighbour search (K1) of the
+``houv_tpu_torch`` in the working directory, and the end-to-end rates
+around them, all taken by this
 repository's ``chip_smoke.py``, so that an older checkout can be timed
 beside this one on one card, in turns:
 
     (cd <old checkout> && python3 <this repo>/scripts/time_scatter_gather.py)
-    python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide steps]
+    python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide
+                                            steps nn_both houv]
 
-(the named parts only; all four without arguments)
+(the named parts only; all six without arguments)
 
 - scatter, gather_rows: K4 and K5 at the shapes of PERF.md's kernel table
   (``_time_scatter``, ``_time_gather_rows``: device time, plain version,
@@ -19,7 +21,13 @@ beside this one on one card, in turns:
   cfgs/vrcnet.yaml, cfgs/pcn.yaml and cfgs/ecg.yaml (``_repeated_batch``;
   4, 2 and 2 K4 launches a step), and pairs/s of ``test_main`` on
   cfgs/houv_fast.yaml over 100 pairs (``run_sweep``; no K4 or K5: the
-  host's speed on this machine).
+  host's speed on this machine);
+- nn_both: K1's device time at its seven path shapes (``NN_SHAPES``,
+  ``_time_nn_both``: houv_fast's final phase, houv.yaml's 6400-row step,
+  the train steps' calc_cd);
+- houv: pairs/s, wall seconds, retries and median rotation error of
+  ``test_main`` on cfgs/houv.yaml over 100 pairs, one batch (``run_sweep``;
+  501 K1 launches a pass).
 
 Only the package comes from the working directory. Prints one JSON line
 after chip_smoke's own; needs CUDA and builds the checkout's kernels at
@@ -40,7 +48,7 @@ import chip_smoke  # noqa: E402  (imports no package of the port itself)
 sys.path.insert(0, os.getcwd())         # the checkout's houv_tpu_torch
 
 
-PARTS = ("scatter", "gather_rows", "knn_wide", "steps")
+PARTS = ("scatter", "gather_rows", "knn_wide", "steps", "nn_both", "houv")
 
 
 def main() -> int:
@@ -55,7 +63,7 @@ def main() -> int:
               f"are {list(PARTS)}", file=sys.stderr)
         return 2
     gen = torch.Generator().manual_seed(0)
-    out = {"checkout": os.getcwd(), "card": torch.cuda.get_device_name(0)}
+    out = {"checkout": os.getcwd(), "card": chip_smoke.card_line()}
     if "scatter" in parts:
         out["scatter_add"] = [chip_smoke._time_scatter(b, 2048, m, gen)
                               for b, m in ((64, 3072), (1024, 2048))]
@@ -73,6 +81,16 @@ def main() -> int:
                 for model in ("vrcnet", "pcn", "ecg")}
             out["houv_fast_pairs_per_s"] = chip_smoke.run_sweep(
                 "houv_fast.yaml", 100, Path(tmp))["pairs_per_s"]
+    if "nn_both" in parts:
+        out["nn_both"] = [
+            chip_smoke._time_nn_both(*shape, gen, yardsticks=False)
+            for shape in chip_smoke.NN_SHAPES]
+    if "houv" in parts:
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = chip_smoke.run_sweep("houv.yaml", 100, Path(tmp))
+        out["houv"] = {k: rec[k] for k in (
+            "pairs_per_s", "wall_s", "solve_s", "n_retry",
+            "rot_err_median_deg", "launches")}
     print(json.dumps(out), flush=True)
     return 0
 

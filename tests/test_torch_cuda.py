@@ -28,17 +28,8 @@ def test_nn_both_kernel_matches_plain(gen, bq, share, n, m):
     ki1, ki2 = chamfer.chamfer_indices(a, b)
     assert chamfer.chamfer_indices.launches == before + 1
     pi1, pi2 = chamfer._nn_both_plain(a, b)
-    a_rows = a.repeat_interleave(share, 0).double()
-    rows = torch.arange(bq * share, device="cuda")[:, None]
-
-    def d(i1, i2):
-        return (((a_rows - b.double()[rows, i1]) ** 2).sum(-1),
-                ((b.double() - a_rows[rows, i2]) ** 2).sum(-1))
-
-    # the kernel may contract to FMA where the plain version rounds each
-    # op: picks may differ only between candidates within 1e-6 relative
-    for k, p in zip(d(ki1, ki2), d(pi1, pi2)):
-        torch.testing.assert_close(k, p, rtol=1e-6, atol=0)
+    torch.testing.assert_close(ki1, pi1, rtol=0, atol=0)
+    torch.testing.assert_close(ki2, pi2, rtol=0, atol=0)
 
 
 def test_nn_both_exact_ties_go_to_the_smaller_index(gen):
@@ -48,6 +39,51 @@ def test_nn_both_exact_ties_go_to_the_smaller_index(gen):
     b[0, 280:] = b[0, 10:30]
     ki1, ki2 = chamfer.chamfer_indices(a.cuda(), b.cuda())
     pi1, pi2 = chamfer.chamfer_indices(a, b, device="cpu")
+    torch.testing.assert_close(ki1.cpu(), pi1, rtol=0, atol=0)
+    torch.testing.assert_close(ki2.cpu(), pi2, rtol=0, atol=0)
+
+
+def _copies(x, offsets, gen):
+    """Exact copies x[:, i + o] = x[:, i] for a few i per offset."""
+    x = x.clone()
+    for k, o in enumerate(offsets):
+        if o < x.shape[1]:
+            src = torch.randperm(x.shape[1] - o, generator=gen)[:4 + k]
+            x[:, src + o] = x[:, src]
+    return x
+
+
+# tiles of 128 and their halves of 64; queries split over blocks of 128
+# (few rows) or whole (528 rows: 4 blocks a SM); 3072 refs a block
+@pytest.mark.parametrize("bq,share,n,m", [
+    (2, 1, 127, 129), (2, 1, 129, 127), (2, 1, 63, 65), (2, 1, 65, 64),
+    (2, 1, 255, 300), (2, 1, 257, 385), (4, 1, 2048, 1), (4, 1, 2048, 3),
+    (4, 1, 2048, 257), (8, 66, 129, 257), (8, 66, 300, 129),
+    (1, 1, 300, 3071), (1, 1, 300, 3073), (1, 1, 129, 6145),
+    (8, 66, 129, 3073)])
+def test_nn_both_kernel_at_its_edges_with_planted_copies(gen, bq, share, n,
+                                                         m):
+    """Index for index with the plain version, on random clouds and then
+    with exact copies of points in the next query, thread row, tile and
+    block, and of refs in the next lane, half, tile and ref block: the
+    smaller index wins every tie."""
+    a = torch.randn((bq, n, 3), generator=gen)
+    b = torch.randn((bq * share, m, 3), generator=gen)
+    for qa, rb in ((a, b), (_copies(a, (1, 8, 64, 128, 256), gen),
+                            _copies(b, (1, 4, 64, 128, 3072), gen))):
+        ki1, ki2 = chamfer.chamfer_indices(qa.cuda(), rb.cuda())
+        pi1, pi2 = chamfer._nn_both_plain(qa, rb)
+        torch.testing.assert_close(ki1.cpu(), pi1, rtol=0, atol=0)
+        torch.testing.assert_close(ki2.cpu(), pi2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bq,share", [(2, 3), (8, 66)])
+def test_nn_both_kernel_on_integer_grids(gen, bq, share):
+    """Integer coordinates: nearly every distance ties with others."""
+    a = torch.randint(0, 4, (bq, 700, 3), generator=gen).float()
+    b = torch.randint(0, 4, (bq * share, 500, 3), generator=gen).float()
+    ki1, ki2 = chamfer.chamfer_indices(a.cuda(), b.cuda())
+    pi1, pi2 = chamfer._nn_both_plain(a, b)
     torch.testing.assert_close(ki1.cpu(), pi1, rtol=0, atol=0)
     torch.testing.assert_close(ki2.cpu(), pi2, rtol=0, atol=0)
 
