@@ -18,7 +18,11 @@ failed check exits non-zero:
    (exact indices at the solver's, VRCNet's and ECG's shapes, the uniform
    losses' seeds included); ``knn`` at VRCNet's shapes and at ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
-   with repeated points) and ``knn_wide`` at the four self-kNN shapes of
+   with repeated points) and at the edges of its design (fewer queries
+   than a warp, sizes off its blocks, tiles and batches, N == k, every
+   bucket edge of k on integer grids, refs in parts, packed clouds at and
+   beside the threshold, planted copies, all points equal: exact indices)
+   and ``knn_wide`` at the four self-kNN shapes of
    ECG's DenseConv, EFExpansion's two shapes, ragged cases in every k
    bucket, the edges of its design (compiled widths and their neighbours,
    bucket and queue edges of k, split refs, unaligned rows) and duplicated
@@ -64,8 +68,8 @@ failed check exits non-zero:
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above; ``nn_both`` at
-   its seven path shapes and ``knn_wide`` at its six, each with the floor
-   of its contract.
+   its seven path shapes, ``knn`` at its 30 and ``knn_wide`` at its six,
+   each with the floor of its contract.
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
 the repository around this file; imports nothing of JAX.
@@ -321,7 +325,53 @@ def phase_knn(gen):
     r = torch.randn((2, 1499, 3), generator=gen).cuda()
     err = max(err, check_knn(q, r, 17, "ragged_M3071_N1499_k17"))
     del half, q, r
+    err = max(err, _phase_knn_edges(gen))
     return max(err, _phase_knn_ecg(pts, gen))
+
+
+# csrc/knn.cu's edges, (B, M, N, k): fewer queries than a warp, queries and
+# refs off the blocks (128 and 256 queries), tiles (256 refs) and batches
+# (8 refs), N == k, every bucket edge of k, refs in parts with a short last
+# one, and packed clouds at and beside the packing threshold (M < 64,
+# N <= 256)
+KNN_EDGES = ((3, 5, 700, 5), (2, 31, 3000, 20), (2, 33, 257, 10),
+             (2, 129, 255, 3), (2, 257, 513, 16), (1, 1025, 3, 3),
+             (4, 300, 20, 20), (2, 100, 64, 64), (1, 700, 1, 1),
+             (3, 384, 385, 20), (5, 200, 1000, 33), (1, 130, 3001, 64),
+             (700, 63, 256, 8), (700, 64, 256, 8), (600, 63, 257, 4),
+             (4000, 7, 7, 7), (3264, 24, 24, 2), (1632, 4, 4, 2))
+KNN_BUCKETS = (1, 4, 5, 8, 9, 16, 17, 24, 25, 32, 33, 64)
+# offsets of the planted copies: the next lane, warp, block, tile, part
+KNN_COPIES = (1, 32, 128, 256, 300, 1024)
+
+
+def _phase_knn_edges(gen):
+    """The kernel's edges (``KNN_EDGES``) on random clouds and with planted
+    copies; every bucket edge of k on an integer grid (ties everywhere),
+    with one part and with refs in parts; every point equal; clouds of
+    repeated rows, as get_uniform_loss's balls, packed and not."""
+    err = 0.0
+    for b, m, n, k in KNN_EDGES:
+        x = torch.rand((b, max(m, n), 3), generator=gen) - 0.5
+        for tag, y in (("rand", x),
+                       ("copies", planted_copies(x, KNN_COPIES, gen))):
+            q, r = y[:, :m].cuda(), y[:, :n].cuda()
+            err = max(err, check_knn(q, r, k,
+                                     f"edge_{tag}_B{b}_M{m}_N{n}_k{k}"))
+    for k in KNN_BUCKETS:
+        for b, m in ((32, 700), (2, 700)):    # refs whole, refs in parts
+            g = torch.randint(0, 4, (b, m, 3), generator=gen).float().cuda()
+            err = max(err, check_knn(g, g, k, f"grid_B{b}_N{m}_k{k}"))
+    same = torch.full((4, 300, 3), 0.25).cuda()
+    for k in (1, 20, 64):
+        err = max(err, check_knn(same, same, k, f"all_equal_N300_k{k}"))
+    for clouds, n in ((3264, 24), (1632, 12), (40, 300)):
+        g = torch.rand((clouds, n, 3), generator=gen) - 0.5
+        hits = torch.randint(1, n + 1, (clouds,), generator=gen)
+        g = torch.where(torch.arange(n)[None, :, None] < hits[:, None, None],
+                        g, g[:, :1]).cuda()
+        err = max(err, check_knn(g, g, 2, f"repeated_B{clouds}_N{n}_k2"))
+    return err
 
 
 def _uniform_loss_groups(pcd, p):
@@ -1698,16 +1748,18 @@ def phase_profile_train(model="vrcnet"):
             trainer.train_step(batch, 0, 2)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    emit({"phase": "profile", "config": f"cfgs/{model}.yaml", "clouds": 32,
-          "run": "train_step", **_profile_top(prof, wall_ms)})
+    rec = {"phase": "profile", "config": f"cfgs/{model}.yaml", "clouds": 32,
+           "run": "train_step", **_profile_top(prof, wall_ms)}
+    emit(rec)
     del trainer
     torch.cuda.empty_cache()
+    return rec
 
 
 # the port's own kernels, by their __global__ names in csrc/*.cu
 PORT_KERNELS = ("nn_both_kernel", "nn_both_unpack_kernel", "nn_select_kernel",
                 "nn_select_columns", "fps_kernel", "knn_kernel",
-                "knn_wide_kernel", "knn_wide_chunk_kernel",
+                "knn_packed_kernel", "knn_merge_kernel", "knn_wide_kernel", "knn_wide_chunk_kernel",
                 "knn_wide_merge_kernel", "emd_kernel", "scatter_kernel",
                 "gather_rows_kernel")
 
@@ -1862,6 +1914,62 @@ def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
         4 * b * n * c * 2 + 8 * b * n * k, (3.0 * c + 1.0) * b * n * n)
     clock_mhz = _sm_max_clock_mhz()
     row["floor_ms"] = 3.0 * b * n * n * c / (132 * 128 * clock_mhz * 1e3)
+    row["floor_clock_mhz"] = clock_mhz
+    return row
+
+
+# K6 on its paths, (B, M, N, k, path): VRCNet's 14 per forward (the
+# self-kNN graphs of the pyramid 3072/1536/768/384 at k 10 and 20, the pk
+# poolings at k 10, three_nn on the way up), ECG's 6 (the poolings at k 16,
+# three_nn) and get_uniform_loss's 10 per ECG step (FPS-seeded balls of 5%
+# of the cloud, fine 2048 and coarse 1024 points, at five percentages, k 2)
+KNN_SHAPES = tuple(
+    [(32, n, n, k, "vrcnet") for n in (3072, 1536, 768, 384)
+     for k in (20, 10)]
+    + [(32, n // 2, n, 10, "vrcnet") for n in (3072, 1536, 768)]
+    + [(32, n, n // 2, 3, "vrcnet") for n in (3072, 1536, 768)]
+    + [(32, m, n, 16, "ecg") for m, n in ((1024, 3072), (256, 1024),
+                                         (64, 256))]
+    + [(32, n, m, 3, "ecg") for m, n in ((1024, 3072), (256, 1024),
+                                        (64, 256))]
+    + [(32 * (cloud // 20), s, s, 2, "ecg_uniform")
+       for cloud in (2048, 1024)
+       for s in (max(int(cloud * p), 2)
+                 for p in (0.004, 0.006, 0.008, 0.010, 0.012))])
+
+
+def _time_knn(b, m, n, k, path, gen, yardsticks=True, plain=False):
+    """knn on b clouds of m queries and n refs at k (``KNN_SHAPES``; the
+    queries and refs are the first m and n of one cloud of uniform points,
+    so a self-kNN is one tensor): kernel milliseconds, and with
+    ``yardsticks`` ``cdist`` + ``topk``'s, the bound (clouds and indices
+    moved once; 8 flops and a compare a pair at the f32 rate) and the floor
+    of the contract (9 non-FMA f32 instructions a pair at 132 SMs x 128
+    lanes a clock of the card's maximum SM clock), and with ``plain`` the
+    plain version's."""
+    from houv_tpu_torch.ops import grouping
+
+    x = torch.rand((b, max(m, n), 3), generator=gen).cuda() - 0.5
+    q, r = x[:, :m].contiguous(), x[:, :n].contiguous()
+    if m == n:
+        q = r
+    saved = grouping.knn_indices.launches
+    ms = cuda_ms(lambda: grouping.knn_indices(q, r, k), reps=20)
+    grouping.knn_indices.launches = saved
+    row = {"shape": {"query": [b, m, 3], "ref": [b, n, 3], "k": k},
+           "path": path, "ms": ms}
+    if not yardsticks:
+        return row
+    if plain:
+        row["plain_ms"] = cuda_ms(lambda: grouping._knn_plain(q, r, k),
+                                  reps=1)
+    row["library_ms"] = cuda_ms(
+        lambda: torch.topk(torch.cdist(q, r), k, largest=False), reps=5)
+    # per pair: 3 sub, 3 mul, 2 add, 1 compare against the k-th
+    row["bound_ms"], row["bound_by"] = bound(
+        12 * b * m + 12 * b * n + 8 * b * m * k, 9.0 * b * m * n)
+    clock_mhz = _sm_max_clock_mhz()
+    row["floor_ms"] = 9.0 * b * m * n / (132 * 128 * clock_mhz * 1e3)
     row["floor_clock_mhz"] = clock_mhz
     return row
 
@@ -2051,26 +2159,19 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     vrc = {k: completion["test"]["launches"].get(k, 0)
            + completion["validate"]["launches"].get(k, 0)
            for k in ("knn", "emd")}
-    # knn at VRCNet's level-0 self-kNN: 32 clouds of 3072 points, k 20
-    b, n, k = 32, 3072, 20
-    pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
-    saved = grouping.knn_indices.launches
-    ms = cuda_ms(lambda: grouping.knn_indices(pts, pts, k), reps=10)
-    grouping.knn_indices.launches = saved
-    plain_ms = cuda_ms(lambda: grouping._knn_plain(pts, pts, k), reps=1)
-    library_ms = cuda_ms(lambda: torch.topk(torch.cdist(pts, pts), k,
-                                            largest=False), reps=3)
-    # per pair: 3 sub, 3 mul, 2 add, 1 compare against the k-th
-    bound_ms, bound_by = bound(12 * b * n * 2 + 8 * b * n * k,
-                               9.0 * b * n * n)
+    # knn at its 30 path shapes, the first VRCNet's level-0 self-kNN (32
+    # clouds of 3072 points, k 20), the plain version timed there
+    shapes = [_time_knn(*shape, gen, plain=i == 0)
+              for i, shape in enumerate(KNN_SHAPES)]
+    vrc_shapes = [row for row in shapes if row["path"] == "vrcnet"]
     out.append({"name": "knn", "route": "cuda",
                 "source": "houv_tpu_torch/csrc/knn.cu",
                 "replaces": "houv_tpu/ops/grouping.py:90",
-                "shape": {"query": [b, n, 3], "ref": [b, n, 3], "k": k},
                 "launches": vrc["knn"], "max_abs_err": knn_err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms})
-    del pts
+                **shapes[0], "at_shapes": shapes,
+                "vrcnet_sum_ms": sum(row["ms"] for row in vrc_shapes),
+                "vrcnet_sum_floor_ms": sum(row["floor_ms"]
+                                           for row in vrc_shapes)})
     torch.cuda.empty_cache()
 
     # emd at validate's setting on its first batch: 32 fine clouds against

@@ -31,8 +31,8 @@ _SIGNATURES = {
     # pts, b, n, k, out, stream
     "houv_fps": [_P, _I, _I, _I, _P, _P],
     "houv_fps_max_points": [],
-    # query, ref, b, m, n, k, out, stream
-    "houv_knn": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # query, ref, b, m, n, k, per, len, scratch, out, stream
+    "houv_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "houv_knn_max_k": [],
     # x1, x2, b, n, m, eps, iters, dist, assign, stats, stream
     "houv_emd": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],

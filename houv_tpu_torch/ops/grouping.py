@@ -30,11 +30,20 @@ from houv_tpu_torch.ops.chamfer import pairwise_sqdist
 # Keeps the plain version's (rows, M, N) temporaries under ~1 GB.
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
-# csrc/knn_wide.cu's launch plan: queries per block, the card's SMs, and the
+# the card's SMs; csrc/knn_wide.cu's launch plan: queries per block and the
 # step of a part's length (a multiple of the refs a thread sums at once)
+_SMS = 132
 _WIDE_QUERIES = 128
-_WIDE_SMS = 132
 _WIDE_STEP = 16
+
+# csrc/knn.cu's launch plan: threads a block; the largest k for two
+# queries a thread; the step of a part's length; packed clouds: fewer
+# queries than _KNN_PACK_QUERIES and at most _KNN_PACK_REFS refs
+_KNN_THREADS = 128
+_KNN_TWO_MAX_K = 16
+_KNN_STEP = 32
+_KNN_PACK_QUERIES = 64
+_KNN_PACK_REFS = 256
 
 
 def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -94,12 +103,54 @@ def _wide_plan(b: int, m: int, n: int, k: int) -> tuple[int, int]:
     SM are in flight; a part holds at least k refs, in multiples of 16, and
     a merge pass joins the parts' lists."""
     blocks = b * -(-m // _WIDE_QUERIES)
-    want = 1 if blocks >= _WIDE_SMS else -(-2 * _WIDE_SMS // blocks)
+    want = 1 if blocks >= _SMS else -(-2 * _SMS // blocks)
     length = max(-(-n // want), k)
     length = -(-length // _WIDE_STEP) * _WIDE_STEP
     if length >= n:
         return n, 1
     return length, -(-n // length)
+
+
+def _knn_plan(b: int, m: int, n: int, k: int, blocks_per_sm: int | None = None,
+              min_part: int | None = None,
+              max_per: int = 2) -> tuple[int, int, int]:
+    """(refs per part, parts, queries a thread) of ``csrc/knn.cu`` for B
+    clouds of M queries and N refs; 0 queries a thread: packed clouds, a
+    lane per (cloud, query) row.
+
+    - Packed: fewer than 64 queries and at most 256 refs.
+    - Two queries a thread (k <= 16) where B * ceil(M / 256) blocks still
+      give two an SM; else one.
+    - With fewer blocks (B * ceil(M / (128 x queries a thread))) than
+      ``blocks_per_sm`` an SM, the refs split into parts of consecutive
+      indices until there are about that many; a part holds at least k and
+      ``min_part`` refs, in multiples of 32, and a merge pass joins the
+      parts' lists. A part pays its own start (its first refs all enter its
+      list) and the merge pass a launch: so where the list is short (k <=
+      4) the refs split until two blocks an SM in parts of 256 or more,
+      else until one in parts of 512 or more.
+
+    ``blocks_per_sm``, ``min_part`` and ``max_per`` override those choices
+    (variants of the kernel)."""
+    if n <= _KNN_PACK_REFS and m < _KNN_PACK_QUERIES:
+        return n, 1, 0
+    short = k <= 4
+    if blocks_per_sm is None:
+        blocks_per_sm = 2 if short else 1
+    if min_part is None:
+        min_part = 256 if short else 512
+    target = blocks_per_sm * _SMS
+    per = 1
+    if max_per >= 2 and k <= _KNN_TWO_MAX_K and \
+            b * -(-m // (2 * _KNN_THREADS)) >= 2 * _SMS:
+        per = 2
+    blocks = b * -(-m // (_KNN_THREADS * per))
+    want = 1 if blocks >= target else -(-target // blocks)
+    length = max(-(-n // want), k, min_part)
+    length = -(-length // _KNN_STEP) * _KNN_STEP
+    if length >= n:
+        return n, 1, per
+    return length, -(-n // length), per
 
 
 def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
@@ -119,17 +170,20 @@ def _knn_cuda(query: torch.Tensor, ref: torch.Tensor, k: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(query.device).cuda_stream
         if wide:
             length, parts = _wide_plan(bsz, m, n, k)
-            # the parts' (distance, index) lists, merged by the kernel
-            scratch = None if parts == 1 else torch.empty(
-                2 * parts * bsz * m * k, dtype=torch.int32,
-                device=query.device)
+        else:
+            length, parts, per = _knn_plan(bsz, m, n, k)
+        # the parts' (distance, index) lists, merged by the kernel
+        scratch = None if parts == 1 else torch.empty(
+            2 * parts * bsz * m * k, dtype=torch.int32, device=query.device)
+        scratch_ptr = None if scratch is None else scratch.data_ptr()
+        if wide:
             err = lib.houv_knn_wide(
                 query.data_ptr(), ref.data_ptr(), bsz, m, n, c, k, length,
-                None if scratch is None else scratch.data_ptr(),
-                out.data_ptr(), stream)
+                scratch_ptr, out.data_ptr(), stream)
         else:
-            err = lib.houv_knn(query.data_ptr(), ref.data_ptr(), bsz, m, n,
-                               k, out.data_ptr(), stream)
+            err = lib.houv_knn(
+                query.data_ptr(), ref.data_ptr(), bsz, m, n, k, per, length,
+                scratch_ptr, out.data_ptr(), stream)
     check(lib, err, "knn_wide" if wide else "knn")
     if wide:
         knn_indices.wide_launches += 1

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Times of the ordered scatter-add (K4), the row gather (K5), the
-feature-space kNN (K6-wide) and the nearest-neighbour search (K1) of the
-``houv_tpu_torch`` in the working directory, and the end-to-end rates
-around them, all taken by this
+feature-space kNN (K6-wide), the nearest-neighbour search (K1) and the
+coordinate kNN (K6) of the ``houv_tpu_torch`` in the working directory,
+and the end-to-end rates around them, all taken by this
 repository's ``chip_smoke.py``, so that an older checkout can be timed
 beside this one on one card, in turns:
 
     (cd <old checkout> && python3 <this repo>/scripts/time_scatter_gather.py)
     python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide
-                                            steps nn_both houv]
+                                            steps nn_both houv knn
+                                            vrcnet_test profiles]
 
-(the named parts only; all six without arguments)
+(the named parts only; all nine without arguments)
 
 - scatter, gather_rows: K4 and K5 at the shapes of PERF.md's kernel table
   (``_time_scatter``, ``_time_gather_rows``: device time, plain version,
@@ -27,7 +28,14 @@ beside this one on one card, in turns:
   the train steps' calc_cd);
 - houv: pairs/s, wall seconds, retries and median rotation error of
   ``test_main`` on cfgs/houv.yaml over 100 pairs, one batch (``run_sweep``;
-  501 K1 launches a pass).
+  501 K1 launches a pass);
+- knn: K6's device time at its 30 path shapes (``KNN_SHAPES``,
+  ``_time_knn``: VRCNet's 14 per forward, ECG's 6, get_uniform_loss's 10
+  per ECG step) and their sum over VRCNet's 14;
+- vrcnet_test: clouds/s of ``test_main`` on cfgs/vrcnet.yaml over 512
+  synthetic clouds (14 K6 launches a batch of 32);
+- profiles: device milliseconds of one VRCNet and one ECG train step under
+  torch.profiler (``phase_profile_train``), with the port's kernels' share.
 
 Only the package comes from the working directory. Prints one JSON line
 after chip_smoke's own; needs CUDA and builds the checkout's kernels at
@@ -48,7 +56,8 @@ import chip_smoke  # noqa: E402  (imports no package of the port itself)
 sys.path.insert(0, os.getcwd())         # the checkout's houv_tpu_torch
 
 
-PARTS = ("scatter", "gather_rows", "knn_wide", "steps", "nn_both", "houv")
+PARTS = ("scatter", "gather_rows", "knn_wide", "steps", "nn_both", "houv",
+         "knn", "vrcnet_test", "profiles")
 
 
 def main() -> int:
@@ -91,6 +100,23 @@ def main() -> int:
         out["houv"] = {k: rec[k] for k in (
             "pairs_per_s", "wall_s", "solve_s", "n_retry",
             "rot_err_median_deg", "launches")}
+    if "knn" in parts:
+        out["knn"] = [chip_smoke._time_knn(*shape, gen, yardsticks=False)
+                      for shape in chip_smoke.KNN_SHAPES]
+        out["knn_vrcnet_sum_ms"] = sum(row["ms"] for row in out["knn"]
+                                       if row["path"] == "vrcnet")
+    if "vrcnet_test" in parts:
+        from houv_tpu_torch.train.cli import test_main
+        with tempfile.TemporaryDirectory() as tmp:
+            res = test_main(["-c", chip_smoke._model_cfg(tmp, "vrcnet",
+                                                         512)])
+        out["vrcnet_test_clouds_per_s"] = res["n_clouds"] / res["seconds"]
+    if "profiles" in parts:
+        out["train_step_profiles"] = {}
+        for model in ("vrcnet", "ecg"):
+            rec = chip_smoke.phase_profile_train(model)
+            out["train_step_profiles"][model] = {
+                k: rec[k] for k in ("device_ms", "wall_ms", "port_kernels")}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -122,6 +122,59 @@ def test_knn_exact_ties_go_to_the_smaller_index(gen):
                                rtol=0, atol=0)
 
 
+def _knn_exact(q, r, k):
+    """One coordinate-kNN launch, and the plain version's indices exactly."""
+    from houv_tpu_torch.ops import grouping
+
+    before = grouping.knn_indices.launches
+    ki = grouping.knn_indices(q.cuda(), r.cuda(), k)
+    assert grouping.knn_indices.launches == before + 1
+    torch.testing.assert_close(ki.cpu(), grouping._knn_plain(q, r, k),
+                               rtol=0, atol=0)
+    return ki
+
+
+# csrc/knn.cu's edges: fewer queries than a warp, sizes off the blocks,
+# tiles and batches, N == k, refs in parts with a short last one, packed
+# clouds at and beside the threshold (M < 64, N <= 256)
+@pytest.mark.parametrize("b,m,n,k", [
+    (3, 5, 700, 5), (2, 31, 3000, 20), (2, 33, 257, 10), (2, 129, 255, 3),
+    (2, 257, 513, 16), (4, 300, 20, 20), (2, 100, 64, 64), (1, 700, 1, 1),
+    (3, 384, 385, 20), (5, 200, 1000, 33), (1, 130, 3001, 64),
+    (700, 63, 256, 8), (700, 64, 256, 8), (600, 63, 257, 4),
+    (4000, 7, 7, 7), (3264, 24, 24, 2)])
+def test_knn_kernel_at_its_edges_with_planted_copies(gen, b, m, n, k):
+    """Index for index with the plain version, on random clouds and with
+    exact copies of points in the next lane, warp, block, tile and part."""
+    x = torch.rand((b, max(m, n), 3), generator=gen) - 0.5
+    _knn_exact(x[:, :m], x[:, :n], k)
+    x = _copies(x, (1, 32, 128, 256, 300, 1024), gen)
+    _knn_exact(x[:, :m], x[:, :n], k)
+
+
+@pytest.mark.parametrize("k", [1, 4, 5, 8, 9, 16, 17, 24, 25, 32, 33, 64])
+def test_knn_kernel_at_its_bucket_edges_on_integer_grids(gen, k):
+    """Ties everywhere, with the refs whole (32 clouds) and in parts (2)."""
+    for b in (32, 2):
+        g = torch.randint(0, 4, (b, 700, 3), generator=gen).float()
+        _knn_exact(g, g, k)
+
+
+def test_knn_kernel_on_equal_points_and_repeated_rows(gen):
+    """Every point equal (the first k indices), and clouds whose rows
+    repeat their first, as get_uniform_loss's balls, packed and not."""
+    same = torch.full((4, 300, 3), 0.25)
+    for k in (1, 20, 64):
+        ki = _knn_exact(same, same, k)
+        assert bool((ki.cpu() == torch.arange(k)).all())
+    for clouds, n in ((3264, 24), (1632, 12), (40, 300)):
+        g = torch.rand((clouds, n, 3), generator=gen) - 0.5
+        hits = torch.randint(1, n + 1, (clouds,), generator=gen)
+        g = torch.where(torch.arange(n)[None, :, None] < hits[:, None, None],
+                        g, g[:, :1])
+        _knn_exact(g, g, 2)
+
+
 @pytest.mark.parametrize("b,n,eps,iters", [(3, 300, 0.005, 50),
                                            (2, 1024, 0.004, 3000),
                                            (4, 33, 0.01, 0)])

@@ -128,7 +128,8 @@ class _FakeLib:
     def houv_knn_wide_max_k(self):
         return 64
 
-    def houv_knn(self, q, r, b, m, n, k, out, stream):
+    def houv_knn(self, q, r, b, m, n, k, per, length, scratch, out,
+                 stream):
         self.calls.append(("houv_knn", b, m, n, k))
         return 0
 
