@@ -15,8 +15,11 @@ failed check exits non-zero:
    across threads, tiles and blocks, integer grids) and its coordinate form
    ``nn_select`` (the solver's shape, unshared, ragged, duplicates: bit for
    bit); ``fps``
-   (exact indices at the solver's, VRCNet's and ECG's shapes, the uniform
-   losses' seeds included); ``knn`` at VRCNet's shapes and at ECG's (the
+   (exact indices at its 16 path shapes, ``FPS_SHAPES``: the solver's,
+   VRCNet's and ECG's, the uniform losses' seeds included; at the edges of
+   its plan, one point, K == 1 and K >= N, the limit of 8192 points and
+   8193 refused; integer grids, every point twice, planted copies);
+   ``knn`` at VRCNet's shapes and at ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
    with repeated points) and at the edges of its design (fewer queries
    than a warp, sizes off its blocks, tiles and batches, N == k, every
@@ -64,12 +67,14 @@ failed check exits non-zero:
    matches;
 7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
    one VRCNet test batch (32 clouds) and of one VRCNet and one ECG train
-   step;
+   step; K2's census, (B, N, K) at its every launch in that window and
+   those steps, each of them one of ``FPS_SHAPES``;
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above; ``nn_both`` at
-   its seven path shapes, ``knn`` at its 30 and ``knn_wide`` at its six,
-   each with the floor of its contract.
+   its seven path shapes, ``fps`` at its 16, ``knn`` at its 30 and
+   ``knn_wide`` at its six, each but ``fps`` with the floor of its
+   contract (K2's latency floor: ``scripts/time_fps_variants.py``).
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
 the repository around this file; imports nothing of JAX.
@@ -265,26 +270,82 @@ def phase_nn(gen):
                              "grid_B8_K66_N1100_M1300"))
 
 
-def phase_fps(gen):
+# K2 on its paths, (B, N, K, path): a houv_fast window's N/4 and N/2
+# phases of both clouds (16 pairs; 100 at the yaml's batch), combine's
+# merge of two clouds, VRCNet's train step (the gt's full permutation; the
+# decoder's pyramid and its trim of coarse_high, on the concatenated batch
+# of 64) and ECG's (the encoder's hierarchy, the trim of fine, and the
+# seeds of get_uniform_loss, 5% of the fine and of the coarse cloud, five
+# times each). ``fps_census`` records them from the paths themselves.
+FPS_SHAPES = ((16, 2048, 512, "houv_fast"), (16, 2048, 1024, "houv_fast"),
+              (100, 2048, 512, "houv_fast"), (100, 2048, 1024, "houv_fast"),
+              (16, 4096, 2048, "combine"),
+              (32, 2048, 2048, "vrcnet"), (64, 3072, 1536, "vrcnet"),
+              (64, 1536, 768, "vrcnet"), (64, 768, 384, "vrcnet"),
+              (64, 3072, 2048, "vrcnet"),
+              (32, 3072, 1024, "ecg"), (32, 1024, 256, "ecg"),
+              (32, 256, 64, "ecg"), (32, 3072, 2048, "ecg"),
+              (32, 2048, 102, "ecg"), (32, 1024, 51, "ecg"))
+# the edges of K2's plan (N at and beside the sizes where its block or its
+# points a thread change, one point, a warp, the limit; K == 1 and K >= N)
+# on random clouds: (B, N, K)
+FPS_EDGES = tuple(
+    [(2, 1, 1), (2, 1, 3), (3, 31, 31), (3, 32, 40), (3, 33, 33),
+     (4, 2048, 1), (1, 2048, 1024), (2, 8192, 8192), (1, 8192, 300)]
+    + [(2, n, min(n, 300)) for base in (64, 128, 256, 512, 768, 1024, 1536,
+                                        2048, 3072, 4096)
+       for n in (base - 1, base, base + 1)]
+    + [(2, n, n) for n in (127, 255, 257, 513, 769, 1025)])
+
+
+def check_fps(pts, k, name):
+    """The kernel's picks against the plain version's, index for index."""
     from houv_tpu_torch.ops import sampling
 
-    # the solver's phases; then VRCNet's train step: the gt's full
-    # permutation (K == N), coarse_high 3072 -> 2048 and the decoder's
-    # pyramid; then ECG's at its batch: the encoder's hierarchy and the
-    # uniform losses' seeds (5% of the fine and of the coarse cloud)
-    for b, n, k in ((8, 2048, 512), (8, 2048, 1024), (8, 4096, 2048),
-                    (8, 2048, 2048), (8, 3072, 2048), (8, 3072, 1536),
-                    (8, 1536, 768), (8, 768, 384),
-                    (32, 3072, 1024), (32, 1024, 256), (32, 256, 64),
-                    (32, 2048, 102), (32, 1024, 51)):
-        pts = torch.randn((b, n, 3), generator=gen).cuda()
-        ki = sampling.furthest_point_sample(pts, k)
-        pi = sampling._fps_plain(pts, k)
-        mism = int((ki != pi).sum())
-        emit({"phase": "fps_check", "points": [b, n], "k": k,
-              "index_mismatches": mism})
-        if mism:
-            fail(f"fps ({b}, {n}) -> {k}: {mism} indices differ")
+    ki = sampling.furthest_point_sample(pts, k)
+    pi = sampling._fps_plain(pts, k)
+    mism = int((ki != pi).sum())
+    emit({"phase": "fps_check", "case": name, "points": list(pts.shape[:2]),
+          "k": k, "index_mismatches": mism})
+    if mism:
+        fail(f"fps {name} ({pts.shape[0]}, {pts.shape[1]}) -> {k}: {mism} "
+             "indices differ")
+    return float((ki - pi).abs().max())
+
+
+def phase_fps(gen):
+    """K2 against its plain version at every path shape, the plan's edges,
+    integer grids (ties everywhere), every point twice and planted copies;
+    and the limit: 8193 points raise."""
+    from houv_tpu_torch.ops import sampling
+
+    err = 0.0
+    for b, n, k, path in FPS_SHAPES:
+        err = max(err, check_fps(torch.randn((b, n, 3), generator=gen)
+                                 .cuda(), k, path))
+    for b, n, k in FPS_EDGES:
+        err = max(err, check_fps(torch.randn((b, n, 3), generator=gen)
+                                 .cuda(), k, "edge"))
+    for b, n, k, c in ((4, 700, 700, 4), (3, 2048, 1024, 6),
+                       (1, 8192, 2048, 8), (64, 256, 256, 3)):
+        grid = torch.randint(0, c, (b, n, 3), generator=gen).float()
+        err = max(err, check_fps(grid.cuda(), k, "integer_grid"))
+    for b, n in ((2, 2048), (1, 8192)):
+        twice = torch.randn((b, n, 3), generator=gen)
+        twice[:, n // 2:] = twice[:, :n // 2]
+        err = max(err, check_fps(twice.cuda(), n, "every_point_twice"))
+    copies = planted_copies(torch.randn((8, 3072, 3), generator=gen),
+                            (1, 32, 256, 512, 1024, 2048), gen)
+    err = max(err, check_fps(copies.cuda(), 2048, "planted_copies"))
+    try:
+        sampling.furthest_point_sample(
+            torch.zeros((1, 8193, 3), device="cuda"), 4)
+    except ValueError as e:
+        emit({"phase": "fps_check", "case": "limit", "points": [1, 8193],
+              "raised": str(e)})
+    else:
+        fail("fps took 8193 points: its limit is 8192")
+    return err
 
 
 def check_knn(q, r, k, name):
@@ -1215,6 +1276,15 @@ class _Picks:
             setattr(m, self.fn.__name__, self.fn)
 
 
+class _Census(_Picks):
+    """A ``_Picks`` for ``furthest_point_sample`` that keeps the (B, N, K)
+    of every call in ``kept``, for the census of K2's shapes."""
+
+    def __call__(self, points, k, *args, **kwargs):
+        self.kept.append([*points.shape[:2], k])
+        return self.fn(points, k, *args, **kwargs)
+
+
 def _small_train_step(cfg, batch, noise, dev, dtype, picks=None):
     """One forward and backward of the seeded small model on ``dev`` in
     ``dtype``: total_loss, the gradients by name (f64, on the CPU) and the
@@ -1726,9 +1796,11 @@ def phase_train_reference_ecg():
 def phase_profile_train(model="vrcnet"):
     """Where one train step's time goes on cfgs/<model>.yaml:
     torch.profiler over one step of 32 clouds at full width, after two
-    warm-up steps."""
+    warm-up steps, the second of them with K2's census (``fps_census``:
+    (B, N, K) of each launch)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
     from houv_tpu_torch.train.cli import build_dataset
     from houv_tpu_torch.train.config import load_config
     from houv_tpu_torch.train.harness import CompletionTrainer
@@ -1739,8 +1811,9 @@ def phase_profile_train(model="vrcnet"):
         trainer.init_state()
         batch = build_dataset(cfg, "train").get_batch(
             np.arange(32), rng=np.random.default_rng(0))
-        for step in range(2):
-            trainer.train_step(batch, 0, step)
+        trainer.train_step(batch, 0, 0)
+        with _Census(furthest_point_sample) as census:
+            trainer.train_step(batch, 0, 1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1749,7 +1822,8 @@ def phase_profile_train(model="vrcnet"):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     rec = {"phase": "profile", "config": f"cfgs/{model}.yaml", "clouds": 32,
-           "run": "train_step", **_profile_top(prof, wall_ms)}
+           "run": "train_step", **_profile_top(prof, wall_ms),
+           "fps_census": census.kept}
     emit(rec)
     del trainer
     torch.cuda.empty_cache()
@@ -1819,11 +1893,13 @@ def phase_profile_vrcnet():
 
 def phase_profile():
     """Where one houv_fast window's time goes: torch.profiler over one
-    angle pass of the 16-pair split, device time by kernel name."""
+    angle pass of the 16-pair split, device time by kernel name, and K2's
+    census in that window (``fps_census``: (B, N, K) of each launch)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
 
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
     from houv_tpu_torch.data import synthesize_registration_pairs
     from houv_tpu_torch.solvers.houv import houv_solve, init_params
     from houv_tpu_torch.train.cli import solver_config
@@ -1841,13 +1917,52 @@ def phase_profile():
                           device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            _Census(furthest_point_sample) as census:
         t0 = time.perf_counter()
         houv_solve(src, tgt, scfg, params0=params0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    emit({"phase": "profile", "config": "cfgs/houv_fast.yaml",
-          "pairs": 16, "angle_passes": 1, **_profile_top(prof, wall_ms)})
+    rec = {"phase": "profile", "config": "cfgs/houv_fast.yaml", "pairs": 16,
+           "angle_passes": 1, **_profile_top(prof, wall_ms),
+           "fps_census": census.kept}
+    emit(rec)
+    return rec
+
+
+def phase_fps_census(profiles):
+    """K2's (B, N, K) at every launch in one houv_fast window and one
+    VRCNet and one ECG train step (from their profile phases), each held
+    against ``FPS_SHAPES``, where K2 is checked and timed."""
+    census = {name: rec["fps_census"] for name, rec in profiles.items()}
+    emit({"phase": "fps_census", "launches": census})
+    known = {(b, n, k) for b, n, k, _ in FPS_SHAPES}
+    missing = {tuple(shape) for shapes in census.values()
+               for shape in shapes} - known
+    if missing:
+        fail(f"K2 ran at {sorted(missing)}, not in FPS_SHAPES")
+
+
+def _time_fps(b, n, k, path, gen, plain=False):
+    """K2 on b clouds of n normal points, k picks (``FPS_SHAPES``): kernel
+    milliseconds, the bound (the points read and the indices written once;
+    per step and point 3 sub, 3 mul, 2 add, a min and a compare at the f32
+    rate: a chain of K - 1 argmaxes, so the latency floor of
+    ``scripts/time_fps_variants.py`` says more) and with ``plain`` the
+    plain version's."""
+    from houv_tpu_torch.ops import sampling
+
+    pts = torch.randn((b, n, 3), generator=gen).cuda()
+    saved = sampling.furthest_point_sample.launches
+    ms = cuda_ms(lambda: sampling.furthest_point_sample(pts, k), reps=10)
+    sampling.furthest_point_sample.launches = saved
+    row = {"shape": {"points": [b, n, 3], "k": k}, "path": path, "ms": ms}
+    row["bound_ms"], row["bound_by"] = bound(12 * b * n + 8 * b * k,
+                                             10.0 * b * n * (k - 1))
+    if plain:
+        row["plain_ms"] = cuda_ms(lambda: sampling._fps_plain(pts, k),
+                                  reps=1)
+    return row
 
 
 def _time_scatter(b, n, m, gen):
@@ -2121,7 +2236,7 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     solve with the exported row gather."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
-    from houv_tpu_torch.ops import chamfer, emd, grouping, sampling
+    from houv_tpu_torch.ops import emd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
@@ -2135,26 +2250,16 @@ def phase_kernels(launches, errs, completion, train, solve, models,
                 **shapes[0], "at_shapes": shapes})
     torch.cuda.empty_cache()
 
-    # fps at the N/2 phase of houv_fast: 16 clouds of 2048 -> 1024
-    bsz, n, k = 16, 2048, 1024
-    pts = torch.randn((bsz, n, 3), generator=gen).cuda()
-    saved = sampling.furthest_point_sample.launches
-    ki = sampling.furthest_point_sample(pts, k)
-    ms = cuda_ms(lambda: sampling.furthest_point_sample(pts, k), reps=10)
-    sampling.furthest_point_sample.launches = saved
-    pi = sampling._fps_plain(pts, k)
-    plain_ms = cuda_ms(lambda: sampling._fps_plain(pts, k), reps=1)
-    # per step and point: 3 sub, 3 mul, 2 add, 1 min, 1 compare
-    bound_ms, bound_by = bound(12 * bsz * n + 8 * bsz * k,
-                               10.0 * bsz * n * (k - 1))
+    # fps at its path shapes, the first row's (houv_fast's N/2 phase, 16
+    # clouds of 2048 -> 1024) with the plain version timed there
+    shapes = [_time_fps(*shape, gen, plain=shape[:3] == (16, 2048, 1024))
+              for shape in FPS_SHAPES]
+    main_row = next(row for row in shapes if "plain_ms" in row)
     out.append({"name": "fps", "route": "cuda",
                 "source": "houv_tpu_torch/csrc/fps.cu",
                 "replaces": "houv_tpu/ops/sampling.py:43",
-                "shape": {"points": [bsz, n, 3], "k": k},
-                "launches": launches["fps"],
-                "max_abs_err": float((ki - pi).abs().max()),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None})
+                "launches": launches["fps"], "max_abs_err": errs["fps"],
+                **main_row, "library_ms": None, "at_shapes": shapes})
 
     vrc = {k: completion["test"]["launches"].get(k, 0)
            + completion["validate"]["launches"].get(k, 0)
@@ -2253,7 +2358,7 @@ def main() -> int:
 
     timed(phase_build)
     errs = {"nn_both": timed(phase_nn, gen)}
-    timed(phase_fps, gen)
+    errs["fps"] = timed(phase_fps, gen)
     errs["knn"] = timed(phase_knn, gen)
     errs["knn_wide"] = timed(phase_knn_wide, gen)
     errs["emd"] = timed(phase_emd, gen)
@@ -2271,10 +2376,11 @@ def main() -> int:
     models_train = timed(phase_train_models)
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
-    timed(phase_profile)
+    profiles = {"houv_fast": timed(phase_profile)}
     timed(phase_profile_vrcnet)
-    timed(phase_profile_train)
-    timed(phase_profile_train, "ecg")
+    profiles["vrcnet"] = timed(phase_profile_train)
+    profiles["ecg"] = timed(phase_profile_train, "ecg")
+    timed(phase_fps_census, profiles)
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select, gen)})
     emit({"ok": True, "device": {"platform": "gpu",

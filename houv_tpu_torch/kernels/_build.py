@@ -28,8 +28,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # a, b, bq, bk, n, m, qlen, rlen, i1, i2, stream
     "houv_nn_both": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # pts, b, n, k, out, stream
-    "houv_fps": [_P, _I, _I, _I, _P, _P],
+    # pts, b, n, k, warps, per, out, stream
+    "houv_fps": [_P, _I, _I, _I, _I, _I, _P, _P],
     "houv_fps_max_points": [],
     # query, ref, b, m, n, k, per, len, scratch, out, stream
     "houv_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -14,6 +14,15 @@ import torch
 
 from houv_tpu_torch._device import check_on, resolve_device
 
+# csrc/fps.cu's launch plan: points a thread (a power of two up to 32) and
+# the most threads a block of that many may have (the kernel's launch
+# bounds); the block's target size, (up to N points, threads): the fastest
+# of 32 to 1024 threads at the paths' cloud sizes on an H100
+# (scripts/time_fps_variants.py, PERF.md), each taking the sizes up to it
+_FPS_MAX_THREADS = {1: 1024, 2: 1024, 4: 1024, 8: 512, 16: 512, 32: 256}
+_FPS_THREADS = ((256, 32), (2048, 128), (3072, 512), (4096, 128),
+                (8192, 256))
+
 
 def _fps_plain(points: torch.Tensor, k: int) -> torch.Tensor:
     """One (B, N) min/argmax step per selected point. The distance is
@@ -36,6 +45,27 @@ def _fps_plain(points: torch.Tensor, k: int) -> torch.Tensor:
     return idxs
 
 
+def _fps_plan(n: int, threads: int | None = None) -> tuple[int, int]:
+    """(warps, points a thread) of ``csrc/fps.cu`` for clouds of n points:
+    the fewest points a thread (a power of two up to 32) whose block of
+    ``threads`` threads (by default ``_FPS_THREADS``'s for n; a variant's
+    override) covers the cloud, more where that block would pass the
+    kernel's bound for so many points a thread, then the fewest warps that
+    cover the cloud."""
+    if threads is None:
+        threads = next((t for most, t in _FPS_THREADS if n <= most),
+                       _FPS_THREADS[-1][1])
+    pers = list(_FPS_MAX_THREADS)
+    per = next((p for p in pers if p * threads >= n), pers[-1])
+    for per in pers[pers.index(per):]:
+        warps = -(-n // (32 * per))
+        if 32 * warps <= _FPS_MAX_THREADS[per]:
+            return warps, per
+    raise ValueError(f"the fps kernel takes at most "
+                     f"{pers[-1] * _FPS_MAX_THREADS[pers[-1]]} points, got "
+                     f"{n}")
+
+
 def _fps_cuda(points: torch.Tensor, k: int) -> torch.Tensor:
     from houv_tpu_torch.kernels import check, load
 
@@ -45,11 +75,12 @@ def _fps_cuda(points: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(
             f"fps kernel takes at most {lib.houv_fps_max_points()} points, "
             f"got {n}")
+    warps, per = _fps_plan(n)
     out = torch.empty((bsz, k), dtype=torch.int64, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = lib.houv_fps(points.data_ptr(), bsz, n, k, out.data_ptr(),
-                           stream)
+        err = lib.houv_fps(points.data_ptr(), bsz, n, k, warps, per,
+                           out.data_ptr(), stream)
     check(lib, err, "fps")
     furthest_point_sample.launches += 1
     return out

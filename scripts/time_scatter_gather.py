@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times of the ordered scatter-add (K4), the row gather (K5), the
-feature-space kNN (K6-wide), the nearest-neighbour search (K1) and the
-coordinate kNN (K6) of the ``houv_tpu_torch`` in the working directory,
+feature-space kNN (K6-wide), the nearest-neighbour search (K1), the
+coordinate kNN (K6) and the furthest-point sampling (K2) of the
+``houv_tpu_torch`` in the working directory,
 and the end-to-end rates around them, all taken by this
 repository's ``chip_smoke.py``, so that an older checkout can be timed
 beside this one on one card, in turns:
@@ -9,9 +10,9 @@ beside this one on one card, in turns:
     (cd <old checkout> && python3 <this repo>/scripts/time_scatter_gather.py)
     python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide
                                             steps nn_both houv knn
-                                            vrcnet_test profiles]
+                                            vrcnet_test profiles fps]
 
-(the named parts only; all nine without arguments)
+(the named parts only; all ten without arguments)
 
 - scatter, gather_rows: K4 and K5 at the shapes of PERF.md's kernel table
   (``_time_scatter``, ``_time_gather_rows``: device time, plain version,
@@ -35,7 +36,10 @@ beside this one on one card, in turns:
 - vrcnet_test: clouds/s of ``test_main`` on cfgs/vrcnet.yaml over 512
   synthetic clouds (14 K6 launches a batch of 32);
 - profiles: device milliseconds of one VRCNet and one ECG train step under
-  torch.profiler (``phase_profile_train``), with the port's kernels' share.
+  torch.profiler (``phase_profile_train``), with the port's kernels' share;
+- fps: K2's device time at its 16 path shapes (``FPS_SHAPES``,
+  ``_time_fps``: houv_fast's phases, combine, VRCNet's 5 and ECG's 14 a
+  train step).
 
 Only the package comes from the working directory. Prints one JSON line
 after chip_smoke's own; needs CUDA and builds the checkout's kernels at
@@ -57,7 +61,7 @@ sys.path.insert(0, os.getcwd())         # the checkout's houv_tpu_torch
 
 
 PARTS = ("scatter", "gather_rows", "knn_wide", "steps", "nn_both", "houv",
-         "knn", "vrcnet_test", "profiles")
+         "knn", "vrcnet_test", "profiles", "fps")
 
 
 def main() -> int:
@@ -117,6 +121,9 @@ def main() -> int:
             rec = chip_smoke.phase_profile_train(model)
             out["train_step_profiles"][model] = {
                 k: rec[k] for k in ("device_ms", "wall_ms", "port_kernels")}
+    if "fps" in parts:
+        out["fps"] = [chip_smoke._time_fps(*shape, gen)
+                      for shape in chip_smoke.FPS_SHAPES]
     print(json.dumps(out), flush=True)
     return 0
 

@@ -88,14 +88,51 @@ def test_nn_both_kernel_on_integer_grids(gen, bq, share):
     torch.testing.assert_close(ki2.cpu(), pi2, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("b,n,k", [(3, 1000, 100), (2, 4096, 64),
-                                   (1, 5000, 300), (4, 7, 7)])
+# one point, a warp, N beside each size where the plan's block or points a
+# thread change, the limit; K == 1, K == N and K > N; a batch of 1 and 64
+@pytest.mark.parametrize("b,n,k", [
+    (3, 1000, 100), (2, 4096, 64), (1, 5000, 300), (4, 7, 7),
+    (2, 1, 1), (2, 1, 4), (3, 31, 31), (3, 33, 33), (2, 127, 127),
+    (2, 129, 129), (2, 255, 255), (2, 257, 257), (2, 511, 300),
+    (2, 513, 513), (2, 767, 300), (2, 769, 769), (2, 1023, 300),
+    (2, 1025, 1025), (2, 1535, 300), (2, 1537, 300), (2, 2047, 300),
+    (2, 2049, 300), (2, 3071, 300), (2, 3073, 300), (2, 4095, 300),
+    (2, 4097, 300), (1, 8192, 8192), (4, 2048, 1), (1, 2048, 1024),
+    (64, 3072, 2048)])
 def test_fps_kernel_matches_plain_exactly(gen, b, n, k):
     pts = torch.randn((b, n, 3), generator=gen).cuda()
     before = sampling.furthest_point_sample.launches
     ki = sampling.furthest_point_sample(pts, k)
     assert sampling.furthest_point_sample.launches == before + 1
     torch.testing.assert_close(ki, sampling._fps_plain(pts, k), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n,k,c", [(4, 700, 700, 4), (3, 2048, 1024, 6),
+                                     (1, 8192, 2048, 8), (64, 256, 256, 3)])
+def test_fps_kernel_on_integer_grids(gen, b, n, k, c):
+    """Integer coordinates: the running minima tie all the time."""
+    pts = torch.randint(0, c, (b, n, 3), generator=gen).float().cuda()
+    torch.testing.assert_close(sampling.furthest_point_sample(pts, k),
+                               sampling._fps_plain(pts, k), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,n", [(2, 2048), (1, 8192), (64, 256)])
+def test_fps_kernel_on_duplicated_rows(gen, b, n):
+    """Every point twice, K == N: the second half comes after the first,
+    and the last picks have a running minimum of 0."""
+    pts = torch.randn((b, n, 3), generator=gen)
+    pts[:, n // 2:] = pts[:, :n // 2]
+    pts = pts.cuda()
+    torch.testing.assert_close(sampling.furthest_point_sample(pts, n),
+                               sampling._fps_plain(pts, n), rtol=0, atol=0)
+
+
+def test_fps_kernel_refuses_more_than_its_limit(gen):
+    pts = torch.randn((1, 8193, 3), generator=gen).cuda()
+    before = sampling.furthest_point_sample.launches
+    with pytest.raises(ValueError, match="at most 8192 points"):
+        sampling.furthest_point_sample(pts, 4)
+    assert sampling.furthest_point_sample.launches == before
 
 
 @pytest.mark.parametrize("b,m,n,k", [(2, 300, 257, 17), (1, 1025, 3, 3),
