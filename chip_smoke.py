@@ -30,8 +30,11 @@ failed check exits non-zero:
    bucket, the edges of its design (compiled widths and their neighbours,
    bucket and queue edges of k, split refs, unaligned rows) and duplicated
    rows across lanes, warps, blocks and parts (exact indices); the auction
-   ``emd`` (train and eval
-   settings, a permuted copy, clouds of different sizes); ``scatter`` (bit
+   ``emd`` (the assignment index for index, distances bit for bit, rounds
+   and bids equal: train and eval settings, a permuted copy, the eval
+   batch and the train shapes, repeated points, a grid, B 1 and 160,
+   every cluster size, one item, the size limit; ``phase_emd``, and on the
+   paths' own clouds in ``phase_kernels``); ``scatter`` (bit
    for bit, at the kernel's edges too: order-sensitive sums, -0.0, one row
    of 65536, 200,000 rows, 70,000 batch entries; and against the dense
    one-hot product) and ``gather_rows`` (bit for bit, out-of-range indices
@@ -74,7 +77,11 @@ failed check exits non-zero:
    library yardstick, with its launches on the paths above; ``nn_both`` at
    its seven path shapes, ``fps`` at its 16, ``knn`` at its 30 and
    ``knn_wide`` at its six, each but ``fps`` with the floor of its
-   contract (K2's latency floor: ``scripts/time_fps_variants.py``).
+   contract (K2's latency floor: ``scripts/time_fps_variants.py``), and
+   ``emd`` on its paths' own clouds (``EMD_SHAPES``: validate's first
+   batch, the ``loss: emd`` steps' auctions) with its plan and the floor
+   of its instructions at the plan's SMs (its latency floor:
+   ``scripts/time_emd_variants.py``).
 
 The last line is {"ok": true, "device": {...}}. Needs CUDA and a checkout of
 the repository around this file; imports nothing of JAX.
@@ -483,49 +490,117 @@ def _phase_knn_ecg(pts, gen):
     return err
 
 
-def phase_emd(gen):
-    """Kernel vs plain at (4, 2048): the train setting, the eval setting and
-    a permuted copy; and at the coarse stages of EMD training, 1024 and 3072
-    bidders for 2048 items. The assignments must be equal, the mean matched
-    distances within 1e-6 relative, and the kernel's a permutation wherever
-    the plain version's is."""
+# K7 on its paths, (B, N, M, eps, iters, path): validate's first batch with
+# eval_emd, and the auctions of a ``loss: emd`` train step: VRCNet's four
+# (coarse_raw, coarse_high, coarse and fine against the gt, its two
+# branches concatenated: 64 clouds) and ECG's (and PCN's) two (coarse and
+# fine, 32 clouds)
+EMD_SHAPES = ((32, 2048, 2048, 0.004, 3000, "validate"),
+              (64, 1024, 2048, 0.005, 50, "vrcnet coarse_raw"),
+              (64, 3072, 2048, 0.005, 50, "vrcnet coarse_high"),
+              (64, 2048, 2048, 0.005, 50, "vrcnet coarse"),
+              (64, 2048, 2048, 0.005, 50, "vrcnet fine"),
+              (32, 1024, 2048, 0.005, 50, "ecg coarse"),
+              (32, 2048, 2048, 0.005, 50, "ecg fine"))
+
+
+def emd_plan(b, n, m):
+    """K7's blocks a pair on this card (``ops/emd.py:_emd_plan``)."""
     from houv_tpu_torch.ops import emd
 
-    x1 = torch.rand((4, 2048, 3), generator=gen).cuda() - 0.5
-    x2 = torch.rand((4, 2048, 3), generator=gen).cuda() - 0.5
-    perm = x1[:, torch.randperm(2048, generator=gen).cuda()]
-    few = torch.rand((4, 1024, 3), generator=gen).cuda() - 0.5
-    many = torch.rand((4, 3072, 3), generator=gen).cuda() - 0.5
+    return emd._card_plan(b, n, m, torch.device("cuda"))
+
+
+def check_emd(a, b, eps, iters, name, clusters=(None,)):
+    """K7 against its plain version on the same inputs: at its plan
+    (``None``) and at each forced number of blocks a pair in
+    ``clusters``, the assignment index for index, dist bit for bit and
+    each pair's rounds and bids equal, or the run fails. Returns the
+    largest distance error (0)."""
+    from houv_tpu_torch.ops import emd
+
+    pd, pa, pr, pb = emd._auction_plain(a, b, eps, iters)
     err = 0.0
-    for name, a, b, eps, iters in (("train", x1, x2, 0.005, 50),
-                                   ("eval", x1, x2, 0.004, 3000),
-                                   ("permuted_copy", x1, perm, 0.004, 3000),
-                                   ("train_1024_bidders", few, x2, 0.005, 50),
-                                   ("train_3072_bidders", many, x2, 0.005,
-                                    50)):
+    for c in clusters:
         saved = emd.emd_auction_with_stats.launches
-        kd, ka, kr, kb = emd.emd_auction_with_stats(a, b, eps, iters)
+        kd, ka, kr, kb = emd._emd_cuda(a, b, eps, iters, c)
         emd.emd_auction_with_stats.launches = saved
-        pd, pa, pr, pb = emd._auction_plain(a, b, eps, iters)
         torch.cuda.synchronize()
-        kperm = [len(torch.unique(row)) == row.numel() for row in ka]
-        pperm = [len(torch.unique(row)) == row.numel() for row in pa]
-        rel = float(((kd.mean(-1) - pd.mean(-1)).abs()
-                     / pd.mean(-1).clamp_min(1e-12)).max())
+        rec = {"phase": "emd_check", "case": name, "shape": list(a.shape),
+               "items": b.shape[1], "eps": eps, "iters": iters,
+               "plan": emd_plan(a.shape[0], a.shape[1], b.shape[1]),
+               "clusters": c,
+               "assignment_mismatches": int((ka != pa).sum()),
+               "dist_bit_mismatches": int(
+                   (kd.view(torch.int32) != pd.view(torch.int32)).sum()),
+               "rounds_equal": bool((kr == pr).all()),
+               "bids_equal": bool((kb == pb).all()),
+               "rounds_max": int(pr.max()), "bids": int(pb.sum()),
+               "mean_dist": float(kd.mean())}
+        emit(rec)
         err = max(err, float((kd - pd).abs().max()))
-        emit({"phase": "emd_check", "case": name, "shape": list(a.shape),
-              "items": b.shape[1], "eps": eps, "iters": iters,
-              "assignment_mismatches": int((ka != pa).sum()),
-              "rounds": kr.tolist(), "plain_rounds": pr.tolist(),
-              "bids": kb.tolist(), "permutation": kperm,
-              "plain_permutation": pperm,
-              "mean_dist": kd.mean(-1).tolist(),
-              "rel_diff_mean_dist": rel, "tolerance_rel": 1e-6})
-        if rel > 1e-6 or any(p and not k for k, p in zip(kperm, pperm)):
-            fail(f"emd {name}: mean distance {rel:.3g} relative, "
-                 f"permutations {kperm} vs plain {pperm}")
+        if rec["assignment_mismatches"] or rec["dist_bit_mismatches"] \
+                or not (rec["rounds_equal"] and rec["bids_equal"]):
+            fail(f"emd {name} (blocks a pair {c or rec['plan']}): "
+                 f"{rec['assignment_mismatches']} assignments and "
+                 f"{rec['dist_bit_mismatches']} distances differ, rounds "
+                 f"equal {rec['rounds_equal']}, bids equal "
+                 f"{rec['bids_equal']}")
         if name == "permuted_copy" and float(kd.max()) != 0.0:
             fail(f"emd of a permuted copy is {float(kd.max())}, not 0")
+    return err
+
+
+def phase_emd(gen):
+    """K7 against its plain version (``check_emd``: every assignment, every
+    distance's bits, rounds and bids): (4, 2048) at the train and eval
+    settings and a permuted copy; the eval batch (32, 2048) and the train
+    shapes (1024, 2048 and 3072 bidders for 2048 items) at B 32 and 64 on
+    uniform clouds; repeated points and an integer grid; B 1 and 160; every
+    cluster size forced on one case; one item (its price goes to inf and
+    later bids are NaN: never seated), iters 0; and the size limit: 6428
+    against 6428, 28924 against 1 and 1 against 8264 taken, one more point
+    refused."""
+    from houv_tpu_torch.ops import emd
+
+    def cloud(b, n):
+        return torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+
+    x1, x2 = cloud(4, 2048), cloud(4, 2048)
+    perm = x1[:, torch.randperm(2048, generator=gen).cuda()]
+    rep1, rep2 = x1.clone(), x2.clone()
+    rep1[:, 1024:] = rep1[:, :1024]
+    rep2[:, 1536:] = rep2[:, :512]
+    grid = torch.randint(0, 8, (2, 4, 2048, 3), generator=gen).cuda() / 8.0
+    cases = [("train", x1, x2, 0.005, 50), ("eval", x1, x2, 0.004, 3000),
+             ("permuted_copy", x1, perm, 0.004, 3000),
+             ("eval_B32", cloud(32, 2048), cloud(32, 2048), 0.004, 3000),
+             ("repeated_points", rep1, rep2, 0.004, 3000),
+             ("integer_grid", grid[0], grid[1], 0.004, 3000),
+             ("B1", x1[:1], x2[:1], 0.004, 3000),
+             ("B160", cloud(160, 2048), cloud(160, 2048), 0.005, 50),
+             ("one_item", cloud(2, 3), cloud(2, 1), 0.005, 5),
+             ("iters_0", cloud(4, 33), cloud(4, 33), 0.005, 0),
+             ("limit_6428", cloud(1, 6428), cloud(1, 6428), 0.005, 50),
+             ("limit_28924_bidders", cloud(1, 28924), cloud(1, 1), 0.005, 5),
+             ("limit_8264_items", cloud(1, 1), cloud(1, 8264), 0.005, 50)]
+    items = cloud(64, 2048)
+    for b in (32, 64):
+        cases += [(f"train_B{b}_{n}_bidders", cloud(b, n), items[:b],
+                   0.005, 50) for n in (1024, 2048, 3072)]
+    err = 0.0
+    for name, a, b, eps, iters in cases:
+        err = max(err, check_emd(a, b, eps, iters, name))
+    err = max(err, check_emd(x1, x2, 0.004, 3000, "eval_every_cluster_size",
+                             range(1, 4)))
+    for n, m in ((6429, 6429), (28925, 1), (1, 8265)):
+        try:
+            emd.emd_auction_with_stats(cloud(1, n), cloud(1, m), 0.005, 5)
+        except ValueError as e:
+            emit({"phase": "emd_check", "case": f"refused_{n}_{m}",
+                  "error": str(e)})
+        else:
+            fail(f"emd took {n} bidders and {m} items, beyond its limit")
     return err
 
 
@@ -1276,6 +1351,22 @@ class _Picks:
             setattr(m, self.fn.__name__, self.fn)
 
 
+class _EmdInputs(_Picks):
+    """A ``_Picks`` for K7's launch (``ops/emd.py:_emd_cuda``) that keeps
+    the inputs of its first ``limit`` calls, (x1, x2, eps, iters)."""
+
+    def __init__(self, limit):
+        from houv_tpu_torch.ops import emd
+
+        super().__init__(emd._emd_cuda)
+        self.limit = limit
+
+    def __call__(self, x1, x2, eps, iters, *args, **kwargs):
+        if len(self.kept) < self.limit:
+            self.kept.append((x1.clone(), x2.clone(), eps, iters))
+        return self.fn(x1, x2, eps, iters, *args, **kwargs)
+
+
 class _Census(_Picks):
     """A ``_Picks`` for ``furthest_point_sample`` that keeps the (B, N, K)
     of every call in ``kept``, for the census of K2's shapes."""
@@ -1540,14 +1631,16 @@ def phase_train():
         # loss: emd. Per step four auctions (1024, 3072, 2048 and 2048
         # bidders for the gt's 2048 items), whose gradient needs no kernel;
         # the logged cd_t takes one nn_both and stays out of the backward.
-        emd = _repeated_batch(tmp, 4, False, loss="emd")
+        with _EmdInputs(4) as emd_inputs:
+            emd = _repeated_batch(tmp, 4, False, loss="emd")
         want = {"emd": 16, "nn_both": 4, "fps": 20, "knn": 56}
         if emd["launches"] != want or not (
                 np.isfinite(emd["losses"]).all()
                 and emd["losses"][-1] < emd["losses"][0]):
             fail(f"loss: emd training: launches {emd['launches']}, expected "
                  f"{want}; losses {emd['losses']}")
-    return {"train": rec, "repeated": rep, "remat": remat, "emd": emd}
+    return {"train": rec, "repeated": rep, "remat": remat, "emd": emd,
+            "emd_inputs": emd_inputs.kept}
 
 
 def phase_train_models():
@@ -1562,12 +1655,14 @@ def phase_train_models():
             rep = _repeated_batch(tmp, 10, False, model)
             _falling(rep, model)
             out[model] = {"train": rec, "repeated": rep}
-        emd = _repeated_batch(tmp, 3, False, "ecg", loss="emd")
+        with _EmdInputs(2) as emd_inputs:
+            emd = _repeated_batch(tmp, 3, False, "ecg", loss="emd")
         want = {"knn_wide": 12, "knn": 48, "fps": 42, "emd": 6}
         if emd["launches"] != want or not np.isfinite(emd["losses"]).all():
             fail(f"ecg loss: emd training: launches {emd['launches']}, "
                  f"expected {want}; losses {emd['losses']}")
         out["ecg"]["emd"] = emd
+        out["ecg"]["emd_inputs"] = emd_inputs.kept
     return out
 
 
@@ -1793,11 +1888,11 @@ def phase_train_reference_ecg():
              f"{rows[0][1]} {rows[0][0]:.3g} of its largest entry")
 
 
-def phase_profile_train(model="vrcnet"):
-    """Where one train step's time goes on cfgs/<model>.yaml:
-    torch.profiler over one step of 32 clouds at full width, after two
-    warm-up steps, the second of them with K2's census (``fps_census``:
-    (B, N, K) of each launch)."""
+def phase_profile_train(model="vrcnet", **extra):
+    """Where one train step's time goes on cfgs/<model>.yaml (``extra``
+    overriding its keys, as ``loss="emd"``): torch.profiler over one step
+    of 32 clouds at full width, after two warm-up steps, the second of them
+    with K2's census (``fps_census``: (B, N, K) of each launch)."""
     from torch.profiler import ProfilerActivity, profile
 
     from houv_tpu_torch.ops.sampling import furthest_point_sample
@@ -1806,7 +1901,7 @@ def phase_profile_train(model="vrcnet"):
     from houv_tpu_torch.train.harness import CompletionTrainer
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg = load_config(_full_train_cfg(tmp, model))
+        cfg = load_config(_full_train_cfg(tmp, model, **extra))
         trainer = CompletionTrainer(cfg)
         trainer.init_state()
         batch = build_dataset(cfg, "train").get_batch(
@@ -1822,7 +1917,7 @@ def phase_profile_train(model="vrcnet"):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     rec = {"phase": "profile", "config": f"cfgs/{model}.yaml", "clouds": 32,
-           "run": "train_step", **_profile_top(prof, wall_ms),
+           "run": "train_step", **extra, **_profile_top(prof, wall_ms),
            "fps_census": census.kept}
     emit(rec)
     del trainer
@@ -2145,6 +2240,63 @@ def _time_nn_both(bq, share, n, m, gen, yardsticks=True, plain=True):
     return row
 
 
+def emd_path_inputs(tmp):
+    """K7's inputs on its paths, in the order of ``EMD_SHAPES``, from the
+    seeded models at full width: validate's first batch (VRCNet's fine
+    output against the gt, as in ``phase_completion``) and the auctions of
+    one ``loss: emd`` train step of VRCNet and of ECG; [(x1, x2, eps,
+    iters)]."""
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    cfg = load_config(_model_cfg(tmp, "vrcnet", 64, eval_emd=True))
+    trainer = CompletionTrainer(cfg)
+    trainer.init_state()
+    batch = build_dataset(cfg, "val").get_batch(np.arange(32))
+    inputs = [(trainer.predict_batch(batch, step=0),
+               torch.as_tensor(batch["gt"], device="cuda"), 0.004, 3000)]
+    del trainer
+    for model, calls in (("vrcnet", 4), ("ecg", 2)):
+        with _EmdInputs(calls) as kept:
+            _repeated_batch(tmp, 1, False, model, loss="emd")
+        inputs += kept.kept
+    torch.cuda.empty_cache()
+    return inputs
+
+
+def _time_emd(x1, x2, eps, iters):
+    """K7 on one batch of pairs at its plan: milliseconds, rounds and bids;
+    the bound (clouds read and outputs written once; per bid and item 3
+    sub, 3 mul, 2 add, the price's sub and 2 compares at the f32 rate, for
+    the bids these inputs needed); and the instruction floor (11 f32
+    instructions per bid and item at the plan's SMs, 128 lanes a clock at
+    the card's maximum SM clock)."""
+    from houv_tpu_torch.ops import emd
+
+    b, n, _ = x1.shape
+    m = x2.shape[1]
+    saved = emd.emd_auction_with_stats.launches
+    _, _, rounds, bids = emd.emd_auction_with_stats(x1, x2, eps, iters)
+    ms = cuda_ms(lambda: emd.emd_auction_with_stats(x1, x2, eps, iters),
+                 reps=3)
+    emd.emd_auction_with_stats.launches = saved
+    plan = emd_plan(b, n, m)
+    n_bids, n_rounds = int(bids.sum()), int(rounds.max())
+    bound_ms, bound_by = bound(12 * b * (n + m) + 12 * b * n + 16 * b,
+                               11.0 * n_bids * m)
+    clock_mhz = _sm_max_clock_mhz()
+    sms = min(torch.cuda.get_device_properties(0).multi_processor_count,
+              b * plan)
+    floor = 11.0 * n_bids * m / (sms * 128 * clock_mhz * 1e3)
+    return {"shape": {"x1": [b, n, 3], "x2": [b, m, 3], "eps": eps,
+                      "iters": iters},
+            "plan": plan, "rounds_max": n_rounds, "bids": n_bids, "ms": ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor,
+            "x_floor": ms / floor,
+            "floor_clock_mhz": clock_mhz}
+
+
 def new_kernel_rows(gen, errs, launches):
     """The ``kernels`` rows of knn_wide, nn_select and gather_rows at their
     main-path shapes. ``errs``: each one's largest error against its plain
@@ -2279,32 +2431,31 @@ def phase_kernels(launches, errs, completion, train, solve, models,
                                            for row in vrc_shapes)})
     torch.cuda.empty_cache()
 
-    # emd at validate's setting on its first batch: 32 fine clouds against
-    # their gt, 2048 points, eps 0.004, 3000 rounds at most
+    # emd on its paths' own clouds: validate's first batch (32 fine clouds
+    # against their gt, 2048 points, eps 0.004, 3000 rounds at most), the
+    # main row, with the plain version timed there; and the first loss: emd
+    # step's auctions of VRCNet and ECG, each checked first
+    inputs = [(*completion["emd_inputs"], 0.004, 3000)]
+    inputs += train["emd_inputs"] + models_train["ecg"]["emd_inputs"]
+    shapes = []
+    for (x1, x2, eps, iters), shape in zip(inputs, EMD_SHAPES):
+        if (*x1.shape[:2], x2.shape[1], eps, iters) != shape[:5]:
+            fail(f"emd ran at {[*x1.shape[:2], x2.shape[1], eps, iters]} "
+                 f"where EMD_SHAPES has {shape}")
+        emd_err = max(emd_err, check_emd(x1, x2, eps, iters,
+                                         f"path {shape[5]}"))
+        shapes.append({"path": shape[5],
+                       **_time_emd(x1, x2, eps, iters)})
     fine, gt = completion["emd_inputs"]
-    eps, iters = 0.004, 3000
-    saved = emd.emd_auction_with_stats.launches
-    _, _, rounds, bids = emd.emd_auction_with_stats(fine, gt, eps, iters)
-    ms = cuda_ms(lambda: emd.emd_auction_with_stats(fine, gt, eps, iters),
-                 reps=3)
-    emd.emd_auction_with_stats.launches = saved
-    plain_ms = cuda_ms(lambda: emd._auction_plain(fine, gt, eps, iters),
+    plain_ms = cuda_ms(lambda: emd._auction_plain(fine, gt, 0.004, 3000),
                        reps=1, warmup=0)
-    b, n = fine.shape[:2]
-    # per bid and item: 3 sub, 3 mul, 2 add, 1 sub (price), 2 compares;
-    # the bids are what this run's data needed
-    n_bids = int(bids.sum())
-    bound_ms, bound_by = bound(24 * b * n + 12 * b * n, 11.0 * n_bids * n)
     out.append({"name": "emd", "route": "cuda",
                 "source": "houv_tpu_torch/csrc/emd.cu",
                 "replaces": "houv_tpu/ops/emd_kernel.py:48",
-                "shape": {"x1": list(fine.shape), "x2": list(gt.shape),
-                          "eps": eps, "iters": iters},
-                "rounds_max": int(rounds.max()), "bids": n_bids,
                 "launches": vrc["emd"], "max_abs_err": emd_err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None})
-    del fine, gt
+                **shapes[0], "plain_ms": plain_ms, "library_ms": None,
+                "at_shapes": shapes})
+    del fine, gt, inputs
     torch.cuda.empty_cache()
 
     # scatter_add at the train step's largest backward, coarse_high: 64 rows

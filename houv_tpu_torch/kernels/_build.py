@@ -34,9 +34,10 @@ _SIGNATURES = {
     # query, ref, b, m, n, k, per, len, scratch, out, stream
     "houv_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "houv_knn_max_k": [],
-    # x1, x2, b, n, m, eps, iters, dist, assign, stats, stream
-    "houv_emd": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _P, _P, _P, _P],
+    # x1, x2, b, n, m, eps, iters, clusters, dist, assign, stats, stream
+    "houv_emd": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P, _P],
     "houv_emd_smem_bytes": [_I, _I],
+    "houv_emd_max_clusters": [_I, _I, _I],
     "houv_emd_max_smem_bytes": [],
     # idx, vals, b, n, m, c, rows, out, stream
     "houv_scatter_add": [_P, _P, _I, _I, _I, _I, _I, _P, _P],

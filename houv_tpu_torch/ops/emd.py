@@ -19,11 +19,14 @@ those outside its TPU kernel, which takes n == m only).
 
 The kernel and the plain version compute the distances in the diff form,
 rounded op by op, and the same f32 increments and prices, so they run the
-same rounds to the same assignment. The gradient goes to x1 only, with the
+same rounds to the same assignment. The kernel runs a pair on one block or
+on a cluster of blocks (``_emd_plan``). The gradient goes to x1 only, with the
 assignment held fixed: 2·g·(x1 − x2[assignment]); it needs no kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -31,14 +34,20 @@ from houv_tpu_torch._device import check_on, resolve_device
 from houv_tpu_torch.ops.gather import gather_rows
 from houv_tpu_torch.ops.grouping import _sqdist_diff
 
+# csrc/emd.cu's cluster sizes (blocks a pair), the largest first: an H100
+# holds 39 clusters of 3 and 66 of 2, which the paths' batches of 32 and 64
+# pairs fill; a larger size would fit one wave only below 31 pairs
+_EMD_CLUSTERS = (3, 2)
+
 
 def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float,
-                   iters: int):
+                   iters: int, counts: list | None = None):
     """The kernel's rounds in plain PyTorch, every pair of the batch at once
     (a pair with no unassigned bidder makes no bids, so it stands still).
     x1 (B, N, 3) bidders, x2 (B, M, 3) items. Returns dist (B, N),
     assignment (B, N) int64, rounds (B,) and bids (B,), each bid a scan of
-    the M items."""
+    the M items. ``counts``, if given, receives each round's unassigned
+    bidders per pair, (B,) int64."""
     bsz, n, _ = x1.shape
     m = x2.shape[1]
     dev = x1.device
@@ -57,6 +66,8 @@ def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float,
         n_unass = unass.sum(-1)
         if not bool(n_unass.any()):
             break
+        if counts is not None:
+            counts.append(n_unass)
         rounds += n_unass > 0
         bids += n_unass
         value = (-dist) - price[:, None, :]
@@ -87,7 +98,47 @@ def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float,
     return d, assignment, rounds, bids
 
 
-def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int):
+def _emd_plan(b: int, sms: int, max_clusters: dict[int, int]) -> int:
+    """Blocks a pair of ``csrc/emd.cu`` (C) for a batch of b pairs: the
+    largest C of ``_EMD_CLUSTERS`` of which the card holds b clusters at
+    once (``max_clusters[C]``, read from the card at the pair's size: a
+    second wave would double the time), or 1 where b blocks fill the card's
+    ``sms`` SMs or no cluster size fits."""
+    if b >= sms:
+        return 1
+    return next((c for c in _EMD_CLUSTERS if b <= max_clusters[c]), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(n: int, m: int, device_index: int) -> dict[int, int]:
+    """The most clusters of each size the card holds at once for pairs of n
+    bidders and m items."""
+    from houv_tpu_torch.kernels import check, load
+
+    lib = load()
+    out = {}
+    with torch.cuda.device(device_index):
+        for c in _EMD_CLUSTERS:
+            count = lib.houv_emd_max_clusters(n, m, c)
+            check(lib, max(0, -count), f"emd occupancy of clusters of {c}")
+            out[c] = count
+    return out
+
+
+def _card_plan(b: int, n: int, m: int, device: torch.device) -> int:
+    """``_emd_plan`` for b pairs of n bidders and m items on ``device``."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _emd_plan(
+        b, torch.cuda.get_device_properties(index).multi_processor_count,
+        _max_clusters(n, m, index))
+
+
+def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
+              clusters: int | None = None):
+    """The kernel's launch; ``clusters`` overrides the plan's blocks a
+    pair."""
     from houv_tpu_torch.kernels import check, load
 
     bsz, n, _ = x1.shape
@@ -103,10 +154,12 @@ def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int):
     stats = torch.empty((bsz, 2), dtype=torch.int64, device=x1.device)
     if bsz == 0:
         return dist, assignment, stats[:, 0], stats[:, 1]
+    if clusters is None:
+        clusters = _card_plan(bsz, n, m, x1.device)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
         err = lib.houv_emd(x1.data_ptr(), x2.data_ptr(), bsz, n, m, eps, iters,
-                           dist.data_ptr(), assignment.data_ptr(),
+                           clusters, dist.data_ptr(), assignment.data_ptr(),
                            stats.data_ptr(), stream)
     check(lib, err, "emd")
     emd_auction_with_stats.launches += 1

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Times of the ordered scatter-add (K4), the row gather (K5), the
 feature-space kNN (K6-wide), the nearest-neighbour search (K1), the
-coordinate kNN (K6) and the furthest-point sampling (K2) of the
-``houv_tpu_torch`` in the working directory,
+coordinate kNN (K6), the furthest-point sampling (K2) and the auction EMD
+(K7) of the ``houv_tpu_torch`` in the working directory,
 and the end-to-end rates around them, all taken by this
 repository's ``chip_smoke.py``, so that an older checkout can be timed
 beside this one on one card, in turns:
@@ -10,9 +10,9 @@ beside this one on one card, in turns:
     (cd <old checkout> && python3 <this repo>/scripts/time_scatter_gather.py)
     python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide
                                             steps nn_both houv knn
-                                            vrcnet_test profiles fps]
+                                            vrcnet_test profiles fps emd]
 
-(the named parts only; all ten without arguments)
+(the named parts only; all eleven without arguments)
 
 - scatter, gather_rows: K4 and K5 at the shapes of PERF.md's kernel table
   (``_time_scatter``, ``_time_gather_rows``: device time, plain version,
@@ -39,7 +39,14 @@ beside this one on one card, in turns:
   torch.profiler (``phase_profile_train``), with the port's kernels' share;
 - fps: K2's device time at its 16 path shapes (``FPS_SHAPES``,
   ``_time_fps``: houv_fast's phases, combine, VRCNet's 5 and ECG's 14 a
-  train step).
+  train step);
+- emd: K7's device time, rounds and bids on its paths' own clouds
+  (``emd_path_inputs``, ``EMD_SHAPES``: validate's first batch with
+  eval_emd and the auctions of one ``loss: emd`` step of VRCNet and ECG),
+  clouds/s of VRCNet's ``validate`` with eval_emd over 128 synthetic
+  clouds (after one warm-up pass; one auction a batch of 32), and K7's
+  device time in one profiled ``loss: emd`` train step of VRCNet (4
+  auctions) and of ECG (2).
 
 Only the package comes from the working directory. Prints one JSON line
 after chip_smoke's own; needs CUDA and builds the checkout's kernels at
@@ -50,6 +57,7 @@ import json
 import os
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -61,7 +69,49 @@ sys.path.insert(0, os.getcwd())         # the checkout's houv_tpu_torch
 
 
 PARTS = ("scatter", "gather_rows", "knn_wide", "steps", "nn_both", "houv",
-         "knn", "vrcnet_test", "profiles", "fps")
+         "knn", "vrcnet_test", "profiles", "fps", "emd")
+
+
+def time_emd():
+    """K7 at its path inputs, VRCNet's validate with eval_emd, and K7 in
+    the profiled loss: emd train steps (the ``emd`` part)."""
+    from houv_tpu_torch.ops import emd
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    out = {"emd": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = chip_smoke.emd_path_inputs(tmp)
+        for (x1, x2, eps, iters), shape in zip(inputs, chip_smoke.EMD_SHAPES):
+            _, _, rounds, bids = emd.emd_auction_with_stats(x1, x2, eps, iters)
+            out["emd"].append({
+                "path": shape[5], "shape": [*x1.shape[:2], x2.shape[1]],
+                "rounds_max": int(rounds.max()), "bids": int(bids.sum()),
+                "ms": chip_smoke.cuda_ms(lambda: emd.emd_auction_with_stats(
+                    x1, x2, eps, iters), reps=3)})
+        del inputs
+        cfg = load_config(chip_smoke._model_cfg(tmp, "vrcnet", 128,
+                                                eval_emd=True))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        val_ds = build_dataset(cfg, "val")
+        trainer.validate(val_ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.validate(val_ds)
+        torch.cuda.synchronize()
+        out["vrcnet_validate_eval_emd_clouds_per_s"] = (
+            len(val_ds) / (time.perf_counter() - t0))
+        del trainer
+        torch.cuda.empty_cache()
+    out["loss_emd_step_profiles"] = {}
+    for model in ("vrcnet", "ecg"):
+        rec = chip_smoke.phase_profile_train(model, loss="emd")
+        out["loss_emd_step_profiles"][model] = {
+            "device_ms": rec["device_ms"], "wall_ms": rec["wall_ms"],
+            "emd_kernel": rec["port_kernels"].get("emd_kernel")}
+    return out
 
 
 def main() -> int:
@@ -124,6 +174,8 @@ def main() -> int:
     if "fps" in parts:
         out["fps"] = [chip_smoke._time_fps(*shape, gen)
                       for shape in chip_smoke.FPS_SHAPES]
+    if "emd" in parts:
+        out.update(time_emd())
     print(json.dumps(out), flush=True)
     return 0
 

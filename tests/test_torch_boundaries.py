@@ -74,7 +74,8 @@ def test_no_jax_or_houv_tpu_import_in_the_port():
              os.path.join(_REPO, "scripts", "time_knn_wide_variants.py"),
              os.path.join(_REPO, "scripts", "time_nn_both_variants.py"),
              os.path.join(_REPO, "scripts", "time_knn_variants.py"),
-             os.path.join(_REPO, "scripts", "time_fps_variants.py")]
+             os.path.join(_REPO, "scripts", "time_fps_variants.py"),
+             os.path.join(_REPO, "scripts", "time_emd_variants.py")]
     for root, _, names in os.walk(_PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10

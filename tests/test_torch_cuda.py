@@ -251,6 +251,38 @@ def test_emd_kernel_takes_clouds_of_different_sizes(gen, n, m):
     torch.testing.assert_close(x1.grad, ref, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("clusters", range(1, 4))
+def test_emd_kernel_at_every_cluster_size(gen, clusters):
+    """One block a pair and clusters of 2 and 3 (distributed shared
+    memory, block 0 alone for the tail): the plain version's assignment,
+    distances, rounds and bids, clouds of different sizes too."""
+    from houv_tpu_torch.ops import emd
+
+    for n, m, eps, iters in ((700, 700, 0.004, 3000), (300, 90, 0.005, 50)):
+        x1 = torch.rand((3, n, 3), generator=gen).cuda()
+        x2 = torch.rand((3, m, 3), generator=gen).cuda()
+        got = emd._emd_cuda(x1, x2, eps, iters, clusters)
+        for k, p in zip(got, emd._auction_plain(x1, x2, eps, iters)):
+            torch.testing.assert_close(k, p, rtol=0, atol=0)
+
+
+def test_emd_kernel_size_limit(gen):
+    """28 bytes an item and 8 a bidder in one block's shared memory: 6428
+    against 6428 and 1 against 8264 run, one more point is refused."""
+    from houv_tpu_torch.ops import emd
+
+    for n, m in ((6428, 6428), (1, 8264)):
+        x1 = torch.rand((1, n, 3), generator=gen).cuda()
+        x2 = torch.rand((1, m, 3), generator=gen).cuda()
+        got = emd.emd_auction_with_stats(x1, x2, 0.005, 5)
+        for k, p in zip(got, emd._auction_plain(x1, x2, 0.005, 5)):
+            torch.testing.assert_close(k, p, rtol=0, atol=0)
+    for n, m in ((6429, 6429), (1, 8265)):
+        with pytest.raises(ValueError, match="shared memory"):
+            emd.emd_auction_with_stats(torch.rand((1, n, 3)).cuda(),
+                                       torch.rand((1, m, 3)).cuda())
+
+
 @pytest.mark.parametrize("b,n,m,c", [(64, 2048, 3072, 3), (3, 1999, 777, 3),
                                      (5, 300, 130, 8), (2, 1, 4, 1),
                                      (2, 5000, 3, 2)])
