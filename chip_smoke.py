@@ -13,8 +13,12 @@ failed check exits non-zero:
    layout, houv.yaml's 6400 rows, the train steps' shapes, ragged, tiny M,
    the tile and block edges of its launch plan with exact copies planted
    across threads, tiles and blocks, integer grids) and its coordinate form
-   ``nn_select`` (the solver's shape, unshared, ragged, duplicates: bit for
-   bit); ``fps``
+   ``nn_select``, which runs the same search (the solver's shapes, 16 and
+   houv.yaml's 100 pairs of 64 restarts, unshared, ragged, duplicates, each
+   split of the launch plan, planted copies, grids, all-NaN clouds: bit for
+   bit against the plain version and against the gather of K1's indices;
+   one NaN point in a finite cloud against that gather alone);
+   ``fps``
    (exact indices at its 16 path shapes, ``FPS_SHAPES``: the solver's,
    VRCNet's and ECG's, the uniform losses' seeds included; at the edges of
    its plan, one point, K == 1 and K >= N, the limit of 8192 points and
@@ -66,8 +70,9 @@ failed check exits non-zero:
    ``loss: emd``, for ECG ``loss: emd``;
 6. short ``houv_solve`` runs of ``cfgs/houv.yaml`` (4 pairs, 100 steps):
    ``grad_mode='scatter'`` beside the gather mode, and ``nn_select=True``
-   beside the default, then the exported row gather on that solve's
-   matches;
+   beside the default (with a profiled window of 5 steps of each at 16
+   pairs: K3 one kernel a step, no memset, no unpack pass), then the
+   exported row gather on that solve's matches;
 7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
    one VRCNet test batch (32 clouds) and of one VRCNet and one ECG train
    step; K2's census, (B, N, K) at its every launch in that window and
@@ -75,8 +80,10 @@ failed check exits non-zero:
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above; ``nn_both`` at
-   its seven path shapes, ``fps`` at its 16, ``knn`` at its 30 and
-   ``knn_wide`` at its six, each but ``fps`` with the floor of its
+   its seven path shapes, ``nn_select`` at the solver's two (with K1 and
+   its two gathers on the same inputs beside it), ``fps`` at its 16,
+   ``knn`` at its 30 and ``knn_wide`` at its six, each but ``fps`` with
+   the floor of its
    contract (K2's latency floor: ``scripts/time_fps_variants.py``), and
    ``emd`` on its paths' own clouds (``EMD_SHAPES``: validate's first
    batch, the ``loss: emd`` steps' auctions) with its plan and the floor
@@ -814,41 +821,150 @@ def phase_knn_wide(gen):
     return err
 
 
-def check_nn_select(a, b, name):
-    """Kernel vs plain: both coordinate outputs bit for bit."""
-    from houv_tpu_torch.ops import chamfer
+def _bits_differ(x, y) -> int:
+    """Elements whose f32 bits differ (so a NaN equals its exact copy)."""
+    return int((x.view(torch.int32) != y.view(torch.int32)).sum())
 
-    saved = chamfer.nn_select.launches
+
+def check_nn_select(a, b, name, split=None, plain=True):
+    """Kernel vs plain, and vs the rows K1's own indices name
+    (``gather_rows`` of ``chamfer_indices``, as the solver's default branch
+    gathers them): both coordinate outputs bit for bit, compared as int32
+    so that NaN compares too. ``split``: the (rows, columns) split the
+    launch plan must take at this shape. ``plain=False`` where a cloud
+    holds a NaN point among finite ones: the kernels skip that point and
+    the plain version's argmin picks it (ROADMAP Queue 3), so the case is
+    held to K1's gather alone and prints how many coordinates differ from
+    the plain version."""
+    from houv_tpu_torch.ops import chamfer
+    from houv_tpu_torch.ops.gather import gather_rows
+
+    bq, n, _ = a.shape
+    bk, m, _ = b.shape
+    qlen, rlen = chamfer._nn_plan(bk, n, m, chamfer._sm_count(b.device))
+    plan_split = [m > rlen, n > qlen]
+    saved = (chamfer.nn_select.launches, chamfer.chamfer_indices.launches)
     k1, k2 = chamfer.nn_select(a, b)
-    chamfer.nn_select.launches = saved
+    i1, i2 = chamfer.chamfer_indices(a, b)
+    chamfer.nn_select.launches, chamfer.chamfer_indices.launches = saved
     p1, p2 = chamfer._nn_select_plain(a, b)
+    g1 = gather_rows(b, i1)
+    g2 = gather_rows(a, i2.reshape(bq, -1)).reshape(bk, m, 3)
     torch.cuda.synchronize()
-    mism = int((k1 != p1).sum()) + int((k2 != p2).sum())
-    err = max(float((k1 - p1).abs().max()), float((k2 - p2).abs().max()))
-    emit({"phase": "nn_select_check", "case": name, "a": list(a.shape),
-          "b": list(b.shape), "mismatches": mism, "max_abs_err": err})
-    if mism:
+    mism = _bits_differ(k1, p1) + _bits_differ(k2, p2)
+    mism_k1 = _bits_differ(k1, g1) + _bits_differ(k2, g2)
+    err = max(float((k1 - p1).abs().nan_to_num(0.0).max()),
+              float((k2 - p2).abs().nan_to_num(0.0).max()))
+    rec = {"phase": "nn_select_check", "case": name, "a": list(a.shape),
+           "b": list(b.shape), "plan": [qlen, rlen],
+           "split_rows_cols": plan_split, "mismatches": mism,
+           "mismatches_vs_k1_gather": mism_k1, "max_abs_err": err,
+           "nan_outputs": int(k1.isnan().sum()) + int(k2.isnan().sum())}
+    if not plain:
+        rec["mismatches"] = None
+        rec["differs_from_plain_queue3"], mism = mism, 0
+    emit(rec)
+    if mism or mism_k1:
         fail(f"nn_select {name}: {mism} coordinates differ from the plain "
-             f"version (max {err:.3g})")
+             f"version, {mism_k1} from the gather of K1's indices")
+    if split is not None and plan_split != list(split):
+        fail(f"nn_select {name}: the plan splits (rows, columns) "
+             f"{plan_split}, the case was meant for {list(split)}")
     return err
 
 
+# K3's edges, (Bq, share, N, M, name, split (rows, columns)): refs over
+# 3072 split with the queries whole (264 rows x 2 parts fill 132 SMs 4
+# times) and with both split; queries split at the train steps' 32 and 64
+# rows, and at phase_select_solve's 4 pairs of 64 restarts (256 rows: 512
+# queries a block, share 64). The solver's shapes, both directions whole,
+# are phase_nn_select's first cases; planted copies at whole, split and
+# edge plans follow
+NN_SELECT_EDGES = (
+    (33, 8, 300, 3100, "rows_split", (True, False)),
+    (8, 1, 1500, 4100, "rows_and_cols_split", (True, True)),
+    (32, 1, 2048, 2048, "cols_split", (False, True)),
+    (64, 1, 2048, 3072, "cols_split", (False, True)),
+    (4, 64, 2048, 2048, "select_solve", (False, True)),
+)
+NN_SELECT_COPIES = (
+    (16, 64, 2048, 2048, (False, False)), (8, 66, 2049, 2047, (False, False)),
+    (2, 1, 257, 385, (False, True)), (1, 1, 300, 3073, (True, True)),
+    (33, 8, 129, 6145, (True, False)), (32, 1, 2048, 1024, (False, True)),
+)
+
+
 def phase_nn_select(gen):
-    """At the solver's shape on cfgs/houv.yaml (16 target clouds shared by
-    64 restarts each, 2048 points a side), without sharing, with a share
-    that is no multiple of 8, and ragged."""
+    """At the solver's shapes (the smoke's houv_fast window of 16 pairs and
+    cfgs/houv.yaml's batch of 100, the target shared by each pair's 64
+    restarts, 2048 points a side), without sharing, with a share that is
+    no multiple of 8, ragged, duplicated; at each split of the launch plan,
+    the select solve's 4 pairs among them; with exact copies planted across
+    threads, tiles and blocks; on integer grids; with all-NaN clouds, where
+    no distance compares and row 0 is copied; and with one NaN point in a
+    finite cloud, against K1's gather alone (ROADMAP Queue 3)."""
     a = torch.rand((16, 2048, 3), generator=gen).cuda() - 0.5
     b = (a.repeat_interleave(64, 0)
          + 0.05 * torch.randn((1024, 2048, 3), generator=gen).cuda())
-    err = check_nn_select(a, b, "solver_B16_K64_N2048_M2048")
+    err = check_nn_select(a, b, "solver_B16_K64_N2048_M2048", (False, False))
     del b
     b = torch.rand((16, 1024, 3), generator=gen).cuda() - 0.5
     err = max(err, check_nn_select(a, b, "unshared_B16_N2048_M1024"))
+    a = torch.rand((100, 2048, 3), generator=gen).cuda() - 0.5
+    b = (a.repeat_interleave(64, 0)
+         + 0.05 * torch.randn((6400, 2048, 3), generator=gen).cuda())
+    err = max(err, check_nn_select(a, b, "houv_B100_K64_N2048_M2048",
+                                   (False, False)))
+    del a, b
+    torch.cuda.empty_cache()
     a = torch.randn((3, 1500, 3), generator=gen).cuda()
     b = torch.randn((9, 777, 3), generator=gen).cuda()
     err = max(err, check_nn_select(a, b, "ragged_B3_K3_N1500_M777"))
     b = torch.cat([a, a[:, :100]], 1)      # exact ties, and distance 0
-    return max(err, check_nn_select(a, b, "duplicates_B3_N1500_M1600"))
+    err = max(err, check_nn_select(a, b, "duplicates_B3_N1500_M1600"))
+    for bq, share, n, m, name, split in NN_SELECT_EDGES:
+        a = torch.randn((bq, n, 3), generator=gen).cuda()
+        b = torch.randn((bq * share, m, 3), generator=gen).cuda()
+        err = max(err, check_nn_select(a, b, f"{name}_B{bq}_K{share}_N{n}"
+                                       f"_M{m}", split))
+    for bq, share, n, m, split in NN_SELECT_COPIES:
+        a = planted_copies(torch.randn((bq, n, 3), generator=gen),
+                           NN_QUERY_COPIES, gen)
+        b = planted_copies(torch.randn((bq * share, m, 3), generator=gen),
+                           NN_REF_COPIES, gen)
+        err = max(err, check_nn_select(a.cuda(), b.cuda(),
+                                       f"copies_B{bq}_K{share}_N{n}_M{m}",
+                                       split))
+    # integer coordinates: most distances tie with many others
+    a = torch.randint(0, 4, (2, 700, 3), generator=gen).float()
+    b = torch.randint(0, 4, (6, 900, 3), generator=gen).float()
+    err = max(err, check_nn_select(a.cuda(), b.cuda(), "grid_B2_K3_N700_M900"))
+    a = torch.randint(0, 6, (8, 1100, 3), generator=gen).float()
+    b = torch.randint(0, 6, (528, 1300, 3), generator=gen).float()
+    err = max(err, check_nn_select(a.cuda(), b.cuda(),
+                                   "grid_B8_K66_N1100_M1300"))
+    # one query cloud and one reference cloud all NaN, at a whole plan,
+    # with the columns split and with the rows split
+    for bq, share, n, m, split in ((8, 66, 300, 400, (False, False)),
+                                   (4, 8, 600, 700, (False, True)),
+                                   (33, 8, 300, 3100, (True, False))):
+        a = torch.randn((bq, n, 3), generator=gen)
+        b = torch.randn((bq * share, m, 3), generator=gen)
+        a[1] = float("nan")
+        b[0] = float("nan")
+        err = max(err, check_nn_select(a.cuda(), b.cuda(),
+                                       f"nan_B{bq}_K{share}_N{n}_M{m}",
+                                       split))
+        # one NaN point in a finite query cloud and in a finite reference
+        # cloud: K3 against K1's gather alone (ROADMAP Queue 3)
+        a[1] = torch.randn((n, 3), generator=gen)
+        b[0] = torch.randn((m, 3), generator=gen)
+        a[1, n // 3, 1] = float("nan")
+        b[0, m // 2, 0] = float("nan")
+        err = max(err, check_nn_select(a.cuda(), b.cuda(),
+                                       f"nan_point_B{bq}_K{share}_N{n}_M{m}",
+                                       split, plain=False))
+    return err
 
 
 def check_gather_rows(src, idx, name):
@@ -1666,9 +1782,10 @@ def phase_train_models():
     return out
 
 
-def _short_solve_inputs():
+def _short_solve_inputs(pairs=4):
     """cfgs/houv.yaml's solver config with the budget cut to 100 steps, and
-    4 pairs of the structured split on the card: (config, src, tgt, gt)."""
+    ``pairs`` pairs of the structured split on the card: (config, src, tgt,
+    gt)."""
     import dataclasses
 
     from houv_tpu_torch.data import synthesize_registration_pairs
@@ -1678,7 +1795,7 @@ def _short_solve_inputs():
     cfg = load_config(str(REPO / "cfgs" / "houv.yaml"))
     base = dataclasses.replace(solver_config(cfg), steps=100)
     d = synthesize_registration_pairs(
-        4, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
+        pairs, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
         max_trans=cfg.max_trans, seed=7, shape_mode="structured",
         rot_mix=True)
     return base, *(torch.as_tensor(d[k], device="cuda")
@@ -1728,11 +1845,43 @@ def phase_scatter_solve():
     return rec
 
 
+def _profiled_steps(scfg, src, tgt, params0, steps):
+    """torch.profiler over ``steps`` Adam steps of ``scfg`` from params0:
+    the port's kernels by name (``_profile_top``), the device memsets
+    listed, and K3's counted launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from houv_tpu_torch.ops.chamfer import chamfer_indices, nn_select
+    from houv_tpu_torch.solvers.houv import _adam_init, _adam_loop
+
+    saved = (nn_select.launches, chamfer_indices.launches)
+    nn_select.launches = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _adam_loop(src, tgt, 0.0, scfg, params0, _adam_init(params0), steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = nn_select.launches
+    nn_select.launches, chamfer_indices.launches = saved
+    top = _profile_top(prof, wall_ms)
+    memsets = sum(ev.count for ev in prof.key_averages()
+                  if "memset" in ev.key.lower()
+                  and str(getattr(ev, "device_type", "")).endswith("CUDA"))
+    return {"steps": steps, "wall_ms": wall_ms,
+            "device_ms": top["device_ms"], "launches": launches,
+            "port_kernels": top["port_kernels"], "memsets": memsets}
+
+
 def phase_select_solve():
     """``houv_solve`` with ``nn_select=True`` beside the default: 4 pairs
     of the structured split, cfgs/houv.yaml with the budget cut to 100
     steps. One nn_select launch per Adam step in every angle window that
-    runs, one more for each window's final objective, and no nn_both. The
+    runs, one more for each window's final objective, and no nn_both; in a
+    profiled window of 5 steps at the solver's 16 pairs (1024 rows, the
+    launch plan direct) the select branch runs nn_select_kernel alone of
+    the port's kernels, once a step, and lists no memset. The
     first five steps' losses from the same restarts are held against the
     default's at 1e-5 relative: the matched raw source rows come back as
     R^T (c1 - t) and differ from the gathered rows by that product's
@@ -1781,6 +1930,30 @@ def phase_select_solve():
     rec["first_losses_rel_diff"] = max(
         abs(a - b) / abs(b) for a, b in zip(first["nn_select"],
                                             first["default"]))
+    # A profiled window of 5 Adam steps of each branch at the solver's
+    # shape, 16 pairs of 64 restarts (1024 rows; the 4 pairs above give 256
+    # rows, where the plan splits the queries): both directions whole, so
+    # K3 is one kernel a step, with no memset of key scratch and no unpack
+    # pass (K1 likewise).
+    _, src16, tgt16, _ = _short_solve_inputs(16)
+    params16 = init_params(torch.Generator().manual_seed(0), 16,
+                           base.kernel, device="cuda")
+    for select in (False, True):
+        name = "nn_select" if select else "default"
+        rec[name]["profiled_window"] = _profiled_steps(
+            dataclasses.replace(base, nn_select=select), src16, tgt16,
+            params16, 5)
+    window = rec["nn_select"]["profiled_window"]
+    if (window["memsets"] or window["launches"] != 5
+            or window["port_kernels"].get("nn_select_kernel", {}).get(
+                "count") != 5
+            or set(window["port_kernels"]) != {"nn_select_kernel"}):
+        emit(rec)
+        fail(f"houv_solve nn_select=True: the profiled window at 16 pairs "
+             f"ran {window['port_kernels']} and {window['memsets']} memsets "
+             f"for {window['launches']} launches, expected "
+             f"nn_select_kernel alone, once a step, and no memset")
+    del src16, tgt16, params16
     # The exported row gather (it has no caller in either package) on this
     # solve's matches, as ``_pair_matches`` gathers them: both ways, bit for
     # bit what ``gather_rows`` returns.
@@ -1927,7 +2100,7 @@ def phase_profile_train(model="vrcnet", **extra):
 
 # the port's own kernels, by their __global__ names in csrc/*.cu
 PORT_KERNELS = ("nn_both_kernel", "nn_both_unpack_kernel", "nn_select_kernel",
-                "nn_select_columns", "fps_kernel", "knn_kernel",
+                "nn_select_unpack_kernel", "fps_kernel", "knn_kernel",
                 "knn_packed_kernel", "knn_merge_kernel", "knn_wide_kernel", "knn_wide_chunk_kernel",
                 "knn_wide_merge_kernel", "emd_kernel", "scatter_kernel",
                 "gather_rows_kernel")
@@ -2240,6 +2413,61 @@ def _time_nn_both(bq, share, n, m, gen, yardsticks=True, plain=True):
     return row
 
 
+# K3's timed shapes: the query clouds of the solver's two batches (64
+# restarts each, 2048 points a side)
+NN_SELECT_SHAPES = (16, 100)
+
+
+def _time_nn_select(bq, share, n, m, gen, yardsticks=True):
+    """nn_select on bq query clouds of n points, each serving ``share``
+    rows of m references (the restarts: the target near each source):
+    kernel milliseconds; ``k1_gather_ms``, the solver's default branch on
+    the same inputs (``chamfer_indices`` and the two ``gather_rows`` of
+    ``solvers/houv.py:_pair_matches``); the bound (clouds read and both
+    coordinate outputs written once; 8 flops a pair at the f32 rate) and
+    the floor of the contract (K1's: 8 non-FMA f32 instructions a pair at
+    132 SMs x 128 lanes a clock of the card's maximum SM clock); with
+    ``yardsticks`` the plain version's and ``cdist`` + 2 ``argmin`` + 2
+    ``gather``'s."""
+    from houv_tpu_torch.ops import chamfer
+    from houv_tpu_torch.ops.gather import gather_rows
+
+    bk = bq * share
+    a = torch.rand((bq, n, 3), generator=gen).cuda() - 0.5
+    b = (a.repeat_interleave(share, 0)[:, :m]
+         + 0.05 * torch.randn((bk, m, 3), generator=gen).cuda())
+    saved = (chamfer.nn_select.launches, chamfer.chamfer_indices.launches)
+    ms = cuda_ms(lambda: chamfer.nn_select(a, b), reps=5)
+
+    def k1_gather():
+        i1, i2 = chamfer.chamfer_indices(a, b)
+        return gather_rows(b, i1), gather_rows(a, i2.reshape(bq, -1))
+
+    k1_gather_ms = cuda_ms(k1_gather, reps=5)
+    chamfer.nn_select.launches, chamfer.chamfer_indices.launches = saved
+    bound_ms, bound_by = bound(12 * bq * n + 12 * bk * m + 12 * bk * n
+                               + 12 * bk * m, 8.0 * bk * n * m)
+    clock_mhz = _sm_max_clock_mhz()
+    floor = 8.0 * bk * n * m / (132 * 128 * clock_mhz * 1e3)
+    row = {"shape": {"a": [bq, n, 3], "b": [bk, m, 3]}, "ms": ms,
+           "k1_gather_ms": k1_gather_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "floor_ms": floor, "x_floor": ms / floor,
+           "floor_clock_mhz": clock_mhz}
+    if not yardsticks:
+        return row
+    row["plain_ms"] = cuda_ms(lambda: chamfer._nn_select_plain(a, b), reps=1)
+    a_rep = a.repeat_interleave(share, 0)
+
+    def library():
+        d = torch.cdist(a_rep, b)
+        i1 = d.argmin(-1)[..., None].expand(-1, -1, 3)
+        i2 = d.argmin(-2)[..., None].expand(-1, -1, 3)
+        return torch.gather(b, 1, i1), torch.gather(a_rep, 1, i2)
+
+    row["library_ms"] = cuda_ms(library, reps=2)
+    return row
+
+
 def emd_path_inputs(tmp):
     """K7's inputs on its paths, in the order of ``EMD_SHAPES``, from the
     seeded models at full width: validate's first batch (VRCNet's fine
@@ -2301,8 +2529,6 @@ def new_kernel_rows(gen, errs, launches):
     """The ``kernels`` rows of knn_wide, nn_select and gather_rows at their
     main-path shapes. ``errs``: each one's largest error against its plain
     version; ``launches``: each one's count on its path."""
-    from houv_tpu_torch.ops import chamfer
-
     out = []
     shapes = [_time_knn_wide(b, n, c, k, gen) for b, n, c, k in
               KNN_WIDE_SHAPES]
@@ -2314,37 +2540,18 @@ def new_kernel_rows(gen, errs, launches):
                 "at_shapes": shapes})
     torch.cuda.empty_cache()
 
-    # nn_select at the solver's shape on cfgs/houv.yaml: 16 pairs x 64
-    # restarts, 2048 points a side, the target shared by its pair's restarts
-    bq, share, n = 16, 64, 2048
-    bk = bq * share
-    a = torch.rand((bq, n, 3), generator=gen).cuda() - 0.5
-    b = (a.repeat_interleave(share, 0)
-         + 0.05 * torch.randn((bk, n, 3), generator=gen).cuda())
-    a_rep = a.repeat_interleave(share, 0)
-    saved = chamfer.nn_select.launches
-    ms = cuda_ms(lambda: chamfer.nn_select(a, b), reps=5)
-    chamfer.nn_select.launches = saved
-    plain_ms = cuda_ms(lambda: chamfer._nn_select_plain(a, b), reps=1)
-
-    def library():
-        d = torch.cdist(a_rep, b)
-        i1 = d.argmin(-1)[..., None].expand(-1, -1, 3)
-        i2 = d.argmin(-2)[..., None].expand(-1, -1, 3)
-        return torch.gather(b, 1, i1), torch.gather(a_rep, 1, i2)
-
-    library_ms = cuda_ms(library, reps=2)
-    bound_ms, bound_by = bound(12 * bq * n + 12 * bk * n + 2 * 12 * bk * n,
-                               8.0 * bk * n * n)
+    # nn_select at the solver's two shapes, 64 restarts a pair and 2048
+    # points a side, the target shared by its pair's restarts: the 16 pairs
+    # of the smoke's houv_fast window and cfgs/houv.yaml's batch of 100
+    # (the yaml's own); the plain version and the library call at the first
+    shapes = [_time_nn_select(bq, 64, 2048, 2048, gen, yardsticks=i == 0)
+              for i, bq in enumerate(NN_SELECT_SHAPES)]
     out.append({"name": "nn_select", "route": "cuda",
                 "source": "houv_tpu_torch/csrc/nn_select.cu",
                 "replaces": "houv_tpu/ops/chamfer.py:273",
-                "shape": {"a": [bq, n, 3], "b": [bk, n, 3]},
                 "launches": launches["nn_select"],
-                "max_abs_err": errs["nn_select"], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms})
-    del a, b, a_rep
+                "max_abs_err": errs["nn_select"], **shapes[0],
+                "at_shapes": shapes})
     torch.cuda.empty_cache()
 
     out.append({"name": "gather_rows", "route": "cuda",

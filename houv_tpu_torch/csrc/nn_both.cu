@@ -1,141 +1,28 @@
-// Fused dual-direction nearest-neighbour search (Hopper, sm_90a).
+// Fused dual-direction nearest-neighbour search, emitting indices (Hopper,
+// sm_90a).
 //
 // Replaces the TPU kernel houv_tpu/ops/chamfer.py:_nn_both_kernel (wrapper
 // _nn_both_pallas). Contract, shared-query layout included:
 //   a (Bq, N, 3) f32 queries, b (Bk, M, 3) f32 references, Bk % Bq == 0;
-//   batch row r of b is served by query cloud r / (Bk / Bq) (the HOUV
-//   solver's K restarts of one pair share its target cloud, which is read
-//   once per pair and never broadcast);
+//   batch row r of b is served by query cloud r / (Bk / Bq);
 //   i1[r, i] = argmin_j d(a_i, b_j)   (Bk, N) int64
 //   i2[r, j] = argmin_i d(a_i, b_j)   (Bk, M) int64
-// with ties to the smaller index, like argmin, and
-//   d = ((ax-bx)^2 + (ay-by)^2) + (az-bz)^2
-// rounded op by op (__fsub_rn, __fmul_rn, __fadd_rn: no FMA contraction),
-// exactly as the plain PyTorch version ops/chamfer.py:_nn_both_plain and
-// csrc/nn_select.cu compute it. So i1 and i2 equal the plain version's
-// index for index at every shape.
+// with ties to the smaller index, d rounded op by op, exactly as the plain
+// PyTorch version ops/chamfer.py:_nn_both_plain computes it; 0 where no
+// distance compared (NaN input). The one input where the two differ: a NaN
+// point among finite ones, which the search skips and the plain version's
+// argmin picks (csrc/nn_search.cuh; ROADMAP Queue 3).
 //
-// What bounds it on this card: instruction issue. Each of the Bk*N*M pairs
-// costs 3 sub, 3 mul and 2 add (8 f32 instructions, none of which fuses
-// under the contract) plus a share of the minima for its row and its
-// column; the clouds are a few MB. The floor is 8 instructions a pair at
-// 132 SMs x 128 lanes a clock. It stays on the CUDA cores: with K = 3 a
-// tensor-core product would be almost all padding, the expansion form a
-// product gives rounds differently (and would break the contract), and the
-// two min reductions, where the cost beyond the floor lies, would run on
-// the CUDA cores anyway.
-//
-// Design (a register-tiled search, like a GEMM micro-kernel):
-// - A block of 256 threads (16 x 16) owns a range of queries and a range of
-//   at most kMaxRefs references of one batch row. Its references sit in
-//   shared memory (x, y, z planes, padded with NaN to whole tiles) for the
-//   whole block; its queries go through in tiles of 128 and its references
-//   in tiles of 128. In each 128 x 128 tile, thread (ty, tx) owns queries
-//   8ty..8ty+7 (in registers) and references 4tx..4tx+3 and 64+4tx..67+4tx
-//   (two float4 reads per plane, conflict-free, shared by broadcast): 64
-//   pairs from 6 shared-memory reads.
-// - The minima run on the distances' bits as ints: squared distances are
-//   >= 0, so their bits order like the floats, and NaN (the padding's
-//   0x7fffffff, and what the card's arithmetic makes of a NaN input) orders
-//   above +inf and drops out. That lets Hopper's three-way integer min
-//   (__vimin3_s32, one DPX instruction) do the work: per 2 x 2 pairs, 4
-//   distances and 4 three-way mins, two into the 2 queries' minima over the
-//   thread's refs and two into the 2 refs' minima over its queries, so
-//   9 instructions a pair in the loop where two fminf a pair cost 10 (8%
-//   slower on the card).
-// - Lazy indices. Only values are tracked per pair. Rows: per query, a
-//   tile's minimum over the thread's 8 references replaces the thread's
-//   running best only if strictly smaller, and then the tile number is
-//   kept (__vibmin_s32: the min and whether the old value held). After the
-//   last reference tile the 16 threads sharing a query put their (best,
-//   tile) and the query in shared memory (buffers of their own, so one
-//   barrier a query tile); one thread per query takes the smallest value
-//   and rescans, for each thread that holds it (one, as a rule), that
-//   thread's 8 references of its tile for the first equal distance
-//   (recomputed with the same _rn operations, so equal bit for bit), and
-//   keeps the smallest index, while the other threads go on to the next
-//   query tile. Columns: per tile the 16 threads sharing a reference write
-//   their minima to shared memory (two buffers, one barrier a tile), and
-//   threads 0..127 merge one reference each while the others go on to the
-//   next tile: the smallest value and the first thread row holding it
-//   replace the block's running column best only if strictly smaller,
-//   which keeps which thread's 8 queries held it; at the end one rescan
-//   per reference finds the first equal query. Earlier tiles and smaller
-//   thread rows and slots hold smaller indices, so the strict compares
-//   keep the smallest index among equal distances.
-// - Registers: capped at 80 (__launch_bounds__(256, 3)), so that 3 blocks,
-//   24 warps, can share an SM; ptxas fits the tile in them without
-//   spilling. Shared memory allows 3 up to 2048 references a block (75 KB
-//   each) and 2 up to 3072.
-// - Launch plan (ops/chamfer.py:_nn_plan): one block per batch row owns all
-//   N queries and all M <= kMaxRefs references when the rows alone fill the
-//   card (houv.yaml's 6400 rows, houv_fast's 1024). Then both directions
-//   complete inside the block and i1 and i2 are written directly as int64.
-//   With few rows (the train steps' 32 or 64) the queries split over blocks
-//   of a multiple of 128, and the columns merge across blocks by a 64-bit
-//   atomicMin on (distance bits << 32 | index) in i2 itself (squared
-//   distances are >= 0, so their bits order like the floats), which a short
-//   pass then unpacks in place; M > kMaxRefs splits the references and
-//   merges the rows the same way.
-//
-// Variants that lost, timed side by side by scripts/time_nn_both_variants.py
-// on an H100 (PERF.md has the readings): every thread rescanning its own
-// candidates and the 16 lanes merging (distance, index) by shuffles (~1100
-// instructions a query tile, spilling registers); the row merge in the
-// column buffers (three barriers a query tile); 2 blocks a SM (1% slower
-// now; far slower beside that merge, at 128 registers with spills), 1
-// without a register cap (166 registers) or 4 at 64 registers (spilling); a
-// barrier every second tile with all threads merging columns (the merge
-// then no longer overlaps the search); fminf in place of the three-way
-// integer mins; the refs taken two at a time inside the tile (fewer
-// registers, slower); queries split over more blocks at houv.yaml's
-// and houv_fast's rows. On paper: the previous kernel's warp-wide column
-// reduction per reference (5 shuffles and a ballot per reference, ~31
-// issue slots a pair), tracking both argmins eagerly (two compares and
-// four selects a pair), and rescanning after every improving tile (some
-// query of a warp improves in nearly every tile).
+// The search, what bounds it and its design are csrc/nn_search.cuh's,
+// shared with csrc/nn_select.cu (which writes the winners' coordinates).
+// This file is its index epilogue: a block that owns a whole direction
+// writes the winners' indices directly as int64; a direction split over
+// blocks merges in its own output by 64-bit keys (distance bits << 32 |
+// index), filled with ~0 first and unpacked in place after.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "nn_search.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kLanes = 16;                     // threads across references
-constexpr int kTile = 128;                     // queries and refs a tile
-constexpr int kQ = kTile / (kThreads / kLanes);  // queries a thread: 8
-constexpr int kR = 8;                          // refs a thread: 2 x 4
-constexpr int kMaxRefs = 3072;                 // refs a block holds
-constexpr int kRows = kThreads / kLanes;       // threads across queries
-constexpr int kRed = kRows * kTile;            // one column buffer
-constexpr int kNone = 0x7fffffff;              // no index found
-constexpr unsigned long long kEmpty = ~0ull;
-
-static_assert(kQ == 8 && kLanes * 4 * 2 == kTile, "tile layout");
-
-__device__ __forceinline__ float sqdist(float ax, float ay, float az,
-                                        float bx, float by, float bz) {
-  const float dx = __fsub_rn(ax, bx);
-  const float dy = __fsub_rn(ay, by);
-  const float dz = __fsub_rn(az, bz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
-
-// the tile slot of a thread's r-th reference, ascending in r
-__device__ __forceinline__ int ref_slot(int tx, int r) {
-  return r < 4 ? 4 * tx + r : 64 + 4 * tx + (r - 4);
-}
-
-__device__ __forceinline__ int dbits(float ax, float ay, float az, float bx,
-                                     float by, float bz) {
-  return __float_as_int(sqdist(ax, ay, az, bx, by, bz));
-}
-
-__device__ __forceinline__ unsigned long long pack(float d, long long idx) {
-  return ((unsigned long long)__float_as_uint(d) << 32) |
-         (unsigned long long)(unsigned)idx;
-}
 
 __device__ __forceinline__ void put(long long* out, bool direct, float d,
                                     long long idx) {
@@ -145,209 +32,35 @@ __device__ __forceinline__ void put(long long* out, bool direct, float d,
     atomicMin(reinterpret_cast<unsigned long long*>(out), pack(d, idx));
 }
 
-// Dynamic shared memory, rlen floats each: rx, ry, rz, cval, cwhere (int);
-// then red[2][kRows][kTile]: the column minima of a tile (two buffers); then
-// rows: the lanes' row minima and their tiles at the end of a query tile
-// (2 x kRows x kTile) and the tile's query coordinates (3 x kTile).
+// nn_search's epilogue for K1: the winner's index, 0 where there is none
+struct Indices {
+  long long* i1;
+  long long* i2;
+
+  __device__ __forceinline__ void row(size_t at, bool direct, float v,
+                                      int found, long long j_lo, const float*,
+                                      const float*, const float*) const {
+    if (found != kNone)
+      put(i1 + at, direct, v, j_lo + found);
+    else if (direct)
+      i1[at] = 0;  // no comparable distance (NaN input)
+  }
+
+  __device__ __forceinline__ void col(size_t at, bool direct, float v,
+                                      int found, long long q_lo,
+                                      const float*) const {
+    if (found != kNone)
+      put(i2 + at, direct, v, q_lo + found);
+    else if (direct)
+      i2[at] = 0;
+  }
+};
+
 __global__ void __launch_bounds__(kThreads, 3)
 nn_both_kernel(const float* __restrict__ a, const float* __restrict__ b,
                int n, int m, int share, int qlen, int rlen, int qparts,
-               int rparts, long long* __restrict__ i1,
-               long long* __restrict__ i2) {
-  extern __shared__ __align__(16) float smem[];
-  float* rx = smem;
-  float* ry = rx + rlen;
-  float* rz = ry + rlen;
-  float* cval = rz + rlen;
-  int* cwhere = reinterpret_cast<int*>(cval + rlen);
-  float* red = reinterpret_cast<float*>(cwhere + rlen);
-  float* rows = red + 2 * kRed;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kLanes;
-  const int ty = tid / kLanes;
-  long long blk = blockIdx.x;
-  const int rpart = (int)(blk % rparts);
-  blk /= rparts;
-  const int qpart = (int)(blk % qparts);
-  const long long row = blk / qparts;
-  const long long j_lo = (long long)rpart * rlen;
-  const long long q_lo = (long long)qpart * qlen;
-  const int rn = (int)min((long long)rlen, (long long)m - j_lo);
-  const int qn = (int)min((long long)qlen, (long long)n - q_lo);
-  const float* ap = a + ((size_t)(row / share) * n + q_lo) * 3;
-  const float* bp = b + ((size_t)row * m + j_lo) * 3;
-  const bool rows_direct = rparts == 1;
-  const bool cols_direct = qparts == 1;
-  const float nan = __int_as_float(0x7fffffff);
-  const int ntr = (rn + kTile - 1) / kTile;
-  const int ntq = (qn + kTile - 1) / kTile;
-
-  for (int j = tid; j < ntr * kTile; j += kThreads) {
-    const bool ok = j < rn;
-    rx[j] = ok ? bp[3 * (size_t)j] : nan;
-    ry[j] = ok ? bp[3 * (size_t)j + 1] : nan;
-    rz[j] = ok ? bp[3 * (size_t)j + 2] : nan;
-    cval[j] = INFINITY;
-    cwhere[j] = 0;
-  }
-  __syncthreads();
-
-  for (int qt = 0; qt < ntq; ++qt) {
-    // this thread's queries 8ty..8ty+7 of the tile, NaN past the block's end
-    float qx[kQ], qy[kQ], qz[kQ];
-    int best[kQ], bt[kQ];  // distance bits, tile
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int qi = qt * kTile + ty * kQ + q;
-      const bool ok = qi < qn;
-      qx[q] = ok ? ap[3 * (size_t)qi] : nan;
-      qy[q] = ok ? ap[3 * (size_t)qi + 1] : nan;
-      qz[q] = ok ? ap[3 * (size_t)qi + 2] : nan;
-      best[q] = 0x7f800000;  // +inf
-      bt[q] = 0;
-    }
-
-    for (int rt = 0; rt < ntr; ++rt) {
-      const int t0 = rt * kTile + 4 * tx;
-      const float4 x0 = *reinterpret_cast<const float4*>(rx + t0);
-      const float4 x1 = *reinterpret_cast<const float4*>(rx + t0 + 64);
-      const float4 y0 = *reinterpret_cast<const float4*>(ry + t0);
-      const float4 y1 = *reinterpret_cast<const float4*>(ry + t0 + 64);
-      const float4 z0 = *reinterpret_cast<const float4*>(rz + t0);
-      const float4 z1 = *reinterpret_cast<const float4*>(rz + t0 + 64);
-      const float bx[kR] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-      const float by[kR] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-      const float bz[kR] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-      // per 2 x 2 pairs: 4 distances and 4 three-way mins, two into the
-      // queries' minima over the thread's refs, two into the refs' minima
-      // over its queries (on the bits: d >= 0, so they order as the floats,
-      // and the NaN of the padding, 0x7fffffff, as the largest)
-      int cm[kR];
-#pragma unroll
-      for (int q = 0; q < kQ; q += 2) {
-        int rm0, rm1;
-#pragma unroll
-        for (int r = 0; r < kR; r += 2) {
-          const int d00 = dbits(qx[q], qy[q], qz[q], bx[r], by[r], bz[r]);
-          const int d01 = dbits(qx[q], qy[q], qz[q], bx[r + 1], by[r + 1],
-                                bz[r + 1]);
-          const int d10 = dbits(qx[q + 1], qy[q + 1], qz[q + 1], bx[r], by[r],
-                                bz[r]);
-          const int d11 = dbits(qx[q + 1], qy[q + 1], qz[q + 1], bx[r + 1],
-                                by[r + 1], bz[r + 1]);
-          rm0 = r ? __vimin3_s32(rm0, d00, d01) : min(d00, d01);
-          rm1 = r ? __vimin3_s32(rm1, d10, d11) : min(d10, d11);
-          cm[r] = q ? __vimin3_s32(cm[r], d00, d10) : min(d00, d10);
-          cm[r + 1] = q ? __vimin3_s32(cm[r + 1], d01, d11) : min(d01, d11);
-        }
-        // the running best takes a tile's minimum only if strictly smaller:
-        // on a tie the earlier tile, with the smaller indices, keeps it
-        bool keep;
-        best[q] = __vibmin_s32(best[q], rm0, &keep);
-        bt[q] = keep ? bt[q] : rt;
-        best[q + 1] = __vibmin_s32(best[q + 1], rm1, &keep);
-        bt[q + 1] = keep ? bt[q + 1] : rt;
-      }
-      int* rb = reinterpret_cast<int*>(red) + (rt & 1) * kRed + ty * kTile;
-      *reinterpret_cast<int4*>(rb + 4 * tx) =
-          make_int4(cm[0], cm[1], cm[2], cm[3]);
-      *reinterpret_cast<int4*>(rb + 64 + 4 * tx) =
-          make_int4(cm[4], cm[5], cm[6], cm[7]);
-      __syncthreads();
-      if (tid < kTile) {  // one thread per reference of the tile
-        const int* col =
-            reinterpret_cast<const int*>(red) + (rt & 1) * kRed + tid;
-        int c[kRows];
-#pragma unroll
-        for (int t = 0; t < kRows; ++t) c[t] = col[t * kTile];
-        int v = c[0];
-#pragma unroll
-        for (int t = 1; t + 1 < kRows; t += 2)
-          v = __vimin3_s32(v, c[t], c[t + 1]);
-        v = min(v, c[kRows - 1]);
-        int w = 0;
-#pragma unroll
-        for (int t = kRows - 1; t >= 0; --t)  // descending: the first equal
-          if (c[t] == v) w = t;
-        const int j = rt * kTile + tid;
-        if (__int_as_float(v) < cval[j]) {  // strict: the earlier query tile
-          cval[j] = __int_as_float(v);      // keeps a tie
-          cwhere[j] = qt * kTile + w * kQ;
-        }
-      }
-      // the next tile writes the other buffer: one barrier a tile
-    }
-
-    // rows: the 16 lanes' (best, tile) and the tile's queries go to shared
-    // memory; one thread per query takes the smallest value and rescans
-    // only the lanes that hold it, while the others go on to the next query
-    // tile (whose first barrier comes after these reads)
-    float* sv = rows + ty * kTile + tx;
-    int* sj = reinterpret_cast<int*>(rows + kRed) + ty * kTile + tx;
-    float* sq = rows + 2 * kRed;
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      sv[q * kLanes] = __int_as_float(best[q]);
-      sj[q * kLanes] = bt[q];
-      if (tx == q) {
-        sq[ty * kQ + q] = qx[q];
-        sq[kTile + ty * kQ + q] = qy[q];
-        sq[2 * kTile + ty * kQ + q] = qz[q];
-      }
-    }
-    __syncthreads();
-    if (tid < kTile && qt * kTile + tid < qn) {
-      const float* pv = rows + tid * kLanes;
-      const int* pj = reinterpret_cast<const int*>(rows + kRed) + tid * kLanes;
-      float c[kLanes];
-#pragma unroll
-      for (int l = 0; l < kLanes; ++l) c[l] = pv[l];
-      float v = c[0];
-#pragma unroll
-      for (int l = 1; l < kLanes; ++l) v = fminf(v, c[l]);
-      unsigned lanes = 0;
-#pragma unroll
-      for (int l = 0; l < kLanes; ++l) lanes |= (c[l] == v ? 1u : 0u) << l;
-      const float x = sq[tid], y = sq[kTile + tid], z = sq[2 * kTile + tid];
-      int found = kNone;
-      while (lanes) {  // ties between lanes are rare: one pass, as a rule
-        const int l = __ffs(lanes) - 1;
-        lanes &= lanes - 1;
-        const int base = pj[l] * kTile;
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {  // the smallest equal index
-          const int s = base + ref_slot(l, r);
-          if (sqdist(x, y, z, rx[s], ry[s], rz[s]) == v) found = min(found, s);
-        }
-      }
-      long long* out = i1 + (size_t)row * n + q_lo + qt * kTile + tid;
-      if (found != kNone)
-        put(out, rows_direct, v, j_lo + found);
-      else if (rows_direct)
-        *out = 0;  // no comparable distance (NaN input)
-    }
-  }
-
-  // columns: rescan the winning thread's 8 queries per reference
-  for (int j = tid; j < rn; j += kThreads) {
-    const float v = cval[j];
-    const int base = cwhere[j];
-    int found = kNone;
-#pragma unroll
-    for (int q = kQ - 1; q >= 0; --q) {
-      const int qi = base + q;
-      if (qi < qn) {
-        const float* p = ap + 3 * (size_t)qi;
-        if (sqdist(p[0], p[1], p[2], rx[j], ry[j], rz[j]) == v) found = qi;
-      }
-    }
-    long long* out = i2 + (size_t)row * m + j_lo + j;
-    if (found != kNone)
-      put(out, cols_direct, v, q_lo + found);
-    else if (cols_direct)
-      *out = 0;
-  }
+               int rparts, Indices out) {
+  nn_search(a, b, n, m, share, qlen, rlen, qparts, rparts, out);
 }
 
 // A key merged by atomicMin becomes its index; one never reached, 0.
@@ -359,51 +72,22 @@ nn_both_unpack_kernel(long long* __restrict__ keys, size_t total) {
   keys[t] = k == kEmpty ? 0 : (long long)(k & 0xffffffffull);
 }
 
-int unpack(long long* keys, size_t total, cudaStream_t s) {
-  const size_t blocks = (total + 255) / 256;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  nn_both_unpack_kernel<<<(unsigned)blocks, 256, 0, s>>>(keys, total);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // i1: (bk, n) int64 out; i2: (bk, m) int64 out. qlen and rlen: queries and
-// references a block owns, multiples of 128, rlen <= 3072 (ops/chamfer.py:
-// _nn_plan). A direction split over blocks is merged in its own output by
-// 64-bit keys, filled with ~0 first and unpacked after.
+// references a block owns (nn_grid). A direction split over blocks is
+// merged in its own output by 64-bit keys, filled with ~0 first and
+// unpacked after.
 extern "C" int houv_nn_both(const float* a, const float* b, int bq, int bk,
                             int n, int m, int qlen, int rlen, long long* i1,
                             long long* i2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bq < 1 || bk % bq || n < 1 || m < 1 || qlen < kTile ||
-      qlen % kTile || rlen < kTile || rlen % kTile || rlen > kMaxRefs)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long qparts = ((long long)n + qlen - 1) / qlen;
-  const long long rparts = ((long long)m + rlen - 1) / rlen;
-  const long long blocks = (long long)bk * qparts * rparts;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)rlen * 5 * sizeof(float) +
-                      (4 * kRed + 3 * kTile) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      nn_both_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rparts > 1) {
-    err = cudaMemsetAsync(i1, 0xff, sizeof(long long) * (size_t)bk * n, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (qparts > 1) {
-    err = cudaMemsetAsync(i2, 0xff, sizeof(long long) * (size_t)bk * m, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  nn_both_kernel<<<(unsigned)blocks, kThreads, smem, s>>>(
-      a, b, n, m, bk / bq, qlen, rlen, (int)qparts, (int)rparts, i1, i2);
-  int e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
-  if (rparts > 1 && (e = unpack(i1, (size_t)bk * n, s))) return e;
-  if (qparts > 1 && (e = unpack(i2, (size_t)bk * m, s))) return e;
-  return 0;
+  return nn_run(nn_both_kernel, Indices{i1, i2}, a, b, bq, bk, n, m, qlen,
+                rlen, i1, i2, s, [&](bool cols) {
+                  const size_t total = (size_t)bk * (cols ? m : n);
+                  return nn_pass(nn_both_unpack_kernel, total, s,
+                                 cols ? i2 : i1, total);
+                });
 }
 
 extern "C" const char* houv_error_string(int err) {

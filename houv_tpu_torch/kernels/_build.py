@@ -3,7 +3,8 @@
 The sources have a plain C interface, so ``nvcc`` builds them in seconds into
 ``build/kernels/libhouv_kernels.so`` at the root of the checkout, at first use
 (never at import): one ``nvcc`` per source, all started together, then one
-link. A library newer than every source is reused.
+link. A library newer than every file of ``csrc/``, the headers the sources
+include among them, is reused.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ _SIGNATURES = {
     # query, ref, b, m, n, c, k, len, scratch, out, stream
     "houv_knn_wide": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "houv_knn_wide_max_k": [],
-    # a, b, bq, bk, n, m, c1, c2, key2, stream
-    "houv_nn_select": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # a, b, bq, bk, n, m, qlen, rlen, c1, c2, key1, key2, stream
+    "houv_nn_select": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # src, idx, b, m, n, c, out, stream
     "houv_gather_rows": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
@@ -113,10 +114,13 @@ def build(verbose: bool = False) -> Path:
 
 
 def _stale() -> bool:
+    """True if the library is missing or older than a file of ``csrc/``: a
+    source, or a header that sources include (``nn_search.cuh``)."""
     if not _LIB_PATH.exists():
         return True
     built = _LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources())
+    return any(f.stat().st_mtime > built for f in _CSRC.iterdir()
+               if f.is_file())
 
 
 def load() -> ctypes.CDLL:

@@ -9,8 +9,9 @@ terms elementwise, cross terms through ``ops/scatter.py:scatter_add`` (the
 ``scatter`` kernel on CUDA tensors). ``nn_select`` is the same search
 emitting the matched neighbours' coordinates instead of their indices
 (``csrc/nn_select.cu``, replacing the TPU kernel ``_nn_select_kernel``; its
-plain version is ``_nn_select_plain``). ``pairwise_sqdist`` and
-``chamfer_reference`` are the dense golden model.
+plain version is ``_nn_select_plain``): both kernels run the one search of
+``csrc/nn_search.cuh`` under the same launch plan, ``_nn_plan``.
+``pairwise_sqdist`` and ``chamfer_reference`` are the dense golden model.
 
 Unlike the TPU kernel, which selects by a key holding 16 index bits (2^-12
 relative on distances), both CUDA kernels and the plain versions select on
@@ -72,9 +73,9 @@ def _nn_both_plain(a: torch.Tensor, b: torch.Tensor):
     return i1, i2
 
 
-# csrc/nn_both.cu's tiles: a block owns queries and references in whole
-# tiles of 128, and at most 3072 references (its shared memory: 2 blocks a SM
-# fit at 3072, 3 up to 2048).
+# csrc/nn_search.cuh's tiles (K1 and K3): a block owns queries and
+# references in whole tiles of 128, and at most 3072 references (its shared
+# memory: 2 blocks a SM fit at 3072, 3 up to 2048).
 _NN_TILE = 128
 _NN_MAX_REFS = 3072
 _NN_MAX_QUERIES = 1 << 20       # keeps a block's query offsets in 32 bits
@@ -174,14 +175,21 @@ def _nn_select_cuda(a: torch.Tensor, b: torch.Tensor):
     lib = load()
     bq, n, _ = a.shape
     bk, m, _ = b.shape
+    qlen, rlen = _nn_plan(bk, n, m, _sm_count(b.device))
     c1 = torch.empty((bk, n, 3), dtype=torch.float32, device=b.device)
     c2 = torch.empty((bk, m, 3), dtype=torch.float32, device=b.device)
-    key2 = torch.empty((bk, m), dtype=torch.int64, device=b.device)
+    # key scratch only for a direction the plan splits over blocks
+    key1 = (torch.empty((bk, n), dtype=torch.int64, device=b.device)
+            if m > rlen else None)
+    key2 = (torch.empty((bk, m), dtype=torch.int64, device=b.device)
+            if n > qlen else None)
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
-        err = lib.houv_nn_select(a.data_ptr(), b.data_ptr(), bq, bk, n, m,
-                                 c1.data_ptr(), c2.data_ptr(),
-                                 key2.data_ptr(), stream)
+        err = lib.houv_nn_select(
+            a.data_ptr(), b.data_ptr(), bq, bk, n, m, qlen, rlen,
+            c1.data_ptr(), c2.data_ptr(),
+            None if key1 is None else key1.data_ptr(),
+            None if key2 is None else key2.data_ptr(), stream)
     check(lib, err, "nn_select")
     nn_select.launches += 1
     return c1, c2

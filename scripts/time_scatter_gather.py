@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times of the ordered scatter-add (K4), the row gather (K5), the
 feature-space kNN (K6-wide), the nearest-neighbour search (K1), the
-coordinate kNN (K6), the furthest-point sampling (K2) and the auction EMD
-(K7) of the ``houv_tpu_torch`` in the working directory,
+coordinate kNN (K6), the furthest-point sampling (K2), the auction EMD
+(K7) and the coordinate search (K3) of the ``houv_tpu_torch`` in the
+working directory,
 and the end-to-end rates around them, all taken by this
 repository's ``chip_smoke.py``, so that an older checkout can be timed
 beside this one on one card, in turns:
@@ -10,9 +11,10 @@ beside this one on one card, in turns:
     (cd <old checkout> && python3 <this repo>/scripts/time_scatter_gather.py)
     python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide
                                             steps nn_both houv knn
-                                            vrcnet_test profiles fps emd]
+                                            vrcnet_test profiles fps emd
+                                            nn_select]
 
-(the named parts only; all eleven without arguments)
+(the named parts only; all twelve without arguments)
 
 - scatter, gather_rows: K4 and K5 at the shapes of PERF.md's kernel table
   (``_time_scatter``, ``_time_gather_rows``: device time, plain version,
@@ -46,7 +48,16 @@ beside this one on one card, in turns:
   clouds/s of VRCNet's ``validate`` with eval_emd over 128 synthetic
   clouds (after one warm-up pass; one auction a batch of 32), and K7's
   device time in one profiled ``loss: emd`` train step of VRCNet (4
-  auctions) and of ECG (2).
+  auctions) and of ECG (2);
+- nn_select: K3's device time at the solver's two shapes
+  (``NN_SELECT_SHAPES``, ``_time_nn_select``: 16 and 100 pairs of 64
+  restarts, 2048 points a side) beside K1 and the two gathers of the
+  default branch on the same inputs (``k1_gather_ms``), and ``houv_solve``
+  on cfgs/houv.yaml's solver config over 100 pairs of the structured split
+  (seed 7, one batch) with ``nn_select=True`` and with the default, called
+  directly as ``phase_select_solve`` calls it (the yaml has no key for
+  it), each after a 10-step warm-up solve: pairs/s, median rotation
+  error, ``n_retry`` and launches.
 
 Only the package comes from the working directory. Prints one JSON line
 after chip_smoke's own; needs CUDA and builds the checkout's kernels at
@@ -69,7 +80,7 @@ sys.path.insert(0, os.getcwd())         # the checkout's houv_tpu_torch
 
 
 PARTS = ("scatter", "gather_rows", "knn_wide", "steps", "nn_both", "houv",
-         "knn", "vrcnet_test", "profiles", "fps", "emd")
+         "knn", "vrcnet_test", "profiles", "fps", "emd", "nn_select")
 
 
 def time_emd():
@@ -111,6 +122,50 @@ def time_emd():
         out["loss_emd_step_profiles"][model] = {
             "device_ms": rec["device_ms"], "wall_ms": rec["wall_ms"],
             "emd_kernel": rec["port_kernels"].get("emd_kernel")}
+    return out
+
+
+def time_nn_select(gen):
+    """K3 and K1 + gathers at the solver's shapes, and the select branch of
+    houv_solve beside the default on houv.yaml over 100 pairs (the
+    ``nn_select`` part)."""
+    import dataclasses
+
+    from houv_tpu_torch.data import synthesize_registration_pairs
+    from houv_tpu_torch.ops.chamfer import chamfer_indices, nn_select
+    from houv_tpu_torch.solvers.houv import evaluate_solution, houv_solve
+    from houv_tpu_torch.train.cli import solver_config
+    from houv_tpu_torch.train.config import load_config
+
+    out = {"nn_select": [
+        chip_smoke._time_nn_select(bq, 64, 2048, 2048, gen, yardsticks=False)
+        for bq in chip_smoke.NN_SELECT_SHAPES]}
+    torch.cuda.empty_cache()
+    cfg = load_config(str(chip_smoke.REPO / "cfgs" / "houv.yaml"))
+    d = synthesize_registration_pairs(
+        100, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
+        max_trans=cfg.max_trans, seed=7, shape_mode="structured",
+        rot_mix=True)
+    src, tgt, gt = (torch.as_tensor(d[k], device="cuda")
+                    for k in ("rotated_src", "rotated_tgt", "transforms"))
+    for select in (False, True):
+        scfg = dataclasses.replace(solver_config(cfg), nn_select=select)
+        # a short solve first: the allocator's warm-up is not the branch's
+        houv_solve(src, tgt, dataclasses.replace(scfg, steps=10,
+                                                 angle_passes=1))
+        nn_select.launches, chamfer_indices.launches = 0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = houv_solve(src, tgt, scfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        r_err, _ = evaluate_solution(res["transform"], gt)
+        out["houv_solve_nn_select" if select else "houv_solve_default"] = {
+            "pairs": 100, "seconds": seconds, "pairs_per_s": 100 / seconds,
+            "rot_err_median_deg": float(r_err.median()),
+            "n_retry": int(res["n_retry"]),
+            "nn_select_launches": nn_select.launches,
+            "nn_both_launches": chamfer_indices.launches}
     return out
 
 
@@ -176,6 +231,8 @@ def main() -> int:
                       for shape in chip_smoke.FPS_SHAPES]
     if "emd" in parts:
         out.update(time_emd())
+    if "nn_select" in parts:
+        out.update(time_nn_select(gen))
     print(json.dumps(out), flush=True)
     return 0
 

@@ -488,11 +488,30 @@ def test_knn_wide_kernel_on_rows_off_16_byte_alignment(gen):
     _knn_wide_exact(x, x, 16)
 
 
-@pytest.mark.parametrize("bq,share,n,m", [(2, 8, 300, 257), (1, 1, 1025, 3),
-                                          (3, 5, 1, 700), (2, 64, 513, 600)])
-def test_nn_select_kernel_matches_plain_bit_for_bit(gen, bq, share, n, m):
-    a = torch.randn((bq, n, 3), generator=gen).cuda()
-    b = torch.randn((bq * share, m, 3), generator=gen).cuda()
+# random clouds at small shapes; refs split over blocks (M > 3072) with the
+# queries whole (264 rows) and with both split; the solver's share at its
+# whole plan, and split (4 pairs: 256 rows, 512 queries a block); the
+# queries split (32 rows); planted copies at each plan
+@pytest.mark.parametrize("bq,share,n,m,copies", [
+    (2, 8, 300, 257, False), (1, 1, 1025, 3, False), (3, 5, 1, 700, False),
+    (2, 64, 513, 600, False), (33, 8, 300, 3100, False),
+    (1, 1, 300, 3100, False), (16, 64, 2048, 2048, False),
+    (4, 64, 2048, 2048, False),
+    (32, 1, 2048, 1024, False), (16, 64, 2048, 2048, True),
+    (33, 8, 300, 3100, True), (1, 1, 300, 3100, True),
+    (32, 1, 2048, 1024, True)])
+def test_nn_select_kernel_matches_plain_bit_for_bit(gen, bq, share, n, m,
+                                                    copies):
+    """Bit for bit the plain version's coordinates, and the rows K1's own
+    indices name."""
+    from houv_tpu_torch.ops.gather import gather_rows
+
+    a = torch.randn((bq, n, 3), generator=gen)
+    b = torch.randn((bq * share, m, 3), generator=gen)
+    if copies:
+        a = _copies(a, (1, 8, 64, 128, 256, 2048), gen)
+        b = _copies(b, (1, 4, 64, 128, 2048, 3072), gen)
+    a, b = a.cuda(), b.cuda()
     b[:, -1] = b[:, 0]                      # an exact tie in every cloud
     before = chamfer.nn_select.launches
     k1, k2 = chamfer.nn_select(a, b)
@@ -500,6 +519,10 @@ def test_nn_select_kernel_matches_plain_bit_for_bit(gen, bq, share, n, m):
     p1, p2 = chamfer._nn_select_plain(a, b)
     torch.testing.assert_close(k1, p1, rtol=0, atol=0)
     torch.testing.assert_close(k2, p2, rtol=0, atol=0)
+    i1, i2 = chamfer.chamfer_indices(a, b)
+    assert torch.equal(k1, gather_rows(b, i1))
+    assert torch.equal(k2, gather_rows(a, i2.reshape(bq, -1)).reshape(
+        bq * share, m, 3))
 
 
 @pytest.mark.parametrize("b,m,n,c", [(16, 2048, 4096, 3), (3, 777, 1999, 1),

@@ -10,7 +10,9 @@ per-tile column merge and the merge across blocks) against
 """
 
 import contextlib
+import importlib.util
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -252,3 +254,45 @@ def test_nn_both_model_needs_its_strict_compares(rng, kind):
     loose = _kernel_model(a, b, 384, 512, strict=False)
     assert (loose[0] != want[0].numpy()).any()
     assert (loose[1] != want[1].numpy()).any()
+
+
+@pytest.fixture(scope="module")
+def variants_script():
+    path = (Path(__file__).resolve().parents[1] / "scripts"
+            / "time_nn_both_variants.py")
+    spec = importlib.util.spec_from_file_location("time_nn_both_variants",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_nn_variant_sources_edit_the_shared_search(variants_script):
+    """The search's constants live in ``csrc/nn_search.cuh``, which both
+    K1 and K3 include: a variant sets them there, makes a raw edit in
+    every file that holds its text (K1's and K3's launch bounds alike) and
+    refuses an edit that applies nowhere; both kernels keep their names
+    and include the header, and ``nn_select.cu`` has no tile loop of its
+    own."""
+    base = variants_script.variant_sources("base", {})
+    assert set(base) == {"nn_search.cuh", "nn_both.cu", "nn_select.cu"}
+    for cu, kernel in (("nn_both.cu", "nn_both_kernel("),
+                       ("nn_select.cu", "nn_select_kernel(")):
+        assert '#include "nn_search.cuh"' in base[cu]
+        assert kernel in base[cu] and "nn_search(" in base[cu]
+        assert "__vimin3_s32" not in base[cu] and "for (int rt" not in \
+            base[cu]
+    got = variants_script.variant_sources("v", {
+        "kMaxRefs": 2048, "_blocks_per_sm": 3,
+        "_raw": [["__launch_bounds__(kThreads, 3)",
+                  "__launch_bounds__(kThreads, 2)"]]})
+    assert "constexpr int kMaxRefs = 2048;" in got["nn_search.cuh"]
+    assert "constexpr int kMaxRefs = 3072;" in base["nn_search.cuh"]
+    for cu in ("nn_both.cu", "nn_select.cu"):
+        assert "__launch_bounds__(kThreads, 2)" in got[cu]
+        assert "__launch_bounds__(kThreads, 3)" not in got[cu]
+    with pytest.raises(ValueError, match="no constant"):
+        variants_script.variant_sources("x", {"kNoSuchConstant": 1})
+    with pytest.raises(ValueError, match="in the sources"):
+        variants_script.variant_sources("x", {"_raw": [["no such text",
+                                                        ""]]})

@@ -11,7 +11,10 @@ distances agree to 5e-4 (the JAX package's own tolerance for its kernel);
 and nearly all picks are the same.
 """
 
+import contextlib
 import dataclasses
+import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +28,11 @@ from houv_tpu_torch.ops import chamfer as tc
 from houv_tpu_torch.solvers import houv as thouv
 from houv_tpu_torch.state import config_from_jax, params_from_jax
 from test_torch_houv import _jax_params, _jax_pass_losses, _pairs
+from test_torch_nn_both import NONE, _block_model, _clouds, _sqdist
 
 
-@pytest.mark.parametrize("bsz,share,n,m", [(2, 8, 96, 100), (1, 16, 130, 64)])
+@pytest.mark.parametrize("bsz,share,n,m", [(2, 8, 96, 100), (1, 16, 130, 64),
+                                           (1, 64, 24, 40)])
 def test_nn_select_matches_the_pallas_kernel(rng, bsz, share, n, m):
     a = rng.standard_normal((bsz, n, 3)).astype(np.float32)
     b = rng.standard_normal((bsz * share, m, 3)).astype(np.float32)
@@ -149,3 +154,189 @@ def test_select_solve_runs_and_scatter_mode_rejects_it():
     assert torch.isfinite(out["rmse"]).all()
     with pytest.raises(ValueError, match="gather"):
         thouv.HOUVConfig(nn_select=True, grad_mode="scatter")
+
+
+class _FakeLib:
+    """Stands in for the built kernel library: records the entry's sizes,
+    plan and which key scratch it was handed, and launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def houv_nn_select(self, a, b, bq, bk, n, m, qlen, rlen, c1, c2, key1,
+                       key2, stream):
+        self.calls.append((bq, bk, n, m, qlen, rlen, key1 is not None,
+                           key2 is not None))
+        return 0
+
+
+@pytest.mark.parametrize("bq,bk,n,m,plan,split", [
+    (16, 1024, 2048, 2048, (2048, 2048), (False, False)),  # the solver's
+    (32, 32, 2048, 2048, (128, 2048), (False, True)),      # queries split
+    (33, 264, 5, 3100, (128, 1664), (True, False)),        # refs split
+    (2, 6, 300, 5000, (128, 2560), (True, True)),
+])
+def test_nn_select_on_cuda_takes_its_kernel_with_the_plan(
+        monkeypatch, bq, bk, n, m, plan, split):
+    """With ``device="cuda"`` ``nn_select`` hands ``_nn_plan``'s blocks to
+    the C entry, allocates 64-bit key scratch for a direction the plan
+    splits and for no other (none at the solver's shape), counts one launch
+    and never runs the plain version; a launch the card refuses raises. A
+    card, the tensors' placement, the stream and the library are faked
+    here: the routing is Python."""
+    from houv_tpu_torch import kernels
+
+    lib = _FakeLib()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tc, "check_on", lambda dev, *tensors: None)
+    monkeypatch.setattr(tc, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(kernels, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+
+    def no_plain(*args):
+        raise AssertionError("the plain version ran for device='cuda'")
+
+    monkeypatch.setattr(tc, "_nn_select_plain", no_plain)
+    monkeypatch.setattr(tc, "_nn_both_plain", no_plain)
+    monkeypatch.setattr(tc.nn_select, "launches", 0)
+    empty, made = torch.empty, []
+
+    def recorded_empty(shape, **kw):
+        made.append((tuple(shape), kw.get("dtype")))
+        return empty(shape, **kw)
+
+    monkeypatch.setattr(torch, "empty", recorded_empty)
+    a = torch.zeros((bq, n, 3))
+    b = torch.zeros((bk, m, 3))
+    c1, c2 = tc.nn_select(a, b, device="cuda")
+    assert c1.shape == (bk, n, 3) and c2.shape == (bk, m, 3)
+    assert c1.dtype == c2.dtype == torch.float32
+    assert lib.calls == [(bq, bk, n, m, *plan, *split)]
+    keys = [shape for shape, dtype in made if dtype == torch.int64]
+    assert keys == [s for s, on in zip(((bk, n), (bk, m)), split) if on]
+    assert tc.nn_select.launches == 1
+    lib.houv_nn_select = lambda *args: 1
+    lib.houv_error_string = lambda err: b"invalid argument"
+    with pytest.raises(RuntimeError, match="nn_select launch failed"):
+        tc.nn_select(a, b, device="cuda")
+    assert tc.nn_select.launches == 1
+
+
+EMPTY = np.uint64(2 ** 64 - 1)
+
+
+def _key(v, idx):
+    """The 64-bit merge key: distance bits, then the index."""
+    return (np.uint64(np.float32(v).view(np.uint32)) << np.uint64(32)) \
+        | np.uint64(idx)
+
+
+def _unpack(keys, src, share):
+    """The unpack pass: each key's row of ``src[r // share]``, row 0 for a
+    key never reached."""
+    idx = np.where(keys == EMPTY, 0, keys & np.uint64(0xffffffff))
+    rows = np.arange(keys.shape[0]) // share
+    return src[rows[:, None], idx.astype(np.int64)]
+
+
+def _select_model(a, b, qlen, rlen):
+    """K3 on numpy clouds under the plan (qlen, rlen): each block's search
+    (``_block_model``), then the coordinate epilogue. A direction a block
+    owns whole is written from the block's own copy of the points (the
+    refs' shared planes, the queries' rows), slot or row 0 where no
+    distance compared; a split one is merged by 64-bit keys (atomicMin)
+    and unpacked."""
+    bq, n, _ = a.shape
+    bk, m, _ = b.shape
+    share = bk // bq
+    rows_direct, cols_direct = m <= rlen, n <= qlen
+    c1 = np.full((bk, n, 3), np.nan, np.float32)
+    c2 = np.full((bk, m, 3), np.nan, np.float32)
+    key1 = np.full((bk, n), EMPTY, np.uint64)
+    key2 = np.full((bk, m), EMPTY, np.uint64)
+    for r in range(bk):
+        qa = a[r // share]
+        dist = _sqdist(qa, b[r])
+        for q0 in range(0, n, qlen):
+            for j0 in range(0, m, rlen):
+                refs, queries = b[r, j0:j0 + rlen], qa[q0:q0 + qlen]
+                rows, cols = _block_model(dist[q0:q0 + qlen, j0:j0 + rlen],
+                                          True)
+                for i, (v, s) in enumerate(rows):
+                    if rows_direct:
+                        c1[r, q0 + i] = refs[0 if s == NONE else s]
+                    elif s != NONE:
+                        key1[r, q0 + i] = min(key1[r, q0 + i],
+                                              _key(v, j0 + s))
+                for j, (v, i) in enumerate(cols):
+                    if cols_direct:
+                        c2[r, j0 + j] = queries[0 if i == NONE else i]
+                    elif i != NONE:
+                        key2[r, j0 + j] = min(key2[r, j0 + j],
+                                              _key(v, q0 + i))
+    if not rows_direct:
+        c1 = _unpack(key1, b, 1)
+    if not cols_direct:
+        c2 = _unpack(key2, a, share)
+    return c1, c2
+
+
+@pytest.mark.parametrize("bq,share,n,m,plan,kind", [
+    (1, 2, 300, 400, (384, 512), "copies"),   # both direct
+    (1, 2, 300, 400, (128, 512), "copies"),   # queries split: column keys
+    (1, 1, 300, 400, (384, 256), "copies"),   # refs split: row keys
+    (1, 1, 257, 385, (128, 128), "copies"),   # both split, ragged tiles
+    (1, 2, 200, 300, (256, 256), "grid"),
+    (1, 1, 200, 300, (128, 128), "grid"),
+    (2, 1, 130, 150, (256, 256), "nan"),      # a NaN cloud each side
+    (2, 1, 130, 150, (128, 128), "nan"),
+    (1, 64, 600, 130, (512, 256), "copies"),  # the select solve's plan:
+                                              # share 64, 512 queries
+])
+def test_nn_select_model_matches_plain_bit_for_bit(rng, bq, share, n, m,
+                                                   plan, kind):
+    """The modelled K3 copies what ``_nn_select_plain`` copies, bit for
+    bit, at plans that keep both directions whole and that split rows,
+    columns and both, exact ties everywhere; where a cloud is all NaN no
+    distance compares, and both copy row 0."""
+    a, b = _clouds(rng, bq, share, n, m, "grid" if kind == "grid" else
+                   "copies")
+    if kind == "nan":
+        a[1] = np.nan
+        b[0] = np.nan
+    want = tc._nn_select_plain(torch.tensor(a), torch.tensor(b))
+    got = _select_model(a, b, *plan)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.view(np.int32),
+                                      w.numpy().view(np.int32))
+
+
+def test_a_header_newer_than_the_library_makes_it_stale(monkeypatch,
+                                                        tmp_path):
+    """The kernels' library is rebuilt when any file of ``csrc/`` is newer,
+    a header the sources include as much as a source; ``sources()`` stays
+    the ``.cu`` files nvcc compiles."""
+    from houv_tpu_torch.kernels import _build
+
+    csrc, lib = tmp_path / "csrc", tmp_path / "libhouv_kernels.so"
+    csrc.mkdir()
+    for name in ("nn_both.cu", "nn_select.cu", "nn_search.cuh"):
+        (csrc / name).write_text("")
+        os.utime(csrc / name, (1000, 1000))
+    lib.write_text("")
+    os.utime(lib, (2000, 2000))
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    monkeypatch.setattr(_build, "_LIB_PATH", lib)
+    assert [p.name for p in _build.sources()] == ["nn_both.cu",
+                                                  "nn_select.cu"]
+    assert not _build._stale()
+    os.utime(csrc / "nn_search.cuh", (3000, 3000))
+    assert _build._stale()
+    os.utime(csrc / "nn_search.cuh", (1000, 1000))
+    os.utime(csrc / "nn_select.cu", (3000, 3000))
+    assert _build._stale()
+    lib.unlink()
+    assert _build._stale()
