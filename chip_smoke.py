@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``houv_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --quality-pairs 100
+
+With ``--quality-pairs P`` it runs phases 1 and 3's quality modes alone,
+their sweeps over P pairs at a batch of P (the yamls' own batch is 100),
+and prints no last line. With no argument it runs every phase:
 
 Phases, each printing JSON lines (and ``phase_done`` with its seconds); any
 failed check exits non-zero:
@@ -12,12 +17,13 @@ failed check exits non-zero:
    the nearest-neighbour search ``nn_both``, index for index (shared-query
    layout, houv.yaml's 6400 rows, the train steps' shapes, ragged, tiny M,
    the tile and block edges of its launch plan with exact copies planted
-   across threads, tiles and blocks, integer grids) and its coordinate form
+   across threads, tiles and blocks, integer grids, NaN points and all-NaN
+   clouds) and its coordinate form
    ``nn_select``, which runs the same search (the solver's shapes, 16 and
    houv.yaml's 100 pairs of 64 restarts, unshared, ragged, duplicates, each
-   split of the launch plan, planted copies, grids, all-NaN clouds: bit for
-   bit against the plain version and against the gather of K1's indices;
-   one NaN point in a finite cloud against that gather alone);
+   split of the launch plan, planted copies, grids, all-NaN clouds and one
+   NaN point in a finite cloud: bit for bit against the plain version and
+   against the gather of K1's indices);
    ``fps``
    (exact indices at its 16 path shapes, ``FPS_SHAPES``: the solver's,
    VRCNet's and ECG's, the uniform losses' seeds included; at the edges of
@@ -49,7 +55,14 @@ failed check exits non-zero:
    then on ``cfgs/houv.yaml`` over 4 pairs, with each kernel's launch count
    on that run; then both configs over 100 pairs, their own batch size, for
    throughput, and houv_fast on a 16-pair split rotated up to 90°, which
-   runs the retries;
+   runs the retries; then registration's quality modes at full width over
+   8 pairs (``phase_quality``): ``cfgs/houv_quality.yaml`` (the view loss,
+   its K1 launches held to 4 a step), ``cfgs/houv_rescore.yaml`` and
+   ``cfgs/houv_extratest_rescore.yaml`` (the trained classifier of
+   ``log/``, no sparse-conv site dropped), the rescoring's card logits
+   against the port's CPU path on the same overlays (5e-2, equal picks at
+   margin 3), and ``houv_eval_main`` through ``train -c`` with its meters
+   by bucket;
 4. VRCNet on the card against the port's CPU path at the parity tests'
    size; then the completion path of ``cfgs/vrcnet.yaml``, ``cfgs/pcn.yaml``
    and ``cfgs/ecg.yaml`` at full width: ``test_main`` over a 64-cloud
@@ -74,8 +87,9 @@ failed check exits non-zero:
    pairs: K3 one kernel a step, no memset, no unpack pass), then the
    exported row gather on that solve's matches;
 7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
-   one VRCNet test batch (32 clouds) and of one VRCNet and one ECG train
-   step; K2's census, (B, N, K) at its every launch in that window and
+   one houv_rescore window (8 pairs: the pool solve, then the scoring by
+   the trained classifier), of one VRCNet test batch (32 clouds) and of
+   one VRCNet and one ECG train step; K2's census, (B, N, K) at its every launch in that window and
    those steps, each of them one of ``FPS_SHAPES``;
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
@@ -191,11 +205,15 @@ def check_nn(a, b, name):
     a_rows = a.repeat_interleave(b.shape[0] // a.shape[0], dim=0)
     kd1, kd2 = _nn_dists(a_rows, b, ki1, ki2)
     pd1, pd2 = _nn_dists(a_rows, b, pi1, pi2)
+    # a NaN point's own distances are NaN on both sides: not compared
     rel = max(
-        float(((kd1 - pd1).abs() / pd1.clamp_min(1e-12)).max()),
-        float(((kd2 - pd2).abs() / pd2.clamp_min(1e-12)).max()))
+        float(((kd1 - pd1).abs() / pd1.clamp_min(1e-12)).nan_to_num(0.0)
+              .max()),
+        float(((kd2 - pd2).abs() / pd2.clamp_min(1e-12)).nan_to_num(0.0)
+              .max()))
     mism = int((ki1 != pi1).sum()) + int((ki2 != pi2).sum())
-    err = max(float((kd1 - pd1).abs().max()), float((kd2 - pd2).abs().max()))
+    err = max(float((kd1 - pd1).abs().nan_to_num(0.0).max()),
+              float((kd2 - pd2).abs().nan_to_num(0.0).max()))
     emit({"phase": "nn_both_check", "case": name,
           "a": list(a.shape), "b": list(b.shape), "index_mismatches": mism,
           "max_rel_dist_err": rel, "max_abs_dist_err": err,
@@ -280,8 +298,20 @@ def phase_nn(gen):
     err = max(err, check_nn(a.to(dev), b.to(dev), "grid_B2_K3_N700_M900"))
     a = torch.randint(0, 6, (8, 1100, 3), generator=gen).float()
     b = torch.randint(0, 6, (528, 1300, 3), generator=gen).float()
-    return max(err, check_nn(a.to(dev), b.to(dev),
-                             "grid_B8_K66_N1100_M1300"))
+    err = max(err, check_nn(a.to(dev), b.to(dev), "grid_B8_K66_N1100_M1300"))
+    # one NaN point in a finite query and in a finite reference cloud (no
+    # distance picks it), and an all-NaN cloud (index 0), at a whole plan,
+    # with the columns split and with the rows split
+    for bq, share, n, m in ((8, 66, 300, 400), (4, 8, 600, 700),
+                            (33, 8, 300, 3100)):
+        a = torch.randn((bq, n, 3), generator=gen)
+        b = torch.randn((bq * share, m, 3), generator=gen)
+        a[1, n // 3, 1] = float("nan")
+        b[0, m // 2, 0] = float("nan")
+        b[2] = float("nan")
+        err = max(err, check_nn(a.to(dev), b.to(dev),
+                                f"nan_point_B{bq}_K{share}_N{n}_M{m}"))
+    return err
 
 
 # K2 on its paths, (B, N, K, path): a houv_fast window's N/4 and N/2
@@ -826,16 +856,12 @@ def _bits_differ(x, y) -> int:
     return int((x.view(torch.int32) != y.view(torch.int32)).sum())
 
 
-def check_nn_select(a, b, name, split=None, plain=True):
+def check_nn_select(a, b, name, split=None):
     """Kernel vs plain, and vs the rows K1's own indices name
     (``gather_rows`` of ``chamfer_indices``, as the solver's default branch
     gathers them): both coordinate outputs bit for bit, compared as int32
     so that NaN compares too. ``split``: the (rows, columns) split the
-    launch plan must take at this shape. ``plain=False`` where a cloud
-    holds a NaN point among finite ones: the kernels skip that point and
-    the plain version's argmin picks it (ROADMAP Queue 3), so the case is
-    held to K1's gather alone and prints how many coordinates differ from
-    the plain version."""
+    launch plan must take at this shape."""
     from houv_tpu_torch.ops import chamfer
     from houv_tpu_torch.ops.gather import gather_rows
 
@@ -860,9 +886,6 @@ def check_nn_select(a, b, name, split=None, plain=True):
            "split_rows_cols": plan_split, "mismatches": mism,
            "mismatches_vs_k1_gather": mism_k1, "max_abs_err": err,
            "nan_outputs": int(k1.isnan().sum()) + int(k2.isnan().sum())}
-    if not plain:
-        rec["mismatches"] = None
-        rec["differs_from_plain_queue3"], mism = mism, 0
     emit(rec)
     if mism or mism_k1:
         fail(f"nn_select {name}: {mism} coordinates differ from the plain "
@@ -902,7 +925,7 @@ def phase_nn_select(gen):
     the select solve's 4 pairs among them; with exact copies planted across
     threads, tiles and blocks; on integer grids; with all-NaN clouds, where
     no distance compares and row 0 is copied; and with one NaN point in a
-    finite cloud, against K1's gather alone (ROADMAP Queue 3)."""
+    finite cloud, which no distance picks."""
     a = torch.rand((16, 2048, 3), generator=gen).cuda() - 0.5
     b = (a.repeat_interleave(64, 0)
          + 0.05 * torch.randn((1024, 2048, 3), generator=gen).cuda())
@@ -956,14 +979,14 @@ def phase_nn_select(gen):
                                        f"nan_B{bq}_K{share}_N{n}_M{m}",
                                        split))
         # one NaN point in a finite query cloud and in a finite reference
-        # cloud: K3 against K1's gather alone (ROADMAP Queue 3)
+        # cloud: never picked, by the kernels as by the plain version
         a[1] = torch.randn((n, 3), generator=gen)
         b[0] = torch.randn((m, 3), generator=gen)
         a[1, n // 3, 1] = float("nan")
         b[0, m // 2, 0] = float("nan")
         err = max(err, check_nn_select(a.cuda(), b.cuda(),
                                        f"nan_point_B{bq}_K{share}_N{n}_M{m}",
-                                       split, plain=False))
+                                       split))
     return err
 
 
@@ -1063,7 +1086,11 @@ def phase_chamfer_grad(gen):
 def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
     """The port's test_main on a temp copy of cfgs/<cfg_name> over a
     synthetic structured split of n_pairs (seed 7), batch = n_pairs;
-    ``max_angle`` widens the split's rotations."""
+    ``max_angle`` widens the split's rotations. The record carries the
+    sweep's counts (rescored: the classifier's overrides, the pools' and
+    the scoring's seconds, the sites dropped), the launches of K1 and K2
+    and the peak device memory; the test_main result is under ``out`` (not
+    printed)."""
     from houv_tpu_torch.data import synthesize_registration_pairs
     from houv_tpu_torch.geometry.rotations import rotation_error
     from houv_tpu_torch.ops.chamfer import chamfer_indices
@@ -1078,8 +1105,12 @@ def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
                work_dir=str(workdir / Path(cfg_name).stem))
     if max_angle is not None:
         raw["max_angle"] = max_angle
+    if raw.get("rescore_ckpt"):
+        raw["rescore_ckpt"] = str(REPO / raw["rescore_ckpt"])
     cfg_path = workdir / cfg_name
     cfg_path.write_text(yaml.safe_dump(raw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     chamfer_indices.launches = 0
     furthest_point_sample.launches = 0
     t0 = time.perf_counter()
@@ -1109,8 +1140,17 @@ def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
            "n_retry": out["n_retry"],
            "rot_err_median_deg": float(np.median(rot)),
            "rot_err_max_deg": float(rot.max()),
+           "use_view_loss": bool(raw.get("use_view_loss", False)),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches}
+    if "rescore" in out:
+        rec.update({k: out[k] for k in ("n_override", "pool_seconds",
+                                        "score_seconds", "classifier_calls",
+                                        "sites_dropped")},
+                   rescore_cands=raw["rescore_cands"],
+                   rescore_margin=raw["rescore_margin"])
     emit(rec)
+    rec["out"] = out
     return rec
 
 
@@ -1139,6 +1179,128 @@ def phase_main():
                 fail(f"{name} at 100 pairs: median rotation error "
                      f"{full['rot_err_median_deg']:.2f} >= 10 deg")
     return fast
+
+
+# pairs of each quality-mode run: the yamls' widths (2048 points, 64
+# restarts, 500 steps, 4 windows; rescored: 16 candidates, the trained
+# classifier at grid 50), the split and the batch cut to 8 pairs (the
+# yamls' batch of 100: ``--quality-pairs 100``)
+QUALITY_PAIRS = 8
+RESCORE_CKPT = "log/alignment_spconv_cd_rescorer_pool/best_acc_network.ckpt"
+
+
+def _rescorer_model(device):
+    """The trained classifier as ``train/cli.py:make_rescorer`` builds it:
+    bf16 mode, grid 50, on ``device``."""
+    from houv_tpu_torch.models import get_model
+    from houv_tpu_torch.state import state_from_flax
+    from houv_tpu_torch.train.checkpoint import read_flax_msgpack
+
+    state = read_flax_msgpack(str(REPO / RESCORE_CKPT))
+    model = get_model("alignment_spconv", grid_size=50,
+                      compute_dtype="bfloat16")
+    model.load_state_dict(state_from_flax(state, model), strict=True)
+    return model.to(device).eval()
+
+
+def _check_rescore(run, workdir):
+    """The run's card logits against the port's CPU path on the same
+    overlays (each pair's candidates moved onto its target), both in bf16
+    mode; the picks at the run's margin must agree. Then the classifier's
+    ms per call of 32 overlays."""
+    from houv_tpu_torch.solvers.rescore import apply_candidates, rescore_pick
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+
+    diag = run["out"]["rescore"]
+    n = min(QUALITY_PAIRS, len(diag["pick"]))
+    cfg = load_config(str(workdir / Path(run["config"]).name))
+    batch = build_dataset(cfg, "test").get_batch(np.arange(n))
+    moved = apply_candidates(torch.as_tensor(batch["src"]),
+                             torch.as_tensor(diag["cand_r"][:n]),
+                             torch.as_tensor(diag["cand_t"][:n]))
+    tgt = torch.as_tensor(batch["tgt"])
+    c = moved.shape[1]
+    cpu = _rescorer_model("cpu")
+    logits = []
+    with torch.no_grad():
+        for i in range(n):
+            logits.append(cpu(moved[i], tgt[i:i + 1].expand(c, -1, -1)))
+    cpu_logits = torch.stack(logits)
+    card_logits = torch.as_tensor(diag["cand_logits"][:n])
+    err = float((card_logits - cpu_logits).abs().max())
+    loss = torch.as_tensor(diag["cand_loss"][:n])
+    margin = run["rescore_margin"]
+    card_pick = rescore_pick(loss, card_logits, margin)
+    cpu_pick = rescore_pick(loss, cpu_logits, margin)
+    model = _rescorer_model("cuda")
+    s32 = moved.reshape(-1, *moved.shape[2:])[:32].cuda()
+    t32 = tgt.repeat_interleave(c, 0)[:32].cuda()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(s32, t32), reps=5)
+    rec = {"phase": "rescore_check", "config": run["config"],
+           "overlays": n * c, "max_abs_logit_err": err, "tolerance": 5e-2,
+           "picks_differ": int((card_pick != cpu_pick).sum()),
+           "picks": card_pick.tolist(), "margin": margin,
+           "classifier_ms_per_32": ms,
+           "sites_dropped_32": int(model.sites_dropped)}
+    emit(rec)
+    if err > 5e-2 or rec["picks_differ"]:
+        fail(f"rescore: card logits {err:.3g} from the CPU path's, "
+             f"{rec['picks_differ']} picks differ")
+    return rec
+
+
+def phase_quality(n_pairs=QUALITY_PAIRS):
+    """Registration's quality modes at full width on ``n_pairs`` pairs (a
+    batch of as many) through ``test_main``: cfgs/houv_quality.yaml (the
+    view loss: 4
+    K1 searches an Adam step and 4 for the final objective, every window),
+    cfgs/houv_rescore.yaml and cfgs/houv_extratest_rescore.yaml (the
+    cadence's pools, 16 candidates, the trained classifier at margin 3);
+    then ``houv_eval_main`` (``train -c``) on houv_rescore.yaml over a
+    labelled split of 8, globally and by bucket, and the rescoring's card
+    logits against the CPU path on the first 8 pairs."""
+    from houv_tpu_torch.train.cli import main as cli_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        quality = run_sweep("houv_quality.yaml", n_pairs, workdir)
+        windows = 4          # retry_mode always
+        expected = 4 * (quality["steps"] + 1) * windows
+        if quality["launches"]["nn_both"] != expected:
+            fail(f"houv_quality: {quality['launches']['nn_both']} K1 "
+                 f"launches, expected {expected}")
+        runs = [quality]
+        for name in ("houv_rescore.yaml", "houv_extratest_rescore.yaml"):
+            run = run_sweep(name, n_pairs, workdir)
+            if run["sites_dropped"] or min(run["launches"].values()) < 1:
+                fail(f"{name}: {run['sites_dropped']} sites dropped, "
+                     f"launches {run['launches']}")
+            runs.append(run)
+        for run in runs:
+            if run["rot_err_median_deg"] >= 10.0:
+                fail(f"{run['config']}: median rotation error "
+                     f"{run['rot_err_median_deg']:.2f} >= 10 deg")
+        check = _check_rescore(runs[1], workdir)
+        cfg_path = workdir / "houv_rescore.yaml"
+        raw = yaml.safe_load(cfg_path.read_text())
+        raw.update(synthetic_size=QUALITY_PAIRS, batch_size=QUALITY_PAIRS,
+                   work_dir=str(workdir / "eval"))
+        cfg_path.write_text(yaml.safe_dump(raw))
+        t0 = time.perf_counter()
+        meters = cli_main(["train", "-c", str(cfg_path)])
+        rec = {"phase": "houv_eval_main", "config": "cfgs/houv_rescore.yaml",
+               "pairs": meters["n_pairs"],
+               "wall_s": time.perf_counter() - t0, **meters}
+        emit(rec)
+        names = ("RotE", "transE", "MSE", "RMSE", "recall", "GeoE")
+        if not all(np.isfinite(meters[m]) for m in names):
+            fail(f"houv_eval_main: meters {meters}")
+        if sum(b["n"] for b in meters["buckets"].values()) != rec["pairs"]:
+            fail("houv_eval_main: the buckets do not cover the pairs")
+    return {"runs": [{k: v for k, v in r.items() if k != "out"}
+                     for r in runs], "check": check, "eval": rec}
 
 
 class _Count:
@@ -2198,6 +2360,61 @@ def phase_profile():
     return rec
 
 
+def phase_profile_rescore():
+    """Where one rescored window's time goes (cfgs/houv_rescore.yaml, 8
+    pairs, one angle window): torch.profiler over the pool solve, then over
+    the candidates' scoring by the trained classifier, each with its wall
+    time and device time by kernel."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from houv_tpu_torch.data import synthesize_registration_pairs
+    from houv_tpu_torch.solvers.houv import init_params
+    from houv_tpu_torch.solvers.rescore import (houv_candidate_pools,
+                                                houv_solve_rescored,
+                                                make_classifier_scorer)
+    from houv_tpu_torch.train.cli import solver_config
+    from houv_tpu_torch.train.config import load_config
+
+    cfg = load_config(str(REPO / "cfgs" / "houv_rescore.yaml"))
+    scfg = dataclasses.replace(solver_config(cfg), angle_passes=1)
+    n = QUALITY_PAIRS
+    d = synthesize_registration_pairs(
+        n, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
+        max_trans=cfg.max_trans, seed=7, shape_mode="structured",
+        rot_mix=True)
+    src = torch.as_tensor(d["rotated_src"], device="cuda")
+    tgt = torch.as_tensor(d["rotated_tgt"], device="cuda")
+    params0 = init_params(torch.Generator().manual_seed(0), n, scfg.kernel,
+                          device="cuda")
+    scorer = make_classifier_scorer(_rescorer_model("cuda"), micro_batch=16)
+    rec = {"phase": "profile_rescore", "config": "cfgs/houv_rescore.yaml",
+           "pairs": n, "angle_passes": 1, "rescore_cands": cfg.rescore_cands}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pools = houv_candidate_pools(src, tgt, scfg, params0=params0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rec["pool"] = _profile_top(prof, wall_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = houv_solve_rescored(src, tgt, scfg, scorer,
+                                  n_cand=cfg.rescore_cands,
+                                  angle_deg=cfg.rescore_angle,
+                                  margin=cfg.rescore_margin, pools=pools)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rec["scoring"] = _profile_top(prof, wall_ms)
+    rec.update(classifier_calls=scorer.calls, n_override=out["n_override"],
+               sites_dropped=scorer.sites_dropped)
+    emit(rec)
+    return rec
+
+
 def phase_fps_census(profiles):
     """K2's (B, N, K) at every launch in one houv_fast window and one
     VRCNet and one ECG train step (from their profile phases), each held
@@ -2692,7 +2909,14 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py")
+    p.add_argument("--quality-pairs", type=int, default=None,
+                   help="run the build and the quality modes alone, over "
+                        "this many pairs a sweep")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2715,6 +2939,9 @@ def main() -> int:
         return out
 
     timed(phase_build)
+    if args.quality_pairs:
+        timed(phase_quality, args.quality_pairs)
+        return 0
     errs = {"nn_both": timed(phase_nn, gen)}
     errs["fps"] = timed(phase_fps, gen)
     errs["knn"] = timed(phase_knn, gen)
@@ -2725,6 +2952,7 @@ def main() -> int:
     errs["gather_rows"] = timed(phase_gather_rows, gen)
     timed(phase_chamfer_grad, gen)
     fast = timed(phase_main)
+    timed(phase_quality)
     timed(phase_completion_reference)
     completion = timed(phase_completion)
     models = timed(phase_completion_models)
@@ -2735,6 +2963,7 @@ def main() -> int:
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
     profiles = {"houv_fast": timed(phase_profile)}
+    timed(phase_profile_rescore)
     timed(phase_profile_vrcnet)
     profiles["vrcnet"] = timed(phase_profile_train)
     profiles["ecg"] = timed(phase_profile_train, "ecg")

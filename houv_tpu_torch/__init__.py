@@ -1,5 +1,5 @@
-"""houv_tpu_torch — the HOUV registration sweep and PCN, ECG and VRCNet
-completion in PyTorch and CUDA.
+"""houv_tpu_torch — the HOUV registration sweep (its quality modes
+included) and PCN, ECG and VRCNet completion in PyTorch and CUDA.
 
 The PyTorch/CUDA counterpart of ``houv_tpu``, module for module:
 
@@ -8,17 +8,19 @@ The PyTorch/CUDA counterpart of ``houv_tpu``, module for module:
   coordinates and in feature space, the auction EMD, scatter-add and row
   gather, each a hand-written CUDA kernel (``csrc/``) with a plain PyTorch
   version beside it for CPU tensors; ball query, grouping and three-NN
-  interpolation.
+  interpolation; voxel indices and sparse 3D convolutions.
 - ``houv_tpu_torch.geometry``  rigid-transform math (Rodrigues, errors).
 - ``houv_tpu_torch.metrics``   chamfer (cd_p, cd_t, F1), EMD, and the
   bisected truncated chamfer mean.
-- ``houv_tpu_torch.solvers``   the HOUV hybrid solver, canonical objective.
+- ``houv_tpu_torch.solvers``   the HOUV hybrid solver (canonical objective,
+  view loss) and its classifier-rescored selection.
 - ``houv_tpu_torch.models``    PCN, ECG and VRCNet with their in-model
-  losses (inference, validation, training).
+  losses (inference, validation, training); the alignment classifier.
 - ``houv_tpu_torch.data``      MVP registration and completion data,
   synthetic fixtures, batching.
 - ``houv_tpu_torch.train``     YAML configs, results.h5 writer, test CLI,
-  the completion harness.
+  the solver's evaluation, the completion harness, checkpoints (the JAX
+  package's flax files read too).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The package imports neither JAX nor anything of ``houv_tpu``.

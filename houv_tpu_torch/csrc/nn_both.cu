@@ -9,9 +9,8 @@
 //   i2[r, j] = argmin_i d(a_i, b_j)   (Bk, M) int64
 // with ties to the smaller index, d rounded op by op, exactly as the plain
 // PyTorch version ops/chamfer.py:_nn_both_plain computes it; 0 where no
-// distance compared (NaN input). The one input where the two differ: a NaN
-// point among finite ones, which the search skips and the plain version's
-// argmin picks (csrc/nn_search.cuh; ROADMAP Queue 3).
+// distance compared (NaN input). A NaN distance never wins, here and there
+// (csrc/nn_search.cuh).
 //
 // The search, what bounds it and its design are csrc/nn_search.cuh's,
 // shared with csrc/nn_select.cu (which writes the winners' coordinates).

@@ -16,11 +16,11 @@
 // rounded op by op (__fsub_rn, __fmul_rn, __fadd_rn: no FMA contraction),
 // exactly as the plain PyTorch version ops/chamfer.py:_nn_both_plain
 // computes it. So the winners equal the plain version's index for index at
-// every shape, for any input but one: a NaN point among finite ones. Its
-// NaN distances never compare, so the search skips it, where the plain
-// version's argmin picks it (ROADMAP Queue 3, not yet decided). A point
-// whose distances are all NaN has no winner on either side (the epilogue
-// writes index 0, or copies row 0).
+// every shape and for any input. A NaN distance never compares, so the
+// search skips a NaN point among finite ones, as the plain version (which
+// counts NaN as +inf) and the TPU kernel do. A point whose distances are
+// all NaN has no winner on either side (the epilogue writes index 0, or
+// copies row 0).
 //
 // What bounds it on this card: instruction issue. Each of the Bk*N*M pairs
 // costs 3 sub, 3 mul and 2 add (8 f32 instructions, none of which fuses

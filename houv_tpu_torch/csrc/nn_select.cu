@@ -10,9 +10,8 @@
 // where i1 and i2 are exactly the indices csrc/nn_both.cu returns (ties to
 // the smaller index, distances rounded op by op, 0 where no distance
 // compared), so the coordinates are exact copies, equal bit for bit to the
-// plain version ops/chamfer.py:_nn_select_plain at every input but a NaN
-// point among finite ones, which the search skips and the plain version's
-// argmin picks (csrc/nn_search.cuh; ROADMAP Queue 3). (The TPU kernel
+// plain version ops/chamfer.py:_nn_select_plain, NaN points included
+// (csrc/nn_search.cuh). (The TPU kernel
 // selects by a one-hot product on its matrix unit, with hi/lo bf16 planes, a
 // 16-bit index field and batch blocks of 8; those are economies of that unit
 // and not carried over.)

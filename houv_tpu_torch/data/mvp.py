@@ -450,8 +450,8 @@ class MVPCompletionDataset:
     def __post_init__(self):
         if self.with_voxels:
             raise NotImplementedError(
-                "voxel grid indices (vrcnet_knn) are not ported yet "
-                "(ROADMAP.md Queue 1, item 8)")
+                "the voxelized clouds of vrcnet_knn are not ported yet "
+                "(ROADMAP.md Queue 1, item 8a)")
         if self.data is None:
             if self.path is None:
                 raise ValueError("need path or data")

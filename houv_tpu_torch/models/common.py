@@ -26,7 +26,8 @@ class FlaxNamed(nn.Module):
 
     ``child(attr, module)`` registers ``module`` under ``attr`` and names it
     ``<Class>_<i>`` in ``flax_names``, counting per class in the order the
-    flax module constructs its layers (``nn.Linear`` counts as ``Dense``)."""
+    flax module constructs its layers (``nn.Linear`` counts as ``Dense``, a
+    module with a ``flax_class`` attribute as that class)."""
 
     def __init__(self):
         super().__init__()
@@ -34,7 +35,8 @@ class FlaxNamed(nn.Module):
         self._flax_counts: dict[str, int] = {}
 
     def child(self, attr: str, module: nn.Module) -> nn.Module:
-        cls = {nn.Linear: "Dense", nn.Embedding: "Embed"}.get(
+        cls = getattr(module, "flax_class", None) or {
+            nn.Linear: "Dense", nn.Embedding: "Embed"}.get(
             type(module), type(module).__name__)
         i = self._flax_counts.get(cls, 0)
         self._flax_counts[cls] = i + 1

@@ -51,9 +51,12 @@ def chamfer_reference(a: torch.Tensor, b: torch.Tensor):
 
 def _nn_both_plain(a: torch.Tensor, b: torch.Tensor):
     """The kernel's arithmetic in plain PyTorch: exact diff-form f32
-    distances, argmin both ways (first index on ties). Shared-query layout:
-    ``a`` (Bq, N, 3) serves Bk / Bq consecutive rows of ``b`` (Bk, M, 3).
-    Rows go in chunks so the temporaries stay bounded."""
+    distances, argmin both ways (first index on ties). A NaN distance never
+    wins, as in the kernels and the JAX package's Pallas kernel: it counts
+    as +inf, so a point whose every distance is NaN gets index 0.
+    Shared-query layout: ``a`` (Bq, N, 3) serves Bk / Bq consecutive rows
+    of ``b`` (Bk, M, 3). Rows go in chunks so the temporaries stay
+    bounded."""
     bq, n, _ = a.shape
     bk, m, _ = b.shape
     share = bk // bq
@@ -68,6 +71,7 @@ def _nn_both_plain(a: torch.Tensor, b: torch.Tensor):
         for c in range(3):                               # (c, N, M) each
             diff = qa[:, :, None, c] - b[r0:r1, None, :, c]
             d = diff * diff if d is None else d + diff * diff
+        d = torch.where(d.isnan(), float("inf"), d)
         i1[r0:r1] = d.argmin(-1)
         i2[r0:r1] = d.argmin(-2)
     return i1, i2

@@ -17,7 +17,9 @@ Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective (and its
   einsum transposes only. ``grad_mode='scatter'`` instead takes the loss
   through ``metrics/cd.py:calc_cd_percent`` on the transformed cloud, whose
   backward is the chamfer gradient's scatter-add (``ops/scatter.py``, a CUDA
-  kernel on the card), and can add the projected ``loss_view`` terms.
+  kernel on the card). ``use_view_loss`` adds min(vp, vt) of the three
+  axis-projected CDs, in either mode: under 'gather' each is one more search
+  on the projected clouds, its loss rebuilt from matched rows the same way.
   ``nn_select=True`` takes the matched rows as coordinates straight from
   the search (``ops/chamfer.py:nn_select``, a CUDA kernel on the card)
   instead of indices and row gathers.
@@ -25,8 +27,9 @@ Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective (and its
   phase of the coarse-to-fine schedule (coarse phases run on FPS-downsampled
   clouds, ``ops/sampling.py``); the best restart wins.
 - Hybrid retry, driven from the host: pairs whose best loss exceeds the
-  threshold are solved again at angle bases 1..passes-1, keeping the better
-  result.
+  threshold are solved again at angle bases 1..passes-1, and the restart of
+  least loss over the windows wins (``houv_candidate_pools`` keeps every
+  restart of every window, for the rescored selection).
 """
 
 from __future__ import annotations
@@ -95,7 +98,7 @@ class HOUVConfig:
     # 'gather': one search, loss rebuilt from matched rows. 'scatter': the
     # chamfer op's own gradient (scatter-add backward); needs nn_refresh 1.
     grad_mode: str = "gather"
-    # adds min(cd_p, cd_t) of the three axis projections; 'scatter' only
+    # adds min(vp, vt) of the three axis-projected CDs (one more search each)
     use_view_loss: bool = False
     # 'gather' only: the search emits the matched neighbours' coordinates
     # (ops/chamfer.py:nn_select) instead of indices for two row gathers; the
@@ -115,13 +118,10 @@ class HOUVConfig:
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"HOUVConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"yet (only {default!r}); see ROADMAP.md Queue 1")
+                    f"yet (only {default!r}); see ROADMAP.md Queue 1, "
+                    "item 7c")
         if self.grad_mode not in ("gather", "scatter"):
             raise ValueError(f"unknown grad_mode {self.grad_mode!r}")
-        if self.use_view_loss and self.grad_mode != "scatter":
-            raise NotImplementedError(
-                "use_view_loss is ported for grad_mode='scatter' only; "
-                "see ROADMAP.md Queue 1, item 7c")
         if self.nn_select and self.grad_mode != "gather":
             raise ValueError("nn_select applies to grad_mode='gather' only")
         if self.tran_mode not in ("mvp", "bounded"):
@@ -182,12 +182,16 @@ def _trunc_mean_sqrt(d: torch.Tensor, k: int, fast: bool) -> torch.Tensor:
     return _safe_sqrt(_smallest_k(d, k)).mean(-1)
 
 
-def _pair_matches(src, tgt, src_t, r=None, t=None, select=False):
+def _pair_matches(src, tgt, src_t, r=None, t=None, select=False,
+                  dim_mask=None):
     """One nearest-neighbour pass -> matched rows, without gradients:
     tg (B, K, N, 3), the matched tgt row per src point, and s_sel
     (B, K, M, 3), the matched RAW src row per tgt point. Direction as in
     cd(gt=tgt, out=src_t): i1 is per tgt point, i2 per src point. Shared
-    query layout: tgt (B, M, 3) serves the K restarts of its pair.
+    query layout: tgt (B, M, 3) serves the K restarts of its pair. With
+    ``dim_mask`` (a view term, ``_view_mask``) both clouds are projected
+    before the search and tg comes from the projected tgt; ``select`` is
+    then not taken, as in the JAX package, whose select path takes no mask.
 
     ``select``: the search returns coordinates (``nn_select``): tg is its
     per-src output, and the matched raw src rows are the matched transformed
@@ -195,6 +199,8 @@ def _pair_matches(src, tgt, src_t, r=None, t=None, select=False):
     raw src rows up to that product's rounding."""
     bsz, kernel, n = src_t.shape[:3]
     m = tgt.shape[1]
+    if dim_mask is not None:
+        tgt, src_t, select = tgt * dim_mask, src_t * dim_mask, False
     if select:
         c1, c2 = nn_select(tgt, src_t.reshape(bsz * kernel, n, 3),
                            device=src.device)
@@ -211,30 +217,63 @@ def _pair_matches(src, tgt, src_t, r=None, t=None, select=False):
     return tg, s_sel
 
 
-def _dists_from_matches(tgt, src_t, tg, s_sel, r, t):
+def _dists_from_matches(tgt, src_t, tg, s_sel, r, t, dim_mask=None):
     """(d1 (B·K, M), d2 (B·K, N)) squared distances from matched rows,
-    differentiable through (R, T) by einsum transposes only."""
+    differentiable through (R, T) by einsum transposes only. With
+    ``dim_mask`` (a view term: tgt, src_t and tg projected) the matched raw
+    src rows are projected once re-transformed."""
     bsz, kernel, n = src_t.shape[:3]
     m = tgt.shape[1]
     d2 = ((src_t - tg) ** 2).sum(-1).reshape(bsz * kernel, n)
     matched_t = torch.einsum("bkmc,bkdc->bkmd", s_sel, r) + t[:, :, None, :]
+    if dim_mask is not None:
+        matched_t = matched_t * dim_mask
     d1 = ((tgt[:, None] - matched_t) ** 2).sum(-1).reshape(bsz * kernel, m)
     return d1, d2
 
 
+def _view_mask(dim: int, like: torch.Tensor) -> torch.Tensor:
+    """(3,) ones with a 0 at ``dim``: the projection of a view term."""
+    mask = torch.ones(3, dtype=like.dtype, device=like.device)
+    mask[dim] = 0.0
+    return mask
+
+
 def _objective_matches(params, src, tgt, angle_base, cfg: HOUVConfig):
-    """The match half of the objective: one search at the current (R, T)."""
+    """The match half of the objective at the current (R, T): the matched
+    rows (tg, s_sel) of one search, and with ``use_view_loss`` those of the
+    three projected searches (else an empty tuple)."""
     with torch.no_grad():
         r, t = reparametrize(params, angle_base, cfg.tran_mode)
-        return _pair_matches(src, tgt, _apply(src, r, t), r, t,
-                             select=cfg.nn_select)
+        src_t = _apply(src, r, t)
+        tg, s_sel = _pair_matches(src, tgt, src_t, r, t, select=cfg.nn_select)
+        views = ()
+        if cfg.use_view_loss:
+            views = tuple(
+                _pair_matches(src, tgt, src_t, dim_mask=_view_mask(d, src))
+                for d in range(3))
+        return tg, s_sel, views
+
+
+def _gathered_view_min(src, tgt, src_t, r, t, view_matches, dim, fast):
+    """min(vp, vt) of the axis-``dim`` projected CD (``loss_view``) rebuilt
+    from the projected search's matched rows. As in ``calc_cd_percent`` at
+    percent 1.0, k is the SOURCE count and truncates both sides: with
+    N != M the per-target side keeps its smallest N of M distances."""
+    mask = _view_mask(dim, src)
+    tg_v, s_sel_v = view_matches
+    d1v, d2v = _dists_from_matches(tgt * mask, src_t * mask, tg_v, s_sel_v,
+                                   r, t, mask)
+    k = src.shape[1]
+    return torch.minimum(_trunc_mean_sqrt(d1v, k, fast),
+                         _trunc_mean_sqrt(d2v, k, fast))
 
 
 def _objective_cached(params, matches, src, tgt, angle_base,
                       cfg: HOUVConfig):
     """Mean loss over all replicas and per-replica min_1 (B, K), rebuilt
-    against cached matches."""
-    tg, s_sel = matches
+    against cached matches (``_objective_matches``)."""
+    tg, s_sel, views = matches
     r, t = reparametrize(params, angle_base, cfg.tran_mode)
     bsz, kernel = r.shape[:2]
     n = src.shape[1]
@@ -246,6 +285,9 @@ def _objective_cached(params, matches, src, tgt, angle_base,
     cd_t = _trunc_mean_sqrt(d2, k, cfg.fast_trim)
     min_1 = torch.minimum(cd_p, cd_t)
     loss = cfg.loss_weight * min_1
+    for dim, view_matches in enumerate(views):
+        loss = loss + _gathered_view_min(src, tgt, src_t, r, t, view_matches,
+                                         dim, cfg.fast_trim)
     return loss.mean(), min_1.reshape(bsz, kernel)
 
 
@@ -320,11 +362,11 @@ def _adam_loop(src, tgt, angle_base, cfg: HOUVConfig, params: dict,
         raise ValueError(
             f"step count {n_steps} not divisible by nn_refresh {refresh}")
     losses = []
+    if refresh > 1 and (cfg.grad_mode != "gather" or cfg.use_view_loss):
+        raise NotImplementedError(
+            "nn_refresh > 1 supports the canonical objective only "
+            "(grad_mode='gather', use_view_loss=False)")
     if cfg.grad_mode != "gather":
-        if refresh > 1:
-            raise NotImplementedError(
-                "nn_refresh > 1 supports the canonical objective only "
-                "(grad_mode='gather', use_view_loss=False)")
         for _ in range(n_steps):
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
@@ -425,16 +467,21 @@ def houv_pass(src, tgt, params0: dict, angle_base: float, cfg: HOUVConfig):
     return min_1, r, t
 
 
-def houv_solve(src: torch.Tensor, tgt: torch.Tensor,
-               cfg: HOUVConfig = HOUVConfig(), params0: dict | None = None,
-               generator: torch.Generator | None = None,
-               device: str | torch.device = "cuda") -> dict:
-    """Full hybrid solve. src, tgt (B, N, 3) on ``device``. ``params0``
-    (from ``init_params`` or ``state.params_from_jax``) fixes the restarts;
-    else they are drawn from ``generator`` (seed 0 when None).
+def houv_candidate_pools(src: torch.Tensor, tgt: torch.Tensor,
+                         cfg: HOUVConfig = HOUVConfig(),
+                         params0: dict | None = None,
+                         generator: torch.Generator | None = None,
+                         device: str | torch.device = "cuda"):
+    """The angle-window passes of the hybrid solve, keeping every restart:
+    window 0, then for the pairs past the threshold (or every pair, with
+    ``retry_mode='always'``) windows 1..passes-1. src, tgt (B, N, 3) on
+    ``device``; ``params0`` (from ``init_params`` or
+    ``state.params_from_jax``) fixes the restarts, else they are drawn from
+    ``generator`` (seed 0 when None).
 
-    Returns transform (B, 4, 4), rmse (B,) the best-restart loss, and
-    n_retry, the number of pairs that entered the retry passes."""
+    Returns (pool_loss (B, W·K), pool_r (B, W·K, 3, 3), pool_t (B, W·K, 3),
+    n_retry): a pair that never entered window w has +inf losses in that
+    window's slots; n_retry counts the pairs that entered the retries."""
     dev = resolve_device(device)
     check_on(dev, src, tgt)
     # the small rigid-transform einsums must run in full f32, not TF32
@@ -453,20 +500,34 @@ def houv_solve(src: torch.Tensor, tgt: torch.Tensor,
     else:
         retry_mask = best > cfg.retry_threshold
     n_retry = int(retry_mask.sum())
+    pools = [(min_1, r, t)]
     if n_retry:
         for base in range(1, cfg.angle_passes):
             m2, r2, t2 = houv_pass(src, tgt, params0, float(base), cfg)
-            best2, _ = _best_restart(m2)
-            improved = retry_mask & (best2 < best)
-            min_1 = torch.where(improved[:, None], m2, min_1)
-            r = torch.where(improved[:, None, None, None], r2, r)
-            t = torch.where(improved[:, None, None], t2, t)
-            best = torch.where(improved, best2, best)
+            pools.append((torch.where(retry_mask[:, None], m2, math.inf),
+                          r2, t2))
+    return (torch.cat([p[0] for p in pools], 1),
+            torch.cat([p[1] for p in pools], 1),
+            torch.cat([p[2] for p in pools], 1), n_retry)
 
-    _, idx = _best_restart(min_1)
-    rows = torch.arange(src.shape[0], device=src.device)
+
+def houv_solve(src: torch.Tensor, tgt: torch.Tensor,
+               cfg: HOUVConfig = HOUVConfig(), params0: dict | None = None,
+               generator: torch.Generator | None = None,
+               device: str | torch.device = "cuda") -> dict:
+    """Full hybrid solve: the restart of least loss over the windows of
+    ``houv_candidate_pools`` (its first on ties: the earlier window, the
+    earlier restart). Arguments as there.
+
+    Returns transform (B, 4, 4), rmse (B,) the best-restart loss, and
+    n_retry, the number of pairs that entered the retry passes."""
+    pool_loss, pool_r, pool_t, n_retry = houv_candidate_pools(
+        src, tgt, cfg, params0, generator, device)
+    best, idx = _best_restart(pool_loss)
+    rows = torch.arange(pool_loss.shape[0], device=pool_loss.device)
     return {
-        "transform": rt_to_transformation(r[rows, idx], t[rows, idx]),
+        "transform": rt_to_transformation(pool_r[rows, idx],
+                                          pool_t[rows, idx]),
         "rmse": best,
         "n_retry": n_retry,
     }

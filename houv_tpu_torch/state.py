@@ -3,8 +3,9 @@
 ``params_from_jax`` turns the output of ``houv_tpu.solvers.houv.init_params``
 (converted to numpy by the caller) into the port's parameter tensors, so both
 packages can be fed the same restarts. ``config_from_jax`` converts a JAX
-``HOUVConfig`` field by field. ``state_from_flax`` turns the flax parameters
-of a JAX completion model (PCN, ECG, VRCNet, or one of their modules) into
+``HOUVConfig`` field by field. ``state_from_flax`` turns the flax variables
+of a JAX model (PCN, ECG, VRCNet, the alignment classifier, or one of their
+modules: ``params``, and ``batch_stats`` where the model has BatchNorm) into
 the port's ``state_dict``. None imports anything of the JAX package.
 """
 
@@ -47,7 +48,8 @@ def config_from_jax(jax_cfg) -> HOUVConfig:
             kwargs[f.name] = value
         elif f.name not in _JAX_ONLY and value != f.default:
             raise NotImplementedError(
-                f"HOUVConfig.{f.name}={value!r} is not ported yet")
+                f"HOUVConfig.{f.name}={value!r} is not ported yet "
+                "(ROADMAP.md Queue 1, item 7c)")
     return HOUVConfig(**kwargs)
 
 
@@ -56,8 +58,21 @@ def _flax_to_torch(module: nn.Module, tree: dict, prefix: str,
     """Walk a flax parameter tree beside ``module``: each flax child name
     maps to the torch attribute recorded in ``module.flax_names``; a flax
     ``Dense`` kernel (in, out) becomes ``Linear.weight`` (out, in), an
-    ``Embed`` table ``Embedding.weight``."""
+    ``Embed`` table ``Embedding.weight``, and a leaf of a module with
+    ``flax_leaves`` the tensor that names (a sparse conv's (K, Cin, Cout)
+    ``kernel`` as it is; BatchNorm's ``scale``, ``bias``, ``mean`` and
+    ``var`` its ``weight``, ``bias``, ``running_mean`` and
+    ``running_var``)."""
     for flax_name, sub in tree.items():
+        if not isinstance(sub, dict):
+            try:
+                attr = module.flax_leaves[flax_name]
+            except (AttributeError, KeyError):
+                raise KeyError(f"no counterpart of flax '{prefix}{flax_name}'"
+                               f" in {type(module).__name__}") from None
+            out[f"{prefix}{attr}"] = torch.tensor(
+                np.asarray(sub, np.float32))
+            continue
         try:
             attr = module.flax_names[flax_name]
         except KeyError:
@@ -78,18 +93,24 @@ def _flax_to_torch(module: nn.Module, tree: dict, prefix: str,
 
 
 def state_from_flax(params: dict, model: nn.Module) -> dict:
-    """A JAX completion model's parameters (the nested dict of ``init``'s
-    ``params``, leaves as numpy arrays, with or without the top-level
-    ``'params'`` key) -> a ``state_dict`` for ``model``, the port's model of
-    the same class and configuration (``PCN``, ``ECG``, ``VRCNet``, or one
-    of their ``FlaxNamed`` modules, given that module's flax parameters).
-    Layers pair up by flax auto-name (``PCNEncoder_0``, ``ECGDecoder_0``,
-    ``EFEncoder_0``, ``DenseConv_2``, ``EFExpansion_0``, ``Dense_7``). Every
-    flax name must have a counterpart; ``model.load_state_dict(...,
+    """A JAX model's variables -> a ``state_dict`` for ``model``, the port's
+    model of the same class and configuration (``PCN``, ``ECG``,
+    ``VRCNet``, ``AlignmentClassifier``, or one of their ``FlaxNamed``
+    modules, given that module's flax variables). ``params`` is the nested
+    dict of ``init``'s ``params`` (leaves as numpy arrays), or a dict
+    holding it under ``'params'`` and, for a model with BatchNorm, its
+    running statistics under ``'batch_stats'`` (a checkpoint's two trees;
+    other keys, such as an optimizer state, are not model state). Layers
+    pair up by flax auto-name (``PCNEncoder_0``, ``ECGDecoder_0``,
+    ``DenseConv_2``, ``ResBlock_1``, ``BatchNorm_3``, ``Dense_7``). Every
+    flax leaf must have a counterpart; ``model.load_state_dict(...,
     strict=True)`` then checks the converse."""
-    tree = params.get("params", params)
     out: dict = {}
-    _flax_to_torch(model, tree, "", out)
+    if "params" not in params:
+        _flax_to_torch(model, params, "", out)
+        return out
+    for tree in (params["params"], params.get("batch_stats") or {}):
+        _flax_to_torch(model, tree, "", out)
     return out
 
 

@@ -1,16 +1,20 @@
 """Checkpoints of the port (counterpart of ``houv_tpu/train/checkpoint.py``).
 
-A checkpoint is a ``torch.save`` of ``{"model": state_dict, "optimizer":
-state_dict, "epoch": int}``; a file holding a bare model ``state_dict``
-loads too. The JAX package's checkpoints (flax msgpack) are not read here:
-its parameters are carried over as numpy arrays by
-``houv_tpu_torch.state.vrcnet_state_from_flax``.
+A checkpoint of the port is a ``torch.save`` of ``{"model": state_dict,
+"optimizer": state_dict, "epoch": int}``; a file holding a bare model
+``state_dict`` loads too. The JAX package's checkpoints (flax msgpack, as
+``flax.serialization.msgpack_serialize`` writes them) are read by
+``read_flax_msgpack`` into a tree of numpy arrays, with a decoder of its own
+(no ``msgpack`` package); ``houv_tpu_torch.state.state_from_flax`` maps
+that tree onto a model of the port.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 
+import numpy as np
 import torch
 
 
@@ -39,3 +43,99 @@ def load_checkpoint(path: str, model: torch.nn.Module,
     if optimizer is not None and "optimizer" in state:
         optimizer.load_state_dict(state["optimizer"])
     return int(state.get("epoch", 0))
+
+
+# flax/serialization.py's extension types: 1 an ndarray, 3 a numpy scalar,
+# each a packed (shape, dtype name, bytes)
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+
+class _Unpacker:
+    """A msgpack decoder for the types a flax checkpoint holds: nil, bool,
+    ints, floats, str, bin, arrays, maps and the extension types above."""
+
+    def __init__(self, data: bytes):
+        self.data = memoryview(data)
+        self.pos = 0
+
+    def _take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _uint(self, n: int) -> int:
+        return int.from_bytes(self._take(n), "big")
+
+    def _int(self, n: int) -> int:
+        return int.from_bytes(self._take(n), "big", signed=True)
+
+    def unpack(self):
+        tag = self._uint(1)
+        if tag <= 0x7F:
+            return tag
+        if tag >= 0xE0:
+            return tag - 0x100
+        if 0x80 <= tag <= 0x8F:
+            return self._map(tag & 0x0F)
+        if 0x90 <= tag <= 0x9F:
+            return [self.unpack() for _ in range(tag & 0x0F)]
+        if 0xA0 <= tag <= 0xBF:
+            return str(self._take(tag & 0x1F), "utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if tag in simple:
+            return simple[tag]
+        if tag in (0xC4, 0xC5, 0xC6):                       # bin 8/16/32
+            return bytes(self._take(self._uint(1 << (tag - 0xC4))))
+        if tag in (0xC7, 0xC8, 0xC9):                       # ext 8/16/32
+            n = self._uint(1 << (tag - 0xC7))
+            return self._ext(self._int(1), n)
+        if tag == 0xCA:
+            return struct.unpack(">f", self._take(4))[0]
+        if tag == 0xCB:
+            return struct.unpack(">d", self._take(8))[0]
+        if 0xCC <= tag <= 0xCF:                             # uint 8..64
+            return self._uint(1 << (tag - 0xCC))
+        if 0xD0 <= tag <= 0xD3:                             # int 8..64
+            return self._int(1 << (tag - 0xD0))
+        if 0xD4 <= tag <= 0xD8:                             # fixext 1..16
+            code = self._int(1)
+            return self._ext(code, 1 << (tag - 0xD4))
+        if tag in (0xD9, 0xDA, 0xDB):                       # str 8/16/32
+            return str(self._take(self._uint(1 << (tag - 0xD9))), "utf-8")
+        if tag in (0xDC, 0xDD):                             # array 16/32
+            return [self.unpack()
+                    for _ in range(self._uint(2 << (tag - 0xDC)))]
+        if tag in (0xDE, 0xDF):                             # map 16/32
+            return self._map(self._uint(2 << (tag - 0xDE)))
+        raise ValueError(f"msgpack type byte 0x{tag:02x} is not read here")
+
+    def _map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            key = self.unpack()
+            out[key] = self.unpack()
+        return out
+
+    def _ext(self, code: int, n: int):
+        payload = bytes(self._take(n))
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack extension type {code} is not a flax "
+                             "ndarray (1) or numpy scalar (3)")
+        shape, name, buf = _Unpacker(payload).unpack()
+        arr = np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape).copy()
+        return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def read_flax_msgpack(path: str) -> dict:
+    """The tree a JAX checkpoint holds (what ``flax.serialization.
+    msgpack_restore`` returns): nested dicts with numpy arrays and numpy
+    scalars as leaves. (An array leaf over 1 GiB, which flax writes in
+    chunks, comes back as the dict of chunks flax wrote.)"""
+    with open(path, "rb") as f:
+        unpacker = _Unpacker(f.read())
+    tree = unpacker.unpack()
+    if unpacker.pos != len(unpacker.data):
+        raise ValueError(f"{path}: trailing bytes after the msgpack tree")
+    return tree

@@ -1,10 +1,10 @@
 """Typed configuration read from the repository's ``cfgs/*.yaml``.
 
-Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep,
-the VRCNet completion sweep and VRCNet training read. Keys of other models
-land in ``extras``, as unknown keys do there. The reference's
-comma-separated lists ("2, 2, 2, 2", "0.01, 0.1, 0.5, 1") are parsed into
-tuples.
+Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep
+(its rescored mode included), the completion sweeps and training read.
+Keys of other models land in ``extras``, as unknown keys do there. The
+reference's comma-separated lists ("2, 2, 2, 2", "0.01, 0.1, 0.5, 1") are
+parsed into tuples.
 """
 
 from __future__ import annotations
@@ -119,8 +119,17 @@ class Config:
     nn_refresh: int = 1
     nn_refresh_schedule: str | None = None  # "N:R[:S],..." phases | "auto"
     window_select: str = "loss"
-    # classifier-rescored selection and multi-device sweeps: not ported
+    # classifier-rescored restart selection (solvers/rescore.py): the
+    # alignment classifier's checkpoint (a JAX flax msgpack file), its
+    # voxel grid, the candidates per pair, their rotation-NMS angle, the
+    # logit margin an override needs and the test-time rotations (1 = off)
     rescore_ckpt: str | None = None
+    grid_size: int = 50
+    rescore_cands: int = 16
+    rescore_angle: float = 10.0
+    rescore_margin: float = 0.0
+    rescore_tta: int = 1
+    # multi-device sweeps: not ported
     n_devices: int | None = None
 
     extras: dict = dataclasses.field(default_factory=dict)

@@ -35,11 +35,8 @@ from houv_tpu_torch.utils.meters import AverageValueMeter
 
 logger = logging.getLogger("houv_tpu_torch")
 
-# completion models of the JAX package the port does not run yet
-_NOT_PORTED = {
-    "transformer": "ROADMAP.md Queue 1, item 11",
-    "vrcnet_knn": "ROADMAP.md Queue 1, items 8 and 11",
-}
+# the completion models of the port; its other models are not trained yet
+_COMPLETION = {"pcn", "ecg", "vrcnet"}
 
 # models that draw random numbers (latent noise, dropout) and so take a
 # generator; PCN and ECG draw none
@@ -51,9 +48,11 @@ def model_from_config(cfg: Config) -> torch.nn.Module:
     config's keys mapped onto the model's constructor."""
     name = cfg.model_name
     if name not in MODELS:
-        where = _NOT_PORTED.get(name, "ROADMAP.md Queue 1")
+        get_model(name)  # raises, citing the ROADMAP item that ports it
+    if name not in _COMPLETION:
         raise NotImplementedError(
-            f"completion model {name!r} is not ported yet ({where})")
+            f"training {name!r} is not ported yet (ROADMAP.md Queue 1, "
+            "item 12)")
     if cfg.compute_dtype not in (None, "float32"):
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: only f32 is ported "

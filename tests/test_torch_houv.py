@@ -8,6 +8,7 @@ as the JAX package's own solver tests do on the CPU.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import torch
 
 from houv_tpu.data import synthesize_registration_pairs
 from houv_tpu.solvers import houv as jhouv
+from houv_tpu_torch.ops.chamfer import _nn_both_plain
 from houv_tpu_torch.solvers import houv as thouv
 from houv_tpu_torch.state import config_from_jax, params_from_jax
 
@@ -109,6 +111,134 @@ def test_scatter_mode_objective_and_gradient_match_at_step0(use_view_loss):
                                        atol=1e-7, err_msg=name)
 
 
+def _view_pairs(n, m):
+    """Two structured pairs with n source and m target points."""
+    src, tgt, _ = _pairs(2, max(n, m))
+    return src[:, :n].copy(), tgt[:, :m].copy()
+
+
+@pytest.mark.parametrize("n,m", [(128, 128), (96, 128), (128, 80)])
+def test_view_loss_gather_objective_and_gradient_match_at_step0(n, m):
+    """``use_view_loss`` under ``grad_mode='gather'``: the canonical loss
+    plus three projected searches, each rebuilt from matched rows, against
+    JAX's ``_objective_gather``: the loss to 1e-5 relative (f32 both), the
+    gradient to 1e-4 of its largest entry against JAX in f64. N != M both
+    ways: k is the source count and truncates both sides."""
+    src, tgt = _view_pairs(n, m)
+    jcfg = jhouv.HOUVConfig(kernel=8, use_pallas=False, use_view_loss=True)
+    cfg = config_from_jax(jcfg)
+    assert cfg.use_view_loss and cfg.grad_mode == "gather"
+    p_np = _jax_params(0, 2, 8)
+
+    def f(p, s, t):
+        return jhouv._objective_gather(p, s, t, 0.0, jcfg)
+
+    jloss, jmin1 = f({k: jnp.asarray(v) for k, v in p_np.items()},
+                     jnp.asarray(src), jnp.asarray(tgt))
+    with jax.enable_x64(True):
+        as64 = lambda a: jnp.asarray(np.asarray(a), jnp.float64)
+        jgrad = jax.grad(lambda p: f(p, as64(src), as64(tgt))[0])(
+            {k: as64(v) for k, v in p_np.items()})
+        jgrad = {k: np.asarray(v) for k, v in jgrad.items()}
+    params = {k: v.requires_grad_(True)
+              for k, v in params_from_jax(p_np, "cpu").items()}
+    loss, min1 = thouv._objective_gather(
+        params, torch.as_tensor(src), torch.as_tensor(tgt), 0.0, cfg)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(min1.detach().numpy(), np.asarray(jmin1),
+                               rtol=1e-5)
+    for name, g in zip(params, grads):
+        ref = jgrad[name]
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0,
+                                   atol=1e-4 * np.abs(ref).max(),
+                                   err_msg=name)
+    # the views add to the loss and leave the selection metric alone
+    base, bmin1 = thouv._objective_gather(
+        params, torch.as_tensor(src), torch.as_tensor(tgt), 0.0,
+        dataclasses.replace(cfg, use_view_loss=False))
+    assert loss.item() > base.item()
+    np.testing.assert_array_equal(min1.detach().numpy(),
+                                  bmin1.detach().numpy())
+
+
+@pytest.fixture
+def jax_exact_search(monkeypatch):
+    """JAX's solver searching with the port's exact diff-form selection.
+    Its CPU path ranks by the expansion form, which orders near-ties
+    differently, and the projected clouds of the view terms are full of
+    them; with one selection on both sides the objective's own arithmetic
+    is what is compared."""
+    jchamfer = importlib.import_module("houv_tpu.ops.chamfer")
+
+    def exact(a, b, *args, **kwargs):
+        def search(a, b):
+            i1, i2 = _nn_both_plain(torch.tensor(np.asarray(a)),
+                                    torch.tensor(np.asarray(b)))
+            return i1.numpy().astype(np.int32), i2.numpy().astype(np.int32)
+
+        rows = b.shape[0]
+        out = (jax.ShapeDtypeStruct((rows, a.shape[1]), jnp.int32),
+               jax.ShapeDtypeStruct((rows, b.shape[1]), jnp.int32))
+        return jax.pure_callback(search, out,
+                                 jax.lax.stop_gradient(a).astype(jnp.float32),
+                                 jax.lax.stop_gradient(b).astype(jnp.float32))
+
+    monkeypatch.setattr(jchamfer, "chamfer_indices", exact)
+
+
+def test_view_loss_gather_per_step_losses_match_jax(jax_exact_search):
+    """The view-loss objective along JAX's own 20 Adam steps from the same
+    restarts, both packages selecting exactly (``jax_exact_search``): at
+    every step the port's loss agrees to 1e-5 relative and its gradient to
+    1e-4 of the largest entry, and the port's Adam step from the same
+    moments and gradients gives JAX's next parameters. (Each package's own
+    f32 run parts from the other after a few steps: Adam divides a
+    gradient by its own scale, so a component near zero moves by O(lr) in
+    a direction its rounding decides.)"""
+    src, tgt = _view_pairs(96, 128)
+    jcfg = jhouv.HOUVConfig(kernel=8, steps=20, use_pallas=False,
+                            use_view_loss=True)
+    cfg = config_from_jax(jcfg)
+    p_np = _jax_params(3, 2, 8)
+    params = {k: jnp.asarray(v) for k, v in p_np.items()}
+    opt = optax.adam(jcfg.lr)
+    opt_state = opt.init(params)
+    vg = jax.jit(jax.value_and_grad(
+        lambda p: jhouv._objective_gather(p, jnp.asarray(src),
+                                          jnp.asarray(tgt), 0.0, jcfg)[0]))
+    tparams = params_from_jax(p_np, "cpu")
+    state = thouv._adam_init(tparams)
+    losses = []
+    for _ in range(jcfg.steps):
+        loss, grads = vg(params)
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in tparams.items()}
+        tloss, _ = thouv._objective_gather(
+            leaves, torch.as_tensor(src), torch.as_tensor(tgt), 0.0, cfg)
+        tgrads = torch.autograd.grad(tloss, list(leaves.values()))
+        np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
+        for name, g in zip(leaves, tgrads):
+            ref = np.asarray(grads[name])
+            np.testing.assert_allclose(g.numpy(), ref, rtol=0,
+                                       atol=1e-4 * np.abs(ref).max(),
+                                       err_msg=name)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        with torch.no_grad():
+            tparams = thouv._adam_update(
+                tparams, {k: torch.tensor(np.asarray(grads[k]))
+                          for k in tparams}, state, jcfg.lr)
+        for name, v in tparams.items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(params[name]),
+                                       rtol=1e-6, atol=1e-6, err_msg=name)
+        # the next step starts from JAX's parameters exactly
+        tparams = params_from_jax({k: np.asarray(v) for k, v in
+                                   params.items()}, "cpu")
+        losses.append(float(loss))
+    assert losses[-1] < 0.5 * losses[0]              # the steps descend
+
+
 def test_scatter_mode_solve_runs_and_rejects_what_jax_rejects():
     src, tgt, _ = _pairs(2, 96)
     cfg = thouv.HOUVConfig(kernel=4, steps=6, angle_passes=2,
@@ -130,13 +260,16 @@ def test_scatter_mode_solve_runs_and_rejects_what_jax_rejects():
     np.testing.assert_allclose(out["rmse"].numpy(), np.asarray(jout["rmse"]),
                                rtol=1e-3)
     # as in the JAX solver: no correspondence reuse outside the canonical
-    # objective; the view loss under 'gather' is not ported
+    # objective, the view loss under 'gather' included
     with pytest.raises(NotImplementedError, match="nn_refresh"):
         thouv.houv_solve(torch.as_tensor(src), torch.as_tensor(tgt),
                          dataclasses.replace(cfg, nn_refresh=2),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="7c"):
-        thouv.HOUVConfig(use_view_loss=True)
+    with pytest.raises(NotImplementedError, match="nn_refresh"):
+        thouv.houv_solve(torch.as_tensor(src), torch.as_tensor(tgt),
+                         thouv.HOUVConfig(kernel=4, steps=6, nn_refresh=2,
+                                          use_view_loss=True),
+                         device="cpu")
     with pytest.raises(ValueError, match="grad_mode"):
         thouv.HOUVConfig(grad_mode="dense")
 
@@ -243,7 +376,7 @@ def test_quality_gate_on_mvp_statistics_fixture():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("objective", "multi_percent"), ("use_view_loss", True),
+    ("objective", "multi_percent"),
     ("two_bracket", True),
     ("voxel_downsample", 32), ("window_select", "consensus"),
     ("rotation_mode", "euler"), ("reparam", "sigmoid"),

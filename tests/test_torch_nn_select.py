@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from houv_tpu.ops.chamfer import nn_select_pallas
+from houv_tpu.ops.chamfer import _nn_both_pallas, nn_select_pallas
 from houv_tpu.solvers import houv as jhouv
 from houv_tpu_torch.ops import chamfer as tc
 from houv_tpu_torch.solvers import houv as thouv
@@ -74,6 +74,58 @@ def test_nn_select_is_the_exact_gather_of_its_own_search(rng):
         tc.nn_select(at, bt[:5], device="cpu")
     with pytest.raises(ValueError, match="expected"):
         tc.nn_select(at[..., :2], bt, device="cpu")
+
+
+def _nan_clouds(kind):
+    """A seeded 50-point query cloud and 8 reference clouds of 40 that share
+    it: one NaN coordinate in the queries and one in a reference cloud, or
+    every query NaN."""
+    rng = np.random.default_rng(50)
+    a = rng.standard_normal((1, 50, 3)).astype(np.float32)
+    b = rng.standard_normal((8, 40, 3)).astype(np.float32)
+    if kind == "one_nan_point":
+        a[0, 17, 1] = np.nan
+        b[3, 5, 0] = np.nan
+    else:
+        a[:] = np.nan
+    return a, b
+
+
+@pytest.mark.parametrize("kind", ["one_nan_point", "all_nan_cloud"])
+def test_plain_versions_never_pick_a_nan_like_the_pallas_kernels(kind):
+    """A NaN distance never wins, as in the JAX package's own kernels on
+    its main path (``_use_pallas``: the TPU): ``_nn_both_plain`` picks
+    what ``_nn_both_pallas`` picks index for index, and a point whose every
+    distance is NaN takes index 0 on both sides. ``nn_select_pallas`` reads
+    its coordinates back through a one-hot product, which spreads a NaN to
+    that coordinate of every row its cloud serves; elsewhere its
+    coordinates are the rows ``_nn_select_plain`` copies, to 2^-16."""
+    a, b = _nan_clouds(kind)
+    j1, j2 = (np.asarray(x) for x in _nn_both_pallas(
+        jnp.asarray(a), jnp.asarray(b), interpret=True))
+    i1, i2 = tc._nn_both_plain(torch.tensor(a), torch.tensor(b))
+    np.testing.assert_array_equal(i1.numpy(), j1)
+    np.testing.assert_array_equal(i2.numpy(), j2)
+    if kind == "all_nan_cloud":
+        assert not i1.any() and not i2.any()
+    else:
+        assert (i2.numpy() != 17).all() and (i1.numpy()[3] != 5).all()
+    r1, r2 = (np.asarray(x) for x in nn_select_pallas(
+        jnp.asarray(a), jnp.asarray(b), interpret=True))
+    c1, c2 = (x.numpy() for x in tc._nn_select_plain(torch.tensor(a),
+                                                     torch.tensor(b)))
+    a_rep = np.repeat(a, 8, 0)
+    np.testing.assert_array_equal(
+        c1, np.take_along_axis(b, i1.numpy()[..., None], 1))
+    np.testing.assert_array_equal(
+        c2, np.take_along_axis(a_rep, i2.numpy()[..., None], 1))
+    for ours, ref, read in ((c1, r1, b), (c2, r2, a_rep)):
+        # the one-hot read's NaN: a column of a cloud that holds one
+        spread = np.isnan(read).any(1, keepdims=True) & np.isnan(ref)
+        np.testing.assert_allclose(np.where(spread, 0.0, ours),
+                                   np.where(spread, 0.0, ref),
+                                   rtol=2.0 ** -16, atol=2.0 ** -16)
+        assert (np.isnan(ref) == (spread | np.isnan(ours))).all()
 
 
 @pytest.fixture
