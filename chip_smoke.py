@@ -16,6 +16,7 @@ failed check exits non-zero:
 2. each of the eight kernels against its plain PyTorch version on the card:
    the nearest-neighbour search ``nn_both``, index for index (shared-query
    layout, houv.yaml's 6400 rows, the train steps' shapes, ragged, tiny M,
+   the classical solvers' ICP and grid Go-ICP batches, unshared,
    the tile and block edges of its launch plan with exact copies planted
    across threads, tiles and blocks, integer grids, NaN points and all-NaN
    clouds) and its coordinate form
@@ -25,18 +26,19 @@ failed check exits non-zero:
    NaN point in a finite cloud: bit for bit against the plain version and
    against the gather of K1's indices);
    ``fps``
-   (exact indices at its 16 path shapes, ``FPS_SHAPES``: the solver's,
-   VRCNet's and ECG's, the uniform losses' seeds included; at the edges of
-   its plan, one point, K == 1 and K >= N, the limit of 8192 points and
+   (exact indices at its 17 path shapes, ``FPS_SHAPES``: the solver's,
+   VRCNet's, ECG's and goicp_bnb's, the uniform losses' seeds included; at
+   the edges of its plan, one point, K == 1 and K >= N, the limit of 8192 points and
    8193 refused; integer grids, every point twice, planted copies);
-   ``knn`` at VRCNet's shapes and at ECG's (the
+   ``knn`` at VRCNet's shapes, FGR's (k 16 and 17) and ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
    with repeated points) and at the edges of its design (fewer queries
    than a warp, sizes off its blocks, tiles and batches, N == k, every
    bucket edge of k on integer grids, refs in parts, packed clouds at and
    beside the threshold, planted copies, all points equal: exact indices)
    and ``knn_wide`` at the four self-kNN shapes of
-   ECG's DenseConv, EFExpansion's two shapes, ragged cases in every k
+   ECG's DenseConv, EFExpansion's two shapes, FGR's mutual search (33
+   bins, k 1, both ways), ragged cases in every k
    bucket, the edges of its design (compiled widths and their neighbours,
    bucket and queue edges of k, split refs, unaligned rows) and duplicated
    rows across lanes, warps, blocks and parts (exact indices); the auction
@@ -62,7 +64,15 @@ failed check exits non-zero:
    ``log/``, no sparse-conv site dropped), the rescoring's card logits
    against the port's CPU path on the same overlays (5e-2, equal picks at
    margin 3), and ``houv_eval_main`` through ``train -c`` with its meters
-   by bucket;
+   by bucket; then the classical baselines through ``train -c``
+   (``phase_classical``: cfgs/fgr.yaml, cfgs/goicp_bnb.yaml, and icp and
+   goicp on fgr.yaml's settings, over 32 structured pairs at full width,
+   each run's launches held to ``classical_launches``, the card beside the
+   port's CPU path, K6 and K6-wide index for index on FGR's own clouds and
+   features, goicp_bnb's field and cube bounds and its planted 60° case on
+   the card) and the shard combine (``phase_combine``: houv_fast at batch
+   16 on 48 pairs, shards [0, 16) and [32, 48), ``--combine`` solving
+   [16, 32), held bit for bit to the unsharded sweep);
 4. VRCNet on the card against the port's CPU path at the parity tests'
    size; then the completion path of ``cfgs/vrcnet.yaml``, ``cfgs/pcn.yaml``
    and ``cfgs/ecg.yaml`` at full width: ``test_main`` over a 64-cloud
@@ -93,10 +103,11 @@ failed check exits non-zero:
    those steps, each of them one of ``FPS_SHAPES``;
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
-   library yardstick, with its launches on the paths above; ``nn_both`` at
-   its seven path shapes, ``nn_select`` at the solver's two (with K1 and
-   its two gathers on the same inputs beside it), ``fps`` at its 16,
-   ``knn`` at its 30 and ``knn_wide`` at its six, each but ``fps`` with
+   library yardstick, with its launches on the paths above (and on the
+   classical and combine runs, ``classical_launches``); ``nn_both`` at
+   its nine path shapes, ``nn_select`` at the solver's two (with K1 and
+   its two gathers on the same inputs beside it), ``fps`` at its 17,
+   ``knn`` at its 32 and ``knn_wide`` at its seven, each but ``fps`` with
    the floor of its
    contract (K2's latency floor: ``scripts/time_fps_variants.py``), and
    ``emd`` on its paths' own clouds (``EMD_SHAPES``: validate's first
@@ -281,6 +292,12 @@ def phase_nn(gen):
         err = max(err, check_nn(gt[:4].contiguous(), out,
                                 f"share1_B4_N2048_M{m}"))
     del gt, out
+    # the classical solvers' searches: ICP at fgr.yaml's batch of 16 and the
+    # grid Go-ICP's chunks of 5 rotations of it, (80, 2048)², unshared
+    for rows, path in ((16, "icp"), (80, "goicp")):
+        a = torch.rand((rows, 2048, 3), generator=gen).to(dev) - 0.5
+        b = torch.rand((rows, 2048, 3), generator=gen).to(dev) - 0.5
+        err = max(err, check_nn(a, b, f"{path}_B{rows}_N2048_M2048"))
     a = torch.randn((1, 2047, 3), generator=gen).to(dev)
     b = torch.randn((1, 1500, 3), generator=gen).to(dev)
     err = max(err, check_nn(a, b, "ragged_N2047_M1500"))
@@ -320,7 +337,8 @@ def phase_nn(gen):
 # decoder's pyramid and its trim of coarse_high, on the concatenated batch
 # of 64) and ECG's (the encoder's hierarchy, the trim of fine, and the
 # seeds of get_uniform_loss, 5% of the fine and of the coarse cloud, five
-# times each). ``fps_census`` records them from the paths themselves.
+# times each); goicp_bnb's subsample of the source, 256 of 2048 at its
+# yaml's batch of 8. ``fps_census`` records them from the paths themselves.
 FPS_SHAPES = ((16, 2048, 512, "houv_fast"), (16, 2048, 1024, "houv_fast"),
               (100, 2048, 512, "houv_fast"), (100, 2048, 1024, "houv_fast"),
               (16, 4096, 2048, "combine"),
@@ -329,7 +347,8 @@ FPS_SHAPES = ((16, 2048, 512, "houv_fast"), (16, 2048, 1024, "houv_fast"),
               (64, 3072, 2048, "vrcnet"),
               (32, 3072, 1024, "ecg"), (32, 1024, 256, "ecg"),
               (32, 256, 64, "ecg"), (32, 3072, 2048, "ecg"),
-              (32, 2048, 102, "ecg"), (32, 1024, 51, "ecg"))
+              (32, 2048, 102, "ecg"), (32, 1024, 51, "ecg"),
+              (8, 2048, 256, "goicp_bnb"))
 # the edges of K2's plan (N at and beside the sizes where its block or its
 # points a thread change, one point, a warp, the limit; K == 1 and K >= N)
 # on random clouds: (B, N, K)
@@ -418,8 +437,8 @@ def check_knn(q, r, k, name):
 
 def phase_knn(gen):
     """At VRCNet's level-0 shapes (batch 32): the self-kNN at k 20, the pk
-    query 1536 x 3072 at k 10, three_nn 3072 x 1536; a ragged case; then
-    ECG's shapes."""
+    query 1536 x 3072 at k 10, three_nn 3072 x 1536; a ragged case; FGR's
+    self-kNN at k 16 and 17; then ECG's shapes."""
     b, n = 32, 3072
     pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
     half = pts[:, ::2].contiguous()
@@ -429,6 +448,11 @@ def phase_knn(gen):
     q = torch.randn((2, 3071, 3), generator=gen).cuda()
     r = torch.randn((2, 1499, 3), generator=gen).cuda()
     err = max(err, check_knn(q, r, 17, "ragged_M3071_N1499_k17"))
+    # FGR's self-kNN at fgr.yaml's batch of 16: k 16 for the normals and
+    # k 17 for FPFH, one past the two-queries-a-thread bucket
+    x = pts[:16, :2048].contiguous()
+    for k in (16, 17):
+        err = max(err, check_knn(x, x, k, f"fgr_B16_N2048_k{k}"))
     del half, q, r
     err = max(err, _phase_knn_edges(gen))
     return max(err, _phase_knn_ecg(pts, gen))
@@ -830,6 +854,13 @@ def phase_knn_wide(gen):
         q, r = feats(b, m, c), feats(b, n, c)
         err = max(err, check_knn_wide(q, r, k,
                                       f"parts_B{b}_M{m}_N{n}_C{c}_k{k}"))
+    # FGR's mutual search at fgr.yaml's batch: 2048 FPFH features of 33
+    # bins against another cloud's, k 1, both ways (33 is no compiled
+    # width: the run-time-C path)
+    q = torch.rand((16, 2048, 33), generator=gen).cuda()
+    r = torch.rand((16, 2048, 33), generator=gen).cuda()
+    err = max(err, check_knn_wide(q, r, 1, "fgr_mutual_B16_N2048_C33_k1"))
+    err = max(err, check_knn_wide(r, q, 1, "fgr_mutual_back_B16_N2048_C33"))
     # rows off 16-byte alignment: the run-time-C path at a compiled width
     flat = torch.randn(2 * 400 * 24 + 1, generator=gen).cuda()
     x = flat[1:].view(2, 400, 24)
@@ -1301,6 +1332,279 @@ def phase_quality(n_pairs=QUALITY_PAIRS):
             fail("houv_eval_main: the buckets do not cover the pairs")
     return {"runs": [{k: v for k, v in r.items() if k != "out"}
                      for r in runs], "check": check, "eval": rec}
+
+
+# the classical solvers' runs: the model, the yaml it copies (icp and goicp
+# copy fgr.yaml with their model name, as the reference's train_ICP.py
+# serves them), a 32-pair structured val split at the yaml's width and
+# batch; the CPU path redoes the first batch's first pairs
+CLASSICAL_RUNS = (("fgr", "fgr.yaml"), ("goicp_bnb", "goicp_bnb.yaml"),
+                  ("icp", "fgr.yaml"), ("goicp", "fgr.yaml"))
+CLASSICAL_PAIRS = 32
+CLASSICAL_CPU_PAIRS = {"fgr": 4, "goicp_bnb": 2, "icp": 2}
+
+
+def classical_launches(model, cfg, batches):
+    """The kernel launches of ``icp_eval_main`` over ``batches`` batches,
+    derived from the code: FGR 4 K6 (k 16 and 17 on each cloud) and 2
+    K6-wide (the mutual search) a batch; goicp_bnb 1 K2 (the subsample); ICP
+    max(num_iters, 50) + 1 K1; the grid Go-ICP (21 grid chunks + 6 a
+    refinement level, 2 levels) x (num_iters + 1) K1."""
+    if model == "fgr":
+        return {"knn": 4 * batches, "knn_wide": 2 * batches}
+    if model == "goicp_bnb":
+        return {"fps": batches}
+    if model == "icp":
+        return {"nn_both": (max(cfg.num_iters, 50) + 1) * batches}
+    return {"nn_both": (21 + 6 * 2) * (cfg.num_iters + 1) * batches}
+
+
+def _agree_deg(a, b):
+    """Rotation angles (degrees) between two stacks of (4, 4) transforms."""
+    from houv_tpu_torch.geometry.rotations import rotation_error
+
+    return rotation_error(torch.as_tensor(a[:, :3, :3]),
+                          torch.as_tensor(b[:, :3, :3])).numpy()
+
+
+def _bnb_on_card(rng_seed=7):
+    """``tests/test_torch_goicp_bnb.py`` on the card, with its bounds: the
+    field's floor and ceiling around the true distance, each cube's LB under
+    the objective inside it (20 cubes), and the planted 60° case (e <=
+    1e-5, gap <= 5e-4, rotation error < 2°). A TF32 product in the field
+    would break the first two."""
+    from houv_tpu_torch.geometry.rotations import rodrigues
+    from houv_tpu_torch.solvers import goicp_bnb as bnb
+
+    rng = np.random.default_rng(rng_seed)
+
+    def cloud(n):
+        pts = rng.normal(size=(n, 3)).astype(np.float32)
+        return pts / (2.0 * np.abs(pts).max())
+
+    tgt = cloud(64)
+    field, cell = bnb.build_distance_field(torch.tensor(tgt[None]).cuda(),
+                                           24, -1.2, 1.2)
+    qry = rng.uniform(-3.0, 3.0, (1, 500, 3)).astype(np.float32)
+    true_d = np.sqrt(((qry[0][:, None].astype(np.float64) - tgt[None])
+                      ** 2).sum(-1).min(-1))
+    f, d = (x.cpu().numpy()[0] for x in
+            bnb._field_lookup(field, torch.tensor(qry).cuda(), -1.2, cell))
+    field_err = max(float((f - d - true_d).max()),
+                    float((true_d - f - d).max()))
+    src = cloud(48)
+    tgt = cloud(64)
+    field, cell = bnb.build_distance_field(torch.tensor(tgt[None]).cuda(),
+                                           24, -1.5, 1.5)
+    p = torch.tensor(src[None]).cuda()
+    p_norm = p.norm(dim=-1)
+    lb_excess = -np.inf
+    for _ in range(20):
+        rc = rng.uniform(-2.0, 2.0, 3).astype(np.float32)
+        sr, tc = float(rng.uniform(0.05, 0.6)), rng.uniform(-0.3, 0.3, 3)
+        st = float(rng.uniform(0.02, 0.2))
+        lb, _, _ = bnb.cube_bounds(
+            field, cell, -1.5, p, p_norm,
+            torch.tensor(rc[None, None]).cuda(),
+            torch.tensor([[sr]]).cuda(),
+            torch.tensor(tc[None, None], dtype=torch.float32).cuda(),
+            torch.tensor([[st]]).cuda(),
+            torch.tensor([[True]]).cuda())
+        rr = rc + rng.uniform(-sr, sr, 3).astype(np.float32)
+        tt = tc + rng.uniform(-st, st, 3)
+        ang = np.linalg.norm(rr)
+        r_in = rodrigues(torch.tensor([ang], dtype=torch.float32),
+                         torch.tensor((rr / max(ang, 1e-9))[None]))[0]
+        moved = src.astype(np.float64) @ r_in.double().numpy().T + tt
+        e_true = ((moved[:, None] - tgt[None]) ** 2).sum(-1).min(-1).mean()
+        lb_excess = max(lb_excess, float(lb[0, 0]) - e_true)
+    src = cloud(96)
+    axis = torch.tensor([[0.3, 1.0, -0.2]])
+    r_gt = rodrigues(torch.tensor([np.radians(60.0)], dtype=torch.float32),
+                     axis)[0].numpy()
+    tgt = src @ r_gt.T + np.array([0.1, -0.05, 0.08], np.float32)
+    out = bnb.goicp_bnb_solve(
+        torch.tensor(src[None]).cuda(), torch.tensor(tgt[None]).cuda(),
+        trans_half=0.2, n_src=48, grid=32, frontier=1024, levels=12,
+        icp_iters=8)
+    r_est = out["transform"][0, :3, :3].cpu().numpy()
+    rec = {"field_bound_excess": field_err, "cube_lb_excess": lb_excess,
+           "planted_e": float(out["e"][0]), "planted_gap": float(out["gap"][0]),
+           "planted_rot_err_deg": float(np.degrees(np.arccos(np.clip(
+               (np.trace(r_est.T @ r_gt) - 1) / 2, -1, 1)))),
+           "tolerance": 1e-5}
+    emit({"phase": "goicp_bnb_card_check", **rec})
+    if (field_err > 1e-5 or lb_excess > 1e-5 or rec["planted_e"] > 1e-5
+            or not -1e-6 <= rec["planted_gap"] <= 5e-4
+            or rec["planted_rot_err_deg"] >= 2.0):
+        fail(f"goicp_bnb on the card: {rec}")
+    return rec
+
+
+def phase_classical():
+    """The classical baselines at full width through ``train -c`` (the
+    port's ``icp_eval_main``): cfgs/fgr.yaml, cfgs/goicp_bnb.yaml, and icp
+    and goicp (copies of fgr.yaml with the model name changed) over a
+    32-pair structured val split, 2048 points, the yamls' batches (16; 8
+    for goicp_bnb). Each run's launches are held to the counts derived from
+    the code (``classical_launches``, the counts set to 0 just before the
+    run); the meters must be finite and goicp_bnb's gap >= 0 on every
+    pair. The card's transforms on the first batch's first pairs go beside
+    the port's CPU path's on the same pairs (the grid Go-ICP, 33 ICPs of
+    (num_iters + 1) searches a batch, on one pair at 4 iterations and its
+    first 512 points on both devices); K6 and K6-wide are checked index for
+    index on FGR's own clouds and features; then goicp_bnb's bounds and
+    its planted case on the card."""
+    from houv_tpu_torch.solvers import fgr
+    from houv_tpu_torch.train.cli import (build_dataset, classical_solve,
+                                          main as cli_main)
+    from houv_tpu_torch.train.config import load_config
+
+    counters = _completion_counters()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for model, base in CLASSICAL_RUNS:
+            with open(REPO / "cfgs" / base) as f:
+                raw = yaml.safe_load(f)
+            raw.update(model_name=model, synthetic_size=CLASSICAL_PAIRS,
+                       synthetic_shape="structured", work_dir=str(tmp))
+            path = Path(tmp) / f"{model}.yaml"
+            path.write_text(yaml.safe_dump(raw))
+            cfg = load_config(str(path))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero(counters)
+            t0 = time.perf_counter()
+            out = cli_main(["train", "-c", str(path)])
+            wall = time.perf_counter() - t0
+            launches = _read(counters)
+            batches = CLASSICAL_PAIRS // raw["batch_size"]
+            expected = classical_launches(model, cfg, batches)
+            rec = {"phase": "classical", "config": f"cfgs/{base}",
+                   "model": model, "pairs": out["n_pairs"],
+                   "points": raw["num_points"],
+                   "batch_size": raw["batch_size"],
+                   "num_iters": raw["num_iters"], "wall_s": wall,
+                   "solve_s": out["seconds"],
+                   "pairs_per_s": out["n_pairs"] / out["seconds"],
+                   "RotE": out["RotE"], "transE": out["transE"],
+                   "recall": out["recall"],
+                   "rot_err_median_deg": float(np.median(_agree_deg(
+                       out["transforms"], build_dataset(cfg, "val")
+                       .transforms[:out["n_pairs"]]))),
+                   "peak_memory_gib": torch.cuda.max_memory_allocated()
+                   / 2**30, "launches": launches,
+                   "launches_expected": expected}
+            if model == "goicp_bnb":
+                gap = out["bnb"]["gap"]
+                rec.update(certified=int(out["bnb"]["certified"].sum()),
+                           gap_max=float(gap.max()), gap_min=float(gap.min()),
+                           e_mean=float(out["bnb"]["e"].mean()))
+                if gap.min() < 0:
+                    fail(f"goicp_bnb: a negative gap {gap.min()}")
+            # the card beside the CPU path on the first batch's first pairs
+            ds = build_dataset(cfg, "val")
+            if model == "goicp":
+                cfg.num_iters = 4
+                batch = ds.get_batch(np.arange(1))
+                src, tgt = (torch.as_tensor(batch[k][:, :512])
+                            for k in ("src", "tgt"))
+                card = classical_solve(cfg, src.cuda(), tgt.cuda(),
+                                       torch.device("cuda"))["transform"]
+                card = card.cpu().numpy()
+                rec["cpu_compare"] = "pair 0, 512 points, num_iters 4"
+            else:
+                n = CLASSICAL_CPU_PAIRS[model]
+                batch = ds.get_batch(np.arange(n))
+                src, tgt = (torch.as_tensor(batch[k]) for k in ("src", "tgt"))
+                card = out["transforms"][:n]
+                rec["cpu_compare"] = f"the first batch's first {n} pairs"
+            cpu = classical_solve(cfg, src, tgt,
+                                  torch.device("cpu"))["transform"].numpy()
+            diff = _agree_deg(card, cpu)
+            rec.update(cpu_rot_diff_deg=diff.tolist(),
+                       cpu_share_within_1deg=float((diff < 1.0).mean()),
+                       cpu_trans_diff_max=float(np.abs(
+                           card[:, :3, 3] - cpu[:, :3, 3]).max()))
+            emit(rec)
+            for m in ("RotE", "transE", "recall"):
+                if not np.isfinite(rec[m]):
+                    fail(f"{model}: {m} = {rec[m]}")
+            if launches != expected:
+                fail(f"{model}: launches {launches}, derived {expected}")
+            runs[model] = rec
+            if model == "fgr":
+                # K6 and K6-wide index for index on FGR's own first batch
+                batch = ds.get_batch(np.arange(raw["batch_size"]))
+                x = torch.as_tensor(batch["src"]).cuda()
+                y = torch.as_tensor(batch["tgt"]).cuda()
+                for k in (16, 17):
+                    check_knn(x, x, k, f"fgr_path_B16_N2048_k{k}")
+                fx, fy = fgr.fpfh(x), fgr.fpfh(y)
+                check_knn_wide(fx, fy, 1, "fgr_path_fpfh_k1")
+                check_knn_wide(fy, fx, 1, "fgr_path_fpfh_back_k1")
+    runs["card_check"] = _bnb_on_card()
+    return runs
+
+
+def phase_combine():
+    """The shard combine at full width: cfgs/houv_fast.yaml at batch 16 on a
+    48-pair structured test split, unsharded; then shards [0, 16) and
+    [32, 48) and ``--combine``, which solves [16, 32). The merged
+    results.h5 is held to the unsharded one bit for bit; where they differ,
+    the largest rotation difference is printed (the solver's gather path
+    has no atomics: a difference would come from a library reduction or
+    product picking another algorithm)."""
+    from houv_tpu_torch.train.cli import test_main
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    counters = _completion_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(REPO / "cfgs" / "houv_fast.yaml") as f:
+            raw = yaml.safe_load(f)
+        paths = {}
+        for name in ("whole", "sharded"):
+            raw.update(synthetic_size=48, synthetic_shape="structured",
+                       batch_size=16, work_dir=str(Path(tmp) / name))
+            paths[name] = Path(tmp) / f"houv_fast_{name}.yaml"
+            paths[name].write_text(yaml.safe_dump(raw))
+        t0 = time.perf_counter()
+        whole = test_main(["-c", str(paths["whole"])])
+        whole_s = time.perf_counter() - t0
+        for l, r in ((0, 16), (32, 48)):
+            test_main(["-c", str(paths["sharded"]), "-l", str(l), "-r",
+                       str(r)])
+        _zero(counters)
+        t0 = time.perf_counter()
+        out = test_main(["-c", str(paths["sharded"]), "--combine"])
+        combine_s = time.perf_counter() - t0
+        launches = _read(counters)
+        merged = read_results_h5(out["results_h5"])
+        expected = read_results_h5(whole["results_h5"])
+        with open(out["manifest"]) as f:
+            manifest = json.load(f)
+    bits = merged.shape == expected.shape and \
+        merged.tobytes() == expected.tobytes()
+    rec = {"phase": "combine", "config": "cfgs/houv_fast.yaml",
+           "pairs": 48, "batch_size": 16, "shards": manifest["shards"],
+           "resolved": [list(x) for x in out["resolved"]],
+           "unsharded_s": whole_s, "combine_s": combine_s,
+           "launches": launches, "bit_equal": bits}
+    if not bits:
+        diff = _agree_deg(merged, expected)
+        rec.update(max_rot_diff_deg=float(diff.max()),
+                   rows_differing=int((merged != expected).any((1, 2)).sum()))
+    emit(rec)
+    if merged.shape != (48, 4, 4) or not np.isfinite(merged).all():
+        fail(f"combine: results {merged.shape} not finite (48, 4, 4)")
+    if manifest != {"total": 48, "shards": [[0, 16], [16, 32], [32, 48]]}:
+        fail(f"combine: manifest {manifest}")
+    if out["resolved"] != [(16, 32)] or min(
+            launches.get(k, 0) for k in ("nn_both", "fps")) < 1:
+        fail(f"combine solved {out['resolved']} with launches {launches}")
+    if not bits:
+        fail(f"combine differs from the unsharded sweep: {rec}")
+    return rec
 
 
 class _Count:
@@ -2475,9 +2779,12 @@ def _time_scatter(b, n, m, gen):
 
 
 # knn_wide on its paths: ECG's four DenseConv levels (self-kNN after a
-# ReLU, k 16) and VRCNet's two EFExpansions (k 4); (B, N, C, k)
+# ReLU, k 16), VRCNet's two EFExpansions (k 4) and FGR's mutual search in
+# the 33-bin FPFH space (k 1, one cloud's features against the other's,
+# at fgr.yaml's batch of 16); (B, N, C, k)
 KNN_WIDE_SHAPES = ((32, 3072, 24, 16), (32, 1024, 48, 16), (32, 256, 48, 16),
-                   (32, 64, 48, 16), (32, 3072, 256, 4), (32, 2048, 64, 4))
+                   (32, 64, 48, 16), (32, 3072, 256, 4), (32, 2048, 64, 4),
+                   (16, 2048, 33, 1))
 
 
 def _sm_max_clock_mhz() -> float:
@@ -2489,7 +2796,8 @@ def _sm_max_clock_mhz() -> float:
 
 
 def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
-    """knn_wide's self-kNN on b clouds of n points with c channels: kernel
+    """knn_wide's self-kNN on b clouds of n points with c channels (at k 1
+    FGR's search between two clouds of uniform features): kernel
     milliseconds, and with ``yardsticks`` the plain version's and ``cdist``
     + ``topk``'s, the bound (clouds and indices moved once; per pair and
     channel a sub, a mul and an add, and per pair a compare, at the f32
@@ -2501,15 +2809,19 @@ def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
     x = torch.randn((b, n, c), generator=gen).cuda()
     if k == 16:
         x = torch.relu(x)      # DenseConv's features; EFExpansion's are not
+    r = x
+    if k == 1:                 # FGR's: histograms, one cloud's to another's
+        x = torch.rand((b, n, c), generator=gen).cuda()
+        r = torch.rand((b, n, c), generator=gen).cuda()
     saved = grouping.knn_indices.wide_launches
-    ms = cuda_ms(lambda: grouping.knn_indices(x, x, k), reps=5)
+    ms = cuda_ms(lambda: grouping.knn_indices(x, r, k), reps=5)
     grouping.knn_indices.wide_launches = saved
     row = {"shape": {"query": [b, n, c], "ref": [b, n, c], "k": k}, "ms": ms}
     if not yardsticks:
         return row
-    row["plain_ms"] = cuda_ms(lambda: grouping._knn_plain(x, x, k), reps=1)
+    row["plain_ms"] = cuda_ms(lambda: grouping._knn_plain(x, r, k), reps=1)
     row["library_ms"] = cuda_ms(
-        lambda: torch.topk(torch.cdist(x, x), k, largest=False), reps=3)
+        lambda: torch.topk(torch.cdist(x, r), k, largest=False), reps=3)
     row["bound_ms"], row["bound_by"] = bound(
         4 * b * n * c * 2 + 8 * b * n * k, (3.0 * c + 1.0) * b * n * n)
     clock_mhz = _sm_max_clock_mhz()
@@ -2521,8 +2833,9 @@ def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
 # K6 on its paths, (B, M, N, k, path): VRCNet's 14 per forward (the
 # self-kNN graphs of the pyramid 3072/1536/768/384 at k 10 and 20, the pk
 # poolings at k 10, three_nn on the way up), ECG's 6 (the poolings at k 16,
-# three_nn) and get_uniform_loss's 10 per ECG step (FPS-seeded balls of 5%
+# three_nn), get_uniform_loss's 10 per ECG step (FPS-seeded balls of 5%
 # of the cloud, fine 2048 and coarse 1024 points, at five percentages, k 2)
+# and FGR's 4 a batch (the normals at k 16 and FPFH at k 17, each cloud)
 KNN_SHAPES = tuple(
     [(32, n, n, k, "vrcnet") for n in (3072, 1536, 768, 384)
      for k in (20, 10)]
@@ -2535,7 +2848,8 @@ KNN_SHAPES = tuple(
     + [(32 * (cloud // 20), s, s, 2, "ecg_uniform")
        for cloud in (2048, 1024)
        for s in (max(int(cloud * p), 2)
-                 for p in (0.004, 0.006, 0.008, 0.010, 0.012))])
+                 for p in (0.004, 0.006, 0.008, 0.010, 0.012))]
+    + [(16, 2048, 2048, k, "fgr") for k in (16, 17)])
 
 
 def _time_knn(b, m, n, k, path, gen, yardsticks=True, plain=False):
@@ -2576,11 +2890,13 @@ def _time_knn(b, m, n, k, path, gen, yardsticks=True, plain=False):
 
 # K1's path shapes, (Bq, share, N, M): houv_fast's final phase (16 pairs x
 # 64 restarts), houv.yaml's step (100 pairs x 64), the train steps' calc_cd
-# (64 rows against coarse_raw, coarse_high, coarse and fine) and PCN's and
-# ECG's (32 rows against coarse and fine)
+# (64 rows against coarse_raw, coarse_high, coarse and fine), PCN's and
+# ECG's (32 rows against coarse and fine), and the classical solvers': ICP
+# at fgr.yaml's batch of 16 and the grid Go-ICP's chunks of 5 x 16
 NN_SHAPES = ((16, 64, 2048, 2048), (100, 64, 2048, 2048),
              (64, 1, 2048, 1024), (64, 1, 2048, 3072), (64, 1, 2048, 2048),
-             (32, 1, 2048, 1024), (32, 1, 2048, 2048))
+             (32, 1, 2048, 1024), (32, 1, 2048, 2048),
+             (16, 1, 2048, 2048), (80, 1, 2048, 2048))
 
 
 def _time_nn_both(bq, share, n, m, gen, yardsticks=True, plain=True):
@@ -2802,14 +3118,16 @@ def _time_gather_rows(gen):
 
 
 def phase_kernels(launches, errs, completion, train, solve, models,
-                  models_train, select, gen):
+                  models_train, select, classical, combine, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
     clouds, on which emd is timed); ``train``: the VRCNet train_main run
     (scatter_add's count); ``solve``: the scatter-mode solve; ``models``
     and ``models_train``: the PCN and ECG runs; ``select``: the nn_select
-    solve with the exported row gather."""
+    solve with the exported row gather; ``classical`` and ``combine``: the
+    classical solvers' runs and the combine's re-solve, whose launches
+    each row carries under ``classical_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import emd
@@ -2840,7 +3158,7 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     vrc = {k: completion["test"]["launches"].get(k, 0)
            + completion["validate"]["launches"].get(k, 0)
            for k in ("knn", "emd")}
-    # knn at its 30 path shapes, the first VRCNet's level-0 self-kNN (32
+    # knn at its 32 path shapes, the first VRCNet's level-0 self-kNN (32
     # clouds of 3072 points, k 20), the plain version timed there
     shapes = [_time_knn(*shape, gen, plain=i == 0)
               for i, shape in enumerate(KNN_SHAPES)]
@@ -2901,7 +3219,12 @@ def phase_kernels(launches, errs, completion, train, solve, models,
         + models["vrcnet_efexpansion"]["knn_wide"],
         "nn_select": select["nn_select"]["nn_select_launches"],
         "gather_rows": select["gather_rows"]["launches"]})
+    paths = {m: rec["launches"] for m, rec in classical.items()
+             if "launches" in rec}
+    paths["combine"] = combine["launches"]
     for row in out:
+        row["classical_launches"] = {
+            m: n[row["name"]] for m, n in paths.items() if row["name"] in n}
         row["train_main_launches"] = {
             "vrcnet": train["train"]["launches"].get(row["name"], 0),
             **{m: models_train[m]["train"]["launches"].get(row["name"], 0)
@@ -2953,6 +3276,8 @@ def main(argv=None) -> int:
     timed(phase_chamfer_grad, gen)
     fast = timed(phase_main)
     timed(phase_quality)
+    classical = timed(phase_classical)
+    combine = timed(phase_combine)
     timed(phase_completion_reference)
     completion = timed(phase_completion)
     models = timed(phase_completion_models)
@@ -2969,7 +3294,8 @@ def main(argv=None) -> int:
     profiles["ecg"] = timed(phase_profile_train, "ecg")
     timed(phase_fps_census, profiles)
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
-                           train, solve, models, models_train, select, gen)})
+                           train, solve, models, models_train, select,
+                           classical, combine, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,3 +1,4 @@
+from houv_tpu_torch.geometry.kabsch import kabsch, weighted_kabsch
 from houv_tpu_torch.geometry.rotations import (
     normalize_translation,
     rmse_loss,
@@ -9,6 +10,7 @@ from houv_tpu_torch.geometry.rotations import (
 )
 
 __all__ = [
-    "normalize_translation", "rmse_loss", "rodrigues", "rotation_error",
-    "rotation_geodesic_error", "rt_to_transformation", "translation_error",
+    "kabsch", "normalize_translation", "rmse_loss", "rodrigues",
+    "rotation_error", "rotation_geodesic_error", "rt_to_transformation",
+    "translation_error", "weighted_kabsch",
 ]

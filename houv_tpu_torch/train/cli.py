@@ -1,32 +1,43 @@
 """Command-line entries (counterpart of ``houv_tpu/train/cli.py`` on one
 device): the test sweep (HOUV registration; PCN, ECG or VRCNet completion),
-the training of a completion model and the HOUV solver's evaluation.
+the merge of a sharded sweep, the training of a completion model and the
+evaluation of the registration solvers.
 
     python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml [-l L -r R]
         [--data-path FILE] [--device cuda|cpu]
     (likewise houv.yaml, houv_quality.yaml, houv_rescore.yaml, ...)
+    python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml --combine
     python -m houv_tpu_torch.train.cli -c cfgs/vrcnet.yaml [--device cpu]
     python -m houv_tpu_torch.train.cli train -c cfgs/vrcnet.yaml
         [--data-path FILE] [--device cuda|cpu]
     (likewise cfgs/pcn.yaml and cfgs/ecg.yaml)
     python -m houv_tpu_torch.train.cli train -c cfgs/houv_rescore.yaml
+    python -m houv_tpu_torch.train.cli train -c cfgs/fgr.yaml
+    (likewise cfgs/goicp_bnb.yaml, and model_name icp or goicp)
 
 The sweep runs the test split batch by batch and writes ``results.h5`` (the
 (N, 4, 4) transforms, or the (N, num_points, 3) completions) and
-``submission.zip`` under ``<work_dir>/<model_name>/``; with ``load_model``
-set, the completion sweep runs that checkpoint's weights; with
-``rescore_ckpt`` set, the HOUV sweep picks each pair's transform among
-rotation-diverse candidates with that trained classifier
-(``solvers/rescore.py``). ``train`` fits the config's completion model and
-writes ``network.ckpt`` and ``best_<metric>_network.ckpt`` under
+``submission.zip`` under ``<work_dir>/<model_name>/``; with ``-l L -r R``
+it solves pairs [L, R) into ``results_L_R.h5``, and ``--combine`` merges
+those shards, solves the ranges none covers and writes ``results.h5``,
+``submission.zip`` and ``manifest.json``. With ``load_model`` set, the
+completion sweep runs that checkpoint's weights; with ``rescore_ckpt`` set,
+the HOUV sweep picks each pair's transform among rotation-diverse
+candidates with that trained classifier (``solvers/rescore.py``).
+``train`` fits the config's completion model and writes ``network.ckpt``
+and ``best_<metric>_network.ckpt`` under
 ``<work_dir>/<model>_<loss>_<flag>/``; for ``model_name: houv`` it runs
-``houv_eval_main`` on the labelled val split instead. When the MVP .h5 file
-is absent, a synthetic split stands in.
+``houv_eval_main`` on the labelled val split instead, and for the
+classical solvers (``icp``, ``goicp``, ``goicp_bnb``, ``fgr``)
+``icp_eval_main``. When the MVP .h5 file is absent, a synthetic split
+stands in.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
+import json
 import os
 import sys
 import time
@@ -48,12 +59,18 @@ from houv_tpu_torch.geometry.rotations import (
     translation_error,
 )
 from houv_tpu_torch.models import get_model
+from houv_tpu_torch.ops.chamfer import chamfer_indices
+from houv_tpu_torch.ops.grouping import knn_indices
+from houv_tpu_torch.ops.sampling import furthest_point_sample
+from houv_tpu_torch.solvers.fgr import fgr_solve
+from houv_tpu_torch.solvers.goicp_bnb import goicp_bnb_solve
 from houv_tpu_torch.solvers.houv import (
     HOUVConfig,
     evaluate_solution,
     houv_solve,
     init_params,
 )
+from houv_tpu_torch.solvers.icp import goicp_solve, icp_solve
 from houv_tpu_torch.solvers.rescore import (
     houv_candidate_pools,
     houv_solve_rescored,
@@ -64,12 +81,16 @@ from houv_tpu_torch.train.checkpoint import read_flax_msgpack
 from houv_tpu_torch.train.config import (Config, load_config,
                                          parse_refresh_schedule)
 from houv_tpu_torch.train.harness import CompletionTrainer
-from houv_tpu_torch.train.submission import write_results_h5, write_submission
+from houv_tpu_torch.train.submission import (read_results_h5,
+                                             write_results_h5,
+                                             write_submission)
 from houv_tpu_torch.utils.logging_utils import setup_logging
 from houv_tpu_torch.utils.meters import AverageValueMeter, SplitMeterGrid
 
 REGISTRATION_MODELS = {"dcp", "deepgmr", "idam", "houv", "icp", "goicp",
                        "goicp_bnb", "fgr"}
+# the registration baselines without learned weights (icp_eval_main)
+CLASSICAL_MODELS = ("icp", "goicp", "goicp_bnb", "fgr")
 
 
 def is_registration(cfg: Config) -> bool:
@@ -156,7 +177,10 @@ def make_rescorer(cfg: Config, log, device):
 
 
 def _pair_generator(cfg: Config, start: int) -> torch.Generator:
-    """The restarts' generator of the batch starting at pair ``start``."""
+    """The restarts' generator of the batch starting at pair ``start`` of
+    the whole split (not of a shard): a sharded sweep whose shards start on
+    multiples of the batch size solves each pair as the unsharded one
+    does."""
     seed = cfg.manual_seed or 2021
     return torch.Generator().manual_seed(
         int(np.random.SeedSequence([seed, start]).generate_state(1)[0]))
@@ -191,16 +215,21 @@ def _solve_batch(cfg: Config, scfg: HOUVConfig, src, tgt, start, scorer,
 _DIAGNOSTICS = ("cand_loss", "cand_logits", "cand_r", "cand_t", "pick")
 
 
-def _houv_sweep(cfg: Config, ds, device, log):
+def _houv_sweep(cfg: Config, ds, device, log, offset: int = 0):
     """Solve the registration split batch by batch: (N, 4, 4) transforms
     and, for the log, the pairs that entered the retry passes; rescored,
     also the pairs whose pick the classifier overrode, the seconds of the
     pools and of the scoring, and the rescoring's per-pair diagnostics
-    (``rescore``: candidates, their losses and logits, the picks)."""
+    (``rescore``: candidates, their losses and logits, the picks).
+    ``offset``: the index of ``ds``'s first pair in the whole split."""
+    if cfg.model_name in CLASSICAL_MODELS:
+        raise NotImplementedError(
+            f"{cfg.model_name!r} has no test sweep, as in the JAX package: "
+            "evaluate it with `train -c`")
     if cfg.model_name != "houv":
         raise NotImplementedError(
             f"the registration sweep runs model_name 'houv' only, got "
-            f"{cfg.model_name!r} (ROADMAP.md Queue 1, items 9 and 12)")
+            f"{cfg.model_name!r} (ROADMAP.md Queue 1, item 12)")
     scfg = solver_config(cfg)
     scorer = make_rescorer(cfg, log, device)
     # Pairs go in batches of batch_size (the restart expansion makes a
@@ -218,7 +247,8 @@ def _houv_sweep(cfg: Config, ds, device, log):
         batch = ds.get_batch(np.resize(idx, bs))
         src = torch.as_tensor(batch["src"], device=device)
         tgt = torch.as_tensor(batch["tgt"], device=device)
-        out = _solve_batch(cfg, scfg, src, tgt, start, scorer, device, timing)
+        out = _solve_batch(cfg, scfg, src, tgt, offset + start, scorer,
+                           device, timing)
         chunks.append(out["transform"][: len(idx)].cpu().numpy())
         n_retry += out["n_retry"]
         if scorer is not None:
@@ -297,6 +327,83 @@ def houv_eval_main(cfg: Config, log, device) -> dict:
                 n_pairs=n_done, n_retry=n_retry, seconds=seconds, **timing)
 
 
+def _launch_counts() -> dict:
+    """The launch counters of the kernels the registration paths run."""
+    return {"nn_both": chamfer_indices.launches,
+            "fps": furthest_point_sample.launches,
+            "knn": knn_indices.launches,
+            "knn_wide": knn_indices.wide_launches}
+
+
+def classical_solve(cfg: Config, src, tgt, device) -> dict:
+    """One batch through the config's classical solver at the JAX CLI's
+    settings: ``fgr`` at max(num_iters, 48) GNC iterations, ``goicp_bnb``
+    at max(num_iters, 10) levels and translation half-width ``max_trans``,
+    ``goicp`` at num_iters ICP iterations a start (threshold 0.1), ``icp``
+    at max(num_iters, 50) (threshold 0.02)."""
+    if cfg.model_name == "fgr":
+        return fgr_solve(src, tgt, iters=max(cfg.num_iters, 48),
+                         device=device)
+    if cfg.model_name == "goicp_bnb":
+        return goicp_bnb_solve(src, tgt, trans_half=cfg.max_trans,
+                               levels=max(cfg.num_iters, 10), device=device)
+    if cfg.model_name == "goicp":
+        return goicp_solve(src, tgt, threshold=0.1, max_iters=cfg.num_iters,
+                           device=device)
+    return icp_solve(src, tgt, threshold=0.02,
+                     max_iters=max(cfg.num_iters, 50), device=device)
+
+
+def icp_eval_main(cfg: Config, log, device) -> dict:
+    """The classical baselines on the labelled val split (reference
+    registration/train_ICP.py:104-210, test_goicp.py's Go-ICP sweep):
+    ``classical_solve`` batch by batch, whole batches only, at most
+    ``batch_size`` pairs each. Returns RotE, transE and recall (the share
+    of pairs under 5° of rotation error), averaged over the pairs, with
+    ``n_pairs``, ``seconds`` (the batches' wall time, each ending in a
+    device sync), the kernels' ``launches`` in the run and the solved
+    ``transforms`` (n_pairs, 4, 4); for goicp_bnb also its per-pair
+    certificate under ``bnb`` (e, gap, certified)."""
+    ds = build_dataset(cfg, "val")
+    meters = {m: AverageValueMeter() for m in ("RotE", "transE", "recall")}
+    bs = max(min(cfg.batch_size, len(ds)), 1)
+    before = _launch_counts()
+    transforms, bnb = [], {"e": [], "gap": [], "certified": []}
+    t0 = time.perf_counter()
+    for start in range(0, (len(ds) // bs) * bs, bs):
+        batch = ds.get_batch(np.arange(start, start + bs))
+        src = torch.as_tensor(batch["src"], device=device)
+        tgt = torch.as_tensor(batch["tgt"], device=device)
+        out = classical_solve(cfg, src, tgt, device)
+        if cfg.model_name == "goicp_bnb":
+            for k in bnb:
+                bnb[k].append(out[k].cpu().numpy())
+            log.info("goicp_bnb: e %.5f gap %.5f certified %d/%d",
+                     float(bnb["e"][-1].mean()), float(bnb["gap"][-1].mean()),
+                     int(bnb["certified"][-1].sum()), bs)
+        t_gt = torch.as_tensor(batch["transform"], device=device).float()
+        r_err, t_err = evaluate_solution(out["transform"], t_gt)
+        r_err = r_err.cpu().numpy()
+        meters["RotE"].update(float(r_err.mean()), bs)
+        meters["transE"].update(float(t_err.mean()), bs)
+        meters["recall"].update(float((r_err < 5.0).mean()), bs)
+        transforms.append(out["transform"].cpu().numpy())
+        log.info("".join(f"{m}: {v.avg:.4f}; " for m, v in meters.items()))
+    seconds = time.perf_counter() - t0
+    n_done = len(transforms) * bs
+    log.info("%s eval done: %d pairs in %.1f s (%.3f pairs/s)",
+             cfg.model_name, n_done, seconds, n_done / max(seconds, 1e-9))
+    after = _launch_counts()
+    rec = dict({m: v.avg for m, v in meters.items()}, n_pairs=n_done,
+               seconds=seconds,
+               launches={k: after[k] - before[k] for k in after},
+               transforms=np.concatenate(transforms, 0) if transforms
+               else np.zeros((0, 4, 4), np.float32))
+    if cfg.model_name == "goicp_bnb" and transforms:
+        rec["bnb"] = {k: np.concatenate(v, 0) for k, v in bnb.items()}
+    return rec
+
+
 def _completion_sweep(cfg: Config, ds, device, log):
     """Complete the test split batch by batch with the config's model
     (``load_model``'s weights, else the seeded initialisation):
@@ -317,16 +424,105 @@ def _completion_sweep(cfg: Config, ds, device, log):
                                           "seconds": seconds}
 
 
+def _shard_range(path: str) -> tuple[int, int] | None:
+    """(l, r) of a ``results_<l>_<r>.h5`` file name, else None."""
+    parts = os.path.basename(path)[len("results_"):-len(".h5")].split("_")
+    if len(parts) != 2 or not all(p.isdigit() for p in parts):
+        return None
+    return int(parts[0]), int(parts[1])
+
+
+def _missing_ranges(total: int, shards) -> list[tuple[int, int]]:
+    """The maximal ranges of [0, total) that no (l, r) in ``shards``
+    covers, ascending."""
+    missing, pos = [], 0
+    for l, r in sorted(shards):
+        if l > pos:
+            missing.append((pos, l))
+        pos = max(pos, r)
+    if pos < total:
+        missing.append((pos, total))
+    return missing
+
+
+def combine_main(cfg: Config, config_path: str, device, log,
+                 data_path: str | None = None) -> dict:
+    """Merge a sharded sweep (the reference's run_test.sh combine, a blind
+    concatenation after a sleep; restartable here): read the
+    ``results_<l>_<r>.h5`` shards under ``<work_dir>/<model_name>/``, solve
+    each range of the test split that none covers through ``test_main -l
+    -r`` (with this config path, ``data_path`` and device), then write
+    ``results.h5``, ``submission.zip`` and ``manifest.json`` (the split's
+    size and the shards merged). Serves registration (N, 4, 4) and
+    completion (N, num_points, 3) shards alike. Raises ValueError, naming
+    the files, when shards overlap, reach past the split or hold other than
+    r - l rows."""
+    out_dir = os.path.join(cfg.work_dir, cfg.model_name)
+    total = len(build_dataset(cfg, "test"))
+    shards = {}
+    for path in sorted(glob.glob(os.path.join(out_dir, "results_*_*.h5"))):
+        rng = _shard_range(path)
+        if rng is not None:
+            shards[rng] = path
+    prev = None
+    for l, r in sorted(shards):
+        if not 0 <= l < r <= total:
+            raise ValueError(f"shard {shards[(l, r)]} is not a range of the "
+                             f"{total}-pair test split")
+        if prev is not None and l < prev[1]:
+            raise ValueError(f"shards {shards[prev]} and {shards[(l, r)]} "
+                             "overlap")
+        prev = (l, r)
+    resolved = _missing_ranges(total, shards)
+    for l, r in resolved:
+        log.info("solving missing shard [%d, %d)", l, r)
+        argv = ["-c", config_path, "-l", str(l), "-r", str(r),
+                "--device", str(device)]
+        if data_path:
+            argv += ["--data-path", data_path]
+        shards[(l, r)] = test_main(argv)["results_h5"]
+    parts = []
+    for (l, r), path in sorted(shards.items()):
+        part = read_results_h5(path)
+        if part.shape[0] != r - l:
+            raise ValueError(f"shard {path} holds {part.shape[0]} rows, not "
+                             f"{r - l}")
+        parts.append(part)
+    h5_path = write_results_h5(os.path.join(out_dir, "results.h5"),
+                               np.concatenate(parts, axis=0))
+    zip_path = write_submission(os.path.join(out_dir, "submission.zip"),
+                                h5_path)
+    manifest = os.path.join(out_dir, "manifest.json")
+    with open(manifest, "w") as f:
+        json.dump({"total": total,
+                   "shards": [list(k) for k in sorted(shards)]}, f)
+    log.info("combined %d shards (%d solved now) -> %s", len(shards),
+             len(resolved), h5_path)
+    return {"results_h5": h5_path, "submission": zip_path,
+            "manifest": manifest, "shards": sorted(shards),
+            "resolved": resolved}
+
+
+def _flag(value) -> bool:
+    """``--combine``'s value: given alone it is on; 0, false, no and off
+    turn it off."""
+    return str(value).strip().lower() not in ("", "0", "false", "no", "off")
+
+
 def test_main(argv=None) -> dict:
     """Run the sweep; returns the paths written, the wall seconds of the
     sweep's batches (set-up excluded) and its counts: ``n_pairs`` and
     ``n_retry`` (the pairs that entered the retry passes) for registration,
-    ``n_clouds`` for completion."""
+    ``n_clouds`` for completion. With ``--combine``, ``combine_main``'s
+    record."""
     p = argparse.ArgumentParser()
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-l", type=int, default=None)
     p.add_argument("-r", type=int, default=None)
-    p.add_argument("--combine", default=False)
+    p.add_argument("--combine", nargs="?", const=True, default=False,
+                   type=_flag,
+                   help="merge the results_<l>_<r>.h5 shards, solving the "
+                        "ranges none covers")
     p.add_argument("--data-path", default=None,
                    help="MVP .h5 file; overrides the config's data_path "
                         "(absent file -> synthetic fallback)")
@@ -341,17 +537,19 @@ def test_main(argv=None) -> dict:
     log = setup_logging(None)
 
     if args.combine:
-        raise NotImplementedError(
-            "--combine is not ported yet (ROADMAP.md Queue 1, item 7)")
+        return combine_main(cfg, args.config, device, log, args.data_path)
     if cfg.n_devices and cfg.n_devices > 1:
         raise NotImplementedError(
             "multi-device sweeps are not ported yet (ROADMAP.md Queue 1, "
             "item 13)")
 
     index_range = (args.l, args.r) if args.l is not None else None
-    sweep = _houv_sweep if is_registration(cfg) else _completion_sweep
     ds = build_dataset(cfg, "test", index_range=index_range)
-    results, counts = sweep(cfg, ds, device, log)
+    if is_registration(cfg):
+        results, counts = _houv_sweep(cfg, ds, device, log,
+                                      offset=args.l or 0)
+    else:
+        results, counts = _completion_sweep(cfg, ds, device, log)
 
     suffix = f"_{args.l}_{args.r}" if index_range else ""
     out_dir = os.path.join(cfg.work_dir, cfg.model_name)
@@ -368,7 +566,8 @@ def train_main(argv=None) -> dict:
     train split, validating on the val split). Returns the trainer, its log
     directory, the checkpoint ``fit`` wrote last, the per-step losses and
     the wall seconds of ``fit`` (set-up excluded). For ``model_name: houv``
-    returns ``houv_eval_main``'s meters."""
+    returns ``houv_eval_main``'s meters, for the classical solvers
+    ``icp_eval_main``'s."""
     p = argparse.ArgumentParser(prog="houv_tpu_torch.train.cli train")
     p.add_argument("-c", "--config", required=True)
     p.add_argument("--data-path", default=None,
@@ -387,10 +586,13 @@ def train_main(argv=None) -> dict:
         # evaluation on the labelled split
         log = setup_logging(os.path.join(cfg.work_dir, "houv"))
         return houv_eval_main(cfg, log, device)
+    if cfg.model_name in CLASSICAL_MODELS:
+        log = setup_logging(os.path.join(cfg.work_dir, cfg.model_name))
+        return icp_eval_main(cfg, log, device)
     if is_registration(cfg):
         raise NotImplementedError(
-            f"training or evaluating registration model {cfg.model_name!r} "
-            "is not ported yet (ROADMAP.md Queue 1, items 9 and 12)")
+            f"training registration model {cfg.model_name!r} is not ported "
+            "yet (ROADMAP.md Queue 1, item 12)")
     if cfg.n_devices and cfg.n_devices > 1:
         raise NotImplementedError(
             "multi-device training is not ported yet (ROADMAP.md Queue 1, "

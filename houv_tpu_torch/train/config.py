@@ -119,6 +119,9 @@ class Config:
     nn_refresh: int = 1
     nn_refresh_schedule: str | None = None  # "N:R[:S],..." phases | "auto"
     window_select: str = "loss"
+    # the classical solvers' iterations (train -c with icp, goicp, fgr;
+    # goicp_bnb's BnB levels), each under its own floor in icp_eval_main
+    num_iters: int = 3
     # classifier-rescored restart selection (solvers/rescore.py): the
     # alignment classifier's checkpoint (a JAX flax msgpack file), its
     # voxel grid, the candidates per pair, their rotation-NMS angle, the
