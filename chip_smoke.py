@@ -15,7 +15,8 @@ failed check exits non-zero:
    (nvcc, sm_90a, from ``houv_tpu_torch/csrc``, one nvcc per source);
 2. each of the eight kernels against its plain PyTorch version on the card:
    the nearest-neighbour search ``nn_both``, index for index (shared-query
-   layout, houv.yaml's 6400 rows, the train steps' shapes, ragged, tiny M,
+   layout, houv.yaml's 6400 rows, the train steps' shapes (vrcnet_knn's
+   and its fused_cd stack with the sentinels too), ragged, tiny M,
    the classical solvers' ICP and grid Go-ICP batches, unshared,
    the tile and block edges of its launch plan with exact copies planted
    across threads, tiles and blocks, integer grids, NaN points and all-NaN
@@ -26,11 +27,13 @@ failed check exits non-zero:
    NaN point in a finite cloud: bit for bit against the plain version and
    against the gather of K1's indices);
    ``fps``
-   (exact indices at its 17 path shapes, ``FPS_SHAPES``: the solver's,
-   VRCNet's, ECG's and goicp_bnb's, the uniform losses' seeds included; at
+   (exact indices at its 21 path shapes, ``FPS_SHAPES``: the solver's,
+   VRCNet's, ECG's, goicp_bnb's and vrcnet_knn's, the uniform losses'
+   seeds included; at
    the edges of its plan, one point, K == 1 and K >= N, the limit of 8192 points and
    8193 refused; integer grids, every point twice, planted copies);
-   ``knn`` at VRCNet's shapes, FGR's (k 16 and 17) and ECG's (the
+   ``knn`` at VRCNet's shapes, FGR's (k 16 and 17), vrcnet_knn's ten and
+   ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
    with repeated points) and at the edges of its design (fewer queries
    than a warp, sizes off its blocks, tiles and batches, N == k, every
@@ -90,7 +93,17 @@ failed check exits non-zero:
    ``LAUNCHES``, the checkpoint read back to bit-equal predictions by a
    trainer and by ``test_main`` with ``load_model``, and 10 steps on one
    repeated batch (the loss must fall); for VRCNet also ``use_remat`` and
-   ``loss: emd``, for ECG ``loss: emd``;
+   ``loss: emd``, for ECG ``loss: emd``; then vrcnet_knn
+   (``phase_vrcnet_knn``, cfgs/vrcnet_knn.yaml: batch 16, bf16, the hybrid
+   sparse/dense voxel branch with BatchNorm in train mode): the card
+   against the port's CPU path at the parity tests' size in f32 and bf16
+   (test cloud, val metrics, a train step's loss and running statistics),
+   ``train_main`` at full width (two epochs of four steps, launches held,
+   checkpoint reloads bit-equal), 10 steps on one batch with the sites
+   kept and dropped at each strided sparse conv and the 13³ occupancy, a
+   ``fused_cd`` loss equal to the separate chamfers', the sweep of
+   cfgs/vrcnet_knn_extratest.yaml over 512 clouds, and one profiled train
+   step;
 6. short ``houv_solve`` runs of ``cfgs/houv.yaml`` (4 pairs, 100 steps):
    ``grad_mode='scatter'`` beside the gather mode, and ``nn_select=True``
    beside the default (with a profiled window of 5 steps of each at 16
@@ -99,15 +112,17 @@ failed check exits non-zero:
 7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
    one houv_rescore window (8 pairs: the pool solve, then the scoring by
    the trained classifier), of one VRCNet test batch (32 clouds) and of
-   one VRCNet and one ECG train step; K2's census, (B, N, K) at its every launch in that window and
-   those steps, each of them one of ``FPS_SHAPES``;
+   one VRCNet, one ECG and one vrcnet_knn train step; K2's census,
+   (B, N, K) at its every launch in that window and those steps, each of
+   them one of ``FPS_SHAPES``;
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above (and on the
-   classical and combine runs, ``classical_launches``); ``nn_both`` at
-   its nine path shapes, ``nn_select`` at the solver's two (with K1 and
-   its two gathers on the same inputs beside it), ``fps`` at its 17,
-   ``knn`` at its 32 and ``knn_wide`` at its seven, each but ``fps`` with
+   classical and combine runs, ``classical_launches``, and on the
+   vrcnet_knn runs, ``vrcnet_knn_launches``); ``nn_both`` at its twelve
+   path shapes, ``nn_select`` at the solver's two (with K1 and its two
+   gathers on the same inputs beside it), ``fps`` at its 21, ``knn`` at
+   its 42 and ``knn_wide`` at its seven, each but ``fps`` with
    the floor of its
    contract (K2's latency floor: ``scripts/time_fps_variants.py``), and
    ``emd`` on its paths' own clouds (``EMD_SHAPES``: validate's first
@@ -298,6 +313,20 @@ def phase_nn(gen):
         a = torch.rand((rows, 2048, 3), generator=gen).to(dev) - 0.5
         b = torch.rand((rows, 2048, 3), generator=gen).to(dev) - 0.5
         err = max(err, check_nn(a, b, f"{path}_B{rows}_N2048_M2048"))
+    # vrcnet_knn's train step: 16 rows of 2048 gt points against coarse
+    # (1024), fine (3072) and native (2048); with fused_cd one search of the
+    # three stacked, coarse and native padded to 3072 with 1e3 sentinels
+    gt = torch.rand((16, 2048, 3), generator=gen).to(dev) - 0.5
+    outs = [torch.rand((16, m, 3), generator=gen).to(dev) - 0.5
+            for m in (1024, 3072, 2048)]
+    for out in outs:
+        err = max(err, check_nn(gt, out,
+                                f"vrcnet_knn_B16_N2048_M{out.shape[1]}"))
+    stacked = torch.cat([torch.cat([o, o.new_full(
+        (16, 3072 - o.shape[1], 3), 1e3)], 1) for o in outs], 0)
+    err = max(err, check_nn(gt.repeat(3, 1, 1), stacked,
+                            "vrcnet_knn_fused_B48_N2048_M3072"))
+    del gt, outs, stacked
     a = torch.randn((1, 2047, 3), generator=gen).to(dev)
     b = torch.randn((1, 1500, 3), generator=gen).to(dev)
     err = max(err, check_nn(a, b, "ragged_N2047_M1500"))
@@ -338,7 +367,9 @@ def phase_nn(gen):
 # of 64) and ECG's (the encoder's hierarchy, the trim of fine, and the
 # seeds of get_uniform_loss, 5% of the fine and of the coarse cloud, five
 # times each); goicp_bnb's subsample of the source, 256 of 2048 at its
-# yaml's batch of 8. ``fps_census`` records them from the paths themselves.
+# yaml's batch of 8; vrcnet_knn's forward at its batch of 16 (the U-Net's
+# pyramid over coarse + input, and fine 3072 -> native 2048).
+# ``fps_census`` records them from the paths themselves.
 FPS_SHAPES = ((16, 2048, 512, "houv_fast"), (16, 2048, 1024, "houv_fast"),
               (100, 2048, 512, "houv_fast"), (100, 2048, 1024, "houv_fast"),
               (16, 4096, 2048, "combine"),
@@ -348,7 +379,9 @@ FPS_SHAPES = ((16, 2048, 512, "houv_fast"), (16, 2048, 1024, "houv_fast"),
               (32, 3072, 1024, "ecg"), (32, 1024, 256, "ecg"),
               (32, 256, 64, "ecg"), (32, 3072, 2048, "ecg"),
               (32, 2048, 102, "ecg"), (32, 1024, 51, "ecg"),
-              (8, 2048, 256, "goicp_bnb"))
+              (8, 2048, 256, "goicp_bnb"),
+              (16, 3072, 1536, "vrcnet_knn"), (16, 1536, 768, "vrcnet_knn"),
+              (16, 768, 384, "vrcnet_knn"), (16, 3072, 2048, "vrcnet_knn"))
 # the edges of K2's plan (N at and beside the sizes where its block or its
 # points a thread change, one point, a warp, the limit; K == 1 and K >= N)
 # on random clouds: (B, N, K)
@@ -438,7 +471,8 @@ def check_knn(q, r, k, name):
 def phase_knn(gen):
     """At VRCNet's level-0 shapes (batch 32): the self-kNN at k 20, the pk
     query 1536 x 3072 at k 10, three_nn 3072 x 1536; a ragged case; FGR's
-    self-kNN at k 16 and 17; then ECG's shapes."""
+    self-kNN at k 16 and 17; vrcnet_knn's ten (batch 16); then ECG's
+    shapes."""
     b, n = 32, 3072
     pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
     half = pts[:, ::2].contiguous()
@@ -453,6 +487,12 @@ def phase_knn(gen):
     x = pts[:16, :2048].contiguous()
     for k in (16, 17):
         err = max(err, check_knn(x, x, k, f"fgr_B16_N2048_k{k}"))
+    # vrcnet_knn's 10 searches a forward, at its batch of 16
+    for b_, m, n_, k, _ in KNN_SHAPES:
+        if _ == "vrcnet_knn":
+            err = max(err, check_knn(pts[:b_, :m].contiguous(),
+                                     pts[:b_, :n_].contiguous(), k,
+                                     f"vrcnet_knn_B{b_}_M{m}_N{n_}_k{k}"))
     del half, q, r
     err = max(err, _phase_knn_edges(gen))
     return max(err, _phase_knn_ecg(pts, gen))
@@ -1670,6 +1710,10 @@ def _sum(*counts):
 # fps for 3 poolings and the trim 3072 -> 2048; a train step adds the two
 # uniform losses (5 fps and 5 knn each) and 2 calc_cd.
 # pcn: no kernel in its forward; 2 calc_cd a train step.
+# vrcnet_knn: 10 knn (4 graphs at k 16, 3 pooling, 3 three-NN) and 4 fps
+# (the U-Net's 3-level pyramid over coarse + input, fine 3072 -> native
+# 2048) a forward; 3 calc_cd a train step (coarse, fine, native; fine's
+# counted twice in the loss), the val metric on fine.
 LAUNCHES = {
     "vrcnet": {"test": {"knn": 14, "fps": 4},
                "val": {"knn": 14, "fps": 4, "nn_both": 1},
@@ -1681,6 +1725,10 @@ LAUNCHES = {
                       "scatter_add": 2}},
     "pcn": {"test": {}, "val": {"nn_both": 1},
             "train": {"nn_both": 2, "scatter_add": 2}},
+    "vrcnet_knn": {"test": {"knn": 10, "fps": 4},
+                   "val": {"knn": 10, "fps": 4, "nn_both": 1},
+                   "train": {"knn": 10, "fps": 4, "nn_both": 3,
+                             "scatter_add": 3}},
 }
 
 
@@ -2074,9 +2122,10 @@ def _full_train_cfg(tmp, model="vrcnet", **extra):
 
 def _repeated_batch(tmp, n_steps, use_remat, model="vrcnet", **extra):
     """``n_steps`` train steps of cfgs/<model>.yaml on one repeated batch
-    of 32 clouds at full width from the seeded initialisation: losses,
-    steps/s, peak memory (after a first step outside the clock) and the
-    kernels' launches. ``extra`` overrides keys of the config."""
+    (the config's batch size: 32, vrcnet_knn's 16) at full width from the
+    seeded initialisation: losses, steps/s, peak memory (after a first step
+    outside the clock) and the kernels' launches. ``extra`` overrides keys
+    of the config."""
     from houv_tpu_torch.train.cli import build_dataset
     from houv_tpu_torch.train.config import load_config
     from houv_tpu_torch.train.harness import CompletionTrainer
@@ -2085,8 +2134,9 @@ def _repeated_batch(tmp, n_steps, use_remat, model="vrcnet", **extra):
                                       **extra))
     trainer = CompletionTrainer(cfg)
     trainer.init_state()
+    bs = cfg.batch_size
     batch = build_dataset(cfg, "train").get_batch(
-        np.arange(32), rng=np.random.default_rng(0))
+        np.arange(bs), rng=np.random.default_rng(0))
     counters = _completion_counters()
     _zero(counters)
     torch.cuda.empty_cache()
@@ -2099,11 +2149,11 @@ def _repeated_batch(tmp, n_steps, use_remat, model="vrcnet", **extra):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     rec = {"phase": "train_repeated_batch", "config": f"cfgs/{model}.yaml",
-           "batch": 32, "use_remat": use_remat, "loss": cfg.loss,
+           "batch": bs, "use_remat": use_remat, "loss": cfg.loss,
            "steps": n_steps, "losses": losses,
            "launches": _read(counters),
            "steps_per_s": (n_steps - 1) / seconds,
-           "clouds_per_s": 32 * (n_steps - 1) / seconds,
+           "clouds_per_s": bs * (n_steps - 1) / seconds,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
     emit(rec)
     del trainer
@@ -2111,13 +2161,14 @@ def _repeated_batch(tmp, n_steps, use_remat, model="vrcnet", **extra):
     return rec
 
 
-def run_train_main(tmp, model):
+def run_train_main(tmp, model, **extra):
     """``train_main`` on cfgs/<model>.yaml at full width on the synthetic
     split (128 train clouds: 4 steps an epoch at batch 32; 64 val clouds: 2
-    val batches an epoch), two epochs, without ``use_remat``, the launch
-    counts held against the counts derived from the code; then the
-    checkpoint read back by a second trainer and by ``test_main`` with
-    ``load_model``, both to bit-equal predictions."""
+    val batches an epoch; ``extra`` overrides keys of the config), two
+    epochs, without ``use_remat``, the launch counts held against the
+    counts derived from the code; then the checkpoint read back by a second
+    trainer and by ``test_main`` with ``load_model`` over 64 clouds, both to
+    bit-equal predictions."""
     from houv_tpu_torch.train.cli import build_dataset, test_main, train_main
     from houv_tpu_torch.train.config import load_config
     from houv_tpu_torch.train.harness import CompletionTrainer
@@ -2126,39 +2177,50 @@ def run_train_main(tmp, model):
     counters = _completion_counters()
     _zero(counters)
     torch.cuda.reset_peak_memory_stats()
-    out = train_main(["-c", _full_train_cfg(tmp, model, nepoch=2)])
+    out = train_main(["-c", _full_train_cfg(tmp, model, nepoch=2, **extra)])
     torch.cuda.synchronize()
     launches = _read(counters)
     peak = torch.cuda.max_memory_allocated() / 2**30
     trainer = out["trainer"]
-    steps, val_batches = len(out["losses"]), 2 * 2
+    bs = trainer.cfg.batch_size
+    steps = len(out["losses"])
+    val_batches = 2 * (len(build_dataset(trainer.cfg, "val")) // bs)
     expected = _sum(_times(LAUNCHES[model]["train"], steps),
                     _times(LAUNCHES[model]["val"], val_batches))
     net = trainer.model
     fresh = CompletionTrainer(trainer.cfg)
     fresh.init_state()
-    moved = sum(int(not torch.equal(p, q)) for p, q in zip(
-        net.parameters(), fresh.model.parameters()))
+    still = sorted(n for (n, p), q in zip(net.named_parameters(),
+                                          fresh.model.parameters())
+                   if torch.equal(p, q))
     n_params = sum(1 for _ in net.parameters())
+    moved = n_params - len(still)
     finite_grads = sum(int(p.grad is not None
                            and bool(torch.isfinite(p.grad).all()))
                        for p in net.parameters())
+    # a selective-kernel fusion over one k (vrcnet_knn's knn_list of 16)
+    # softmaxes a single branch: 1 whatever its squeeze and excite layers
+    # say, so they get no gradient (in the JAX model too) and stay put
+    constant = sorted(n for n, p in net.named_parameters()
+                      if len(trainer.cfg.knn_list) == 1 and ".sk." in n
+                      and (".squeeze." in n or ".excite." in n)
+                      and not p.grad.any())
     del fresh
 
-    cfg_loaded = _full_train_cfg(tmp, model, synthetic_size=64,
-                                 load_model=out["checkpoint"])
+    cfg_loaded = _full_train_cfg(tmp, model, **dict(
+        extra, synthetic_size=64, load_model=out["checkpoint"]))
     reloaded = CompletionTrainer(load_config(cfg_loaded))
     reloaded.init_state()
     test_ds = build_dataset(load_config(cfg_loaded), "test")
-    first = test_ds.get_batch(np.arange(32))
+    first = test_ds.get_batch(np.arange(bs))
     pred = trainer.predict_batch(first, step=0)
     same_trainer = torch.equal(reloaded.predict_batch(first, step=0), pred)
     res = test_main(["-c", cfg_loaded])
     results = read_results_h5(res["results_h5"])
-    same_sweep = np.array_equal(results[:32], pred.cpu().numpy())
+    same_sweep = np.array_equal(results[:bs], pred.cpu().numpy())
     del reloaded
     rec = {"phase": "train", "config": f"cfgs/{model}.yaml",
-           "run": "train_main", "batch": 32, "use_remat": False,
+           "run": "train_main", "batch": bs, "use_remat": False,
            "epochs": 2, "steps": steps, "losses": out["losses"],
            "seconds": out["seconds"],
            "steps_per_s_with_validate_and_save": steps / out["seconds"],
@@ -2166,6 +2228,7 @@ def run_train_main(tmp, model):
            "launches": launches, "expected_launches": expected,
            "launches_per_step": LAUNCHES[model]["train"],
            "parameters": n_params, "parameters_moved": moved,
+           "parameters_constant_by_construction": constant,
            "parameters_with_finite_grad": finite_grads,
            "checkpoint": os.path.basename(out["checkpoint"]),
            "checkpoint_files": sorted(os.listdir(out["log_dir"])),
@@ -2177,13 +2240,14 @@ def run_train_main(tmp, model):
         fail(f"{model} train_main: {steps} steps, losses {out['losses']}")
     if launches != expected:
         fail(f"{model} train_main launches {launches}, expected {expected}")
-    if moved != n_params or finite_grads != n_params:
-        fail(f"{model} train_main: {moved} of {n_params} parameters moved, "
-             f"{finite_grads} have a finite gradient")
+    if still != constant or finite_grads != n_params:
+        fail(f"{model} train_main: {moved} of {n_params} parameters moved "
+             f"({still} did not), {finite_grads} have a finite gradient")
     if not (same_trainer and same_sweep):
         fail(f"{model}: the checkpoint does not reload to bit-equal "
              f"predictions (trainer {same_trainer}, test_main {same_sweep})")
-    if results.shape != (64, 2048, 3) or not np.isfinite(results).all():
+    if results.shape != (64, *pred.shape[1:]) \
+            or not np.isfinite(results).all():
         fail(f"{model} test_main with load_model: results {results.shape}")
     del trainer, net, pred
     torch.cuda.empty_cache()
@@ -2245,6 +2309,208 @@ def phase_train_models():
                  f"expected {want}; losses {emd['losses']}")
         out["ecg"]["emd"] = emd
         out["ecg"]["emd_inputs"] = emd_inputs.kept
+    return out
+
+
+# vrcnet_knn at the parity tests' size (tests/test_torch_vrcnet_knn.py):
+# both voxel levels run (grid 20 -> 10 sparse, dense from 5), the card
+# against the port's CPU path, f32 and bf16
+VRCNET_KNN_SMALL = dict(num_points=256, num_coarse=128, num_fine=384,
+                        num_native=256, knn_list="8", pk=8, grid_size=20,
+                        voxel_init_size=16, batch_size=2, synthetic_size=16)
+
+
+def _vrcnet_knn_small_run(cfg, dev, picks=None):
+    """The seeded small vrcnet_knn on ``dev``: one test batch's cloud, the
+    val metrics, one train step's loss and the running statistics it
+    moved, and the picks it made in that order (FPS, the chamfer matches,
+    the U-Net's geometry). With ``picks`` (another run's) every pick is
+    still computed here, by the kernels on the card, and counted where it
+    differs, and the run goes on with the given ones."""
+    from houv_tpu_torch.ops.chamfer import chamfer_indices
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    trainer = CompletionTrainer(cfg, dev)
+    trainer.init_state()
+    given = picks or {"fps": None, "matches": None, "geometry": None}
+    seen = {"geometry": [], "flips": 0}
+
+    def hook(_, args):
+        seen["geometry"].append(args[1])
+        if picks is None:
+            return None
+        ref = given["geometry"][len(seen["geometry"]) - 1]
+        seen["flips"] += _flips(args[1], ref)
+        return (args[0], _share_picks(args[1], ref), *args[2:])
+
+    handle = trainer.model.decoder.encoder.register_forward_pre_hook(hook)
+    with _Picks(furthest_point_sample, given["fps"]) as fps, \
+            _Picks(chamfer_indices, given["matches"]) as matches:
+        out = trainer.predict_batch(
+            build_dataset(cfg, "test").get_batch(np.arange(2))).cpu()
+        metrics = trainer.validate(build_dataset(cfg, "val"))
+        batch = build_dataset(cfg, "train").get_batch(
+            np.arange(2), rng=np.random.default_rng(0))
+        loss = float(trainer.train_step(batch, 0, 0))
+    handle.remove()
+    stats = {n: b.cpu() for n, b in trainer.model.named_buffers()}
+    return (out, metrics, loss, stats,
+            {"fps": fps.kept, "matches": matches.kept,
+             "geometry": seen["geometry"]},
+            {"fps": fps.flips, "matches": matches.flips,
+             "geometry": seen["flips"]})
+
+
+def _vrcnet_knn_cpu_vs_card(compute_dtype, tol):
+    """The seeded small vrcnet_knn on the CPU and on the card, the card on
+    the CPU run's picks (its own counted where they differ: a near-tie
+    that flips selects another point, which is another function): the
+    test cloud (as point sets: the largest distance from a point of either
+    cloud to the other), val's cd_p and cd_t (relative) and f1 (one point
+    crossing the threshold moves it by 2 / points), one train step's loss
+    (relative) and the running statistics it moved (relative to each
+    tensor's largest entry)."""
+    from houv_tpu_torch.train.config import Config
+
+    with open(REPO / "cfgs" / "vrcnet_knn.yaml") as f:
+        raw = yaml.safe_load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        raw.update(VRCNET_KNN_SMALL, compute_dtype=compute_dtype,
+                   work_dir=tmp)
+        cfg = Config.from_dict(raw)
+        c_out, c_m, c_loss, c_st, picks, _ = _vrcnet_knn_small_run(cfg,
+                                                                   "cpu")
+        g_out, g_m, g_loss, g_st, _, flips = _vrcnet_knn_small_run(
+            cfg, "cuda", picks)
+    d = torch.cdist(c_out.double(), g_out.double())
+    set_dist = float(torch.maximum(d.amin(-1).amax(-1),
+                                   d.amin(-2).amax(-1)).max())
+    diffs = {"cloud_set_dist": set_dist,
+             "cd_p_rel": abs(c_m["cd_p"] - g_m["cd_p"]) / c_m["cd_p"],
+             "cd_t_rel": abs(c_m["cd_t"] - g_m["cd_t"]) / c_m["cd_t"],
+             "f1": abs(c_m["f1"] - g_m["f1"]),
+             "loss_rel": abs(c_loss - g_loss) / abs(c_loss),
+             "stats_rel": max(float((g_st[n] - c_st[n]).abs().max()
+                                    / c_st[n].abs().max()) for n in c_st)}
+    bounds = dict(tol, f1=2 / 256)
+    rec = {"phase": "vrcnet_knn_reference", "compute_dtype": compute_dtype,
+           "clouds": 2, "points": 256, "grid": 20,
+           "outputs": list(g_out.shape), "loss_cpu": c_loss,
+           "loss_cuda": g_loss, "metrics_cpu": c_m, "metrics_cuda": g_m,
+           "card_picks_differing_from_cpu": flips, "diffs": diffs,
+           "bounds": bounds}
+    emit(rec)
+    bad = {k: v for k, v in diffs.items() if not v <= bounds[k]}
+    if bad or g_out.shape != (2, 384, 3):
+        fail(f"vrcnet_knn ({compute_dtype}) on the card differs from the "
+             f"CPU path: {bad}, output {list(g_out.shape)}")
+    return rec
+
+
+def _voxel_sites(model):
+    """Sites kept and dropped at each strided sparse conv (mean over the
+    batch's clouds), and the dense level's occupied share."""
+    vox = model.voxel
+    return {"strided_convs": [
+        {"grid": s["grid"], "kept_mean": float(s["kept"].float().mean()),
+         "dropped_mean": float(s["dropped"].float().mean()),
+         "dropped_max": int(s["dropped"].max())} for s in vox.sites],
+        "dense_13_occupancy": None if vox.dense_occupancy is None
+        else float(vox.dense_occupancy.mean())}
+
+
+def phase_vrcnet_knn():
+    """vrcnet_knn (cfgs/vrcnet_knn.yaml: batch 16, bf16, grid 50, init
+    128, the third voxel level dense at 13³):
+    (a) the card against the port's CPU path at the parity tests' size, in
+        f32 and in bf16 (``_vrcnet_knn_cpu_vs_card``);
+    (b) at full width ``train_main`` (two epochs of four steps over a
+        64-cloud synthetic split, validation and checkpoints, launches held
+        to ``LAUNCHES``) and ``test_main`` with ``load_model``
+        (``run_train_main``); 10 steps on one repeated batch (the loss
+        must fall), with the sites kept and dropped at each strided sparse
+        conv and the 13³ level's occupancy; one ``fused_cd`` forward, whose
+        loss must equal the separate chamfers';
+    (c) the sweep of cfgs/vrcnet_knn_extratest.yaml cut to 512 clouds,
+        clouds/s with the first batch's warm-up apart;
+    (d) one profiled train step (``phase_profile_train``), with K2's
+        census."""
+    from houv_tpu_torch.train.cli import build_dataset, test_main
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    out = {"reference": [_vrcnet_knn_cpu_vs_card(
+        None, {"cloud_set_dist": 1e-4, "cd_p_rel": 1e-4, "cd_t_rel": 1e-4,
+               "loss_rel": 1e-4, "stats_rel": 1e-4}),
+        _vrcnet_knn_cpu_vs_card(
+        "bfloat16", {"cloud_set_dist": 2e-2, "cd_p_rel": 1e-2,
+                     "cd_t_rel": 2e-2, "loss_rel": 1e-2, "stats_rel": 1e-2})]}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["train"] = run_train_main(tmp, "vrcnet_knn", synthetic_size=64)
+        rep = _repeated_batch(tmp, 10, False, "vrcnet_knn")
+        _falling(rep, "vrcnet_knn")
+        out["repeated"] = rep
+
+        cfg = load_config(_full_train_cfg(tmp, "vrcnet_knn"))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        batch = build_dataset(cfg, "train").get_batch(
+            np.arange(cfg.batch_size), rng=np.random.default_rng(0))
+        model = trainer.model
+        kw = dict(label=trainer._tensor(batch, "label").long(),
+                  coords=trainer._tensor(batch, "coords"))
+        x, gt = trainer._tensor(batch, "partial"), trainer._tensor(batch,
+                                                                  "gt")
+        losses = {}
+        with torch.no_grad():
+            for fused in (False, True):
+                model.fused_cd = fused
+                losses[fused] = float(model(
+                    x, gt, "train", generator=torch.Generator().manual_seed(
+                        3), **kw)["total_loss"])
+            sites = _voxel_sites(model)
+        model.fused_cd = False
+        fused_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        rec = {"phase": "vrcnet_knn", "run": "fused_cd",
+               "loss_separate": losses[False], "loss_fused": losses[True],
+               "rel_diff": fused_rel, "tolerance_rel": 1e-6, **sites}
+        emit(rec)
+        if not fused_rel <= 1e-6:
+            fail(f"vrcnet_knn fused_cd loss {losses[True]} is not the "
+                 f"separate chamfers' {losses[False]}")
+        out["fused"] = rec
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        counters = _completion_counters()
+        _zero(counters)
+        res = test_main(["-c", _model_cfg(tmp, "vrcnet_knn_extratest", 512)])
+        launches = _read(counters)
+        from houv_tpu_torch.train.submission import read_results_h5
+        results = read_results_h5(res["results_h5"])
+        steady = res["seconds"] - res["first_batch_seconds"]
+        expected = _times(LAUNCHES["vrcnet_knn"]["test"], 512 // 16)
+        sweep = {"phase": "vrcnet_knn", "run": "test_main",
+                 "config": "cfgs/vrcnet_knn_extratest.yaml",
+                 "clouds": res["n_clouds"], "batch": 16,
+                 "seconds": res["seconds"],
+                 "first_batch_seconds": res["first_batch_seconds"],
+                 "clouds_per_s": res["n_clouds"] / res["seconds"],
+                 "clouds_per_s_after_first":
+                     (res["n_clouds"] - 16) / steady,
+                 "result": list(results.shape), "launches": launches,
+                 "expected_launches": expected}
+        emit(sweep)
+        if results.shape != (512, 3072, 3) or not np.isfinite(results).all() \
+                or launches != expected:
+            fail(f"vrcnet_knn_extratest sweep: results {results.shape}, "
+                 f"launches {launches}, expected {expected}")
+        out["sweep"] = sweep
+    torch.cuda.empty_cache()
+    out["profile"] = phase_profile_train("vrcnet_knn")
     return out
 
 
@@ -2530,8 +2796,9 @@ def phase_train_reference_ecg():
 def phase_profile_train(model="vrcnet", **extra):
     """Where one train step's time goes on cfgs/<model>.yaml (``extra``
     overriding its keys, as ``loss="emd"``): torch.profiler over one step
-    of 32 clouds at full width, after two warm-up steps, the second of them
-    with K2's census (``fps_census``: (B, N, K) of each launch)."""
+    of the config's batch (32 clouds; vrcnet_knn's 16) at full width, after
+    two warm-up steps, the second of them with K2's census
+    (``fps_census``: (B, N, K) of each launch)."""
     from torch.profiler import ProfilerActivity, profile
 
     from houv_tpu_torch.ops.sampling import furthest_point_sample
@@ -2543,8 +2810,9 @@ def phase_profile_train(model="vrcnet", **extra):
         cfg = load_config(_full_train_cfg(tmp, model, **extra))
         trainer = CompletionTrainer(cfg)
         trainer.init_state()
+        bs = cfg.batch_size
         batch = build_dataset(cfg, "train").get_batch(
-            np.arange(32), rng=np.random.default_rng(0))
+            np.arange(bs), rng=np.random.default_rng(0))
         trainer.train_step(batch, 0, 0)
         with _Census(furthest_point_sample) as census:
             trainer.train_step(batch, 0, 1)
@@ -2555,7 +2823,7 @@ def phase_profile_train(model="vrcnet", **extra):
             trainer.train_step(batch, 0, 2)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    rec = {"phase": "profile", "config": f"cfgs/{model}.yaml", "clouds": 32,
+    rec = {"phase": "profile", "config": f"cfgs/{model}.yaml", "clouds": bs,
            "run": "train_step", **extra, **_profile_top(prof, wall_ms),
            "fps_census": census.kept}
     emit(rec)
@@ -2835,7 +3103,9 @@ def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
 # poolings at k 10, three_nn on the way up), ECG's 6 (the poolings at k 16,
 # three_nn), get_uniform_loss's 10 per ECG step (FPS-seeded balls of 5%
 # of the cloud, fine 2048 and coarse 1024 points, at five percentages, k 2)
-# and FGR's 4 a batch (the normals at k 16 and FPFH at k 17, each cloud)
+# FGR's 4 a batch (the normals at k 16 and FPFH at k 17, each cloud) and
+# vrcnet_knn's 10 per forward at its batch of 16 (the k 16 graphs of the
+# pyramid 3072/1536/768/384, the pk 10 poolings, three_nn on the way up)
 KNN_SHAPES = tuple(
     [(32, n, n, k, "vrcnet") for n in (3072, 1536, 768, 384)
      for k in (20, 10)]
@@ -2849,7 +3119,10 @@ KNN_SHAPES = tuple(
        for cloud in (2048, 1024)
        for s in (max(int(cloud * p), 2)
                  for p in (0.004, 0.006, 0.008, 0.010, 0.012))]
-    + [(16, 2048, 2048, k, "fgr") for k in (16, 17)])
+    + [(16, 2048, 2048, k, "fgr") for k in (16, 17)]
+    + [(16, n, n, 16, "vrcnet_knn") for n in (3072, 1536, 768, 384)]
+    + [(16, n // 2, n, 10, "vrcnet_knn") for n in (3072, 1536, 768)]
+    + [(16, n, n // 2, 3, "vrcnet_knn") for n in (3072, 1536, 768)])
 
 
 def _time_knn(b, m, n, k, path, gen, yardsticks=True, plain=False):
@@ -2891,12 +3164,15 @@ def _time_knn(b, m, n, k, path, gen, yardsticks=True, plain=False):
 # K1's path shapes, (Bq, share, N, M): houv_fast's final phase (16 pairs x
 # 64 restarts), houv.yaml's step (100 pairs x 64), the train steps' calc_cd
 # (64 rows against coarse_raw, coarse_high, coarse and fine), PCN's and
-# ECG's (32 rows against coarse and fine), and the classical solvers': ICP
-# at fgr.yaml's batch of 16 and the grid Go-ICP's chunks of 5 x 16
+# ECG's (32 rows against coarse and fine), the classical solvers': ICP
+# at fgr.yaml's batch of 16 (also vrcnet_knn's native) and the grid
+# Go-ICP's chunks of 5 x 16, and vrcnet_knn's: 16 rows against coarse and
+# fine (fine also its val metric), and fused_cd's 48 stacked rows
 NN_SHAPES = ((16, 64, 2048, 2048), (100, 64, 2048, 2048),
              (64, 1, 2048, 1024), (64, 1, 2048, 3072), (64, 1, 2048, 2048),
              (32, 1, 2048, 1024), (32, 1, 2048, 2048),
-             (16, 1, 2048, 2048), (80, 1, 2048, 2048))
+             (16, 1, 2048, 2048), (80, 1, 2048, 2048),
+             (16, 1, 2048, 1024), (16, 1, 2048, 3072), (48, 1, 2048, 3072))
 
 
 def _time_nn_both(bq, share, n, m, gen, yardsticks=True, plain=True):
@@ -3118,7 +3394,7 @@ def _time_gather_rows(gen):
 
 
 def phase_kernels(launches, errs, completion, train, solve, models,
-                  models_train, select, classical, combine, gen):
+                  models_train, select, classical, combine, vrcnet_knn, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
@@ -3127,7 +3403,9 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     and ``models_train``: the PCN and ECG runs; ``select``: the nn_select
     solve with the exported row gather; ``classical`` and ``combine``: the
     classical solvers' runs and the combine's re-solve, whose launches
-    each row carries under ``classical_launches``."""
+    each row carries under ``classical_launches``; ``vrcnet_knn``: its
+    phase, whose runs' launches each row carries under
+    ``vrcnet_knn_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import emd
@@ -3158,7 +3436,7 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     vrc = {k: completion["test"]["launches"].get(k, 0)
            + completion["validate"]["launches"].get(k, 0)
            for k in ("knn", "emd")}
-    # knn at its 32 path shapes, the first VRCNet's level-0 self-kNN (32
+    # knn at its 42 path shapes, the first VRCNet's level-0 self-kNN (32
     # clouds of 3072 points, k 20), the plain version timed there
     shapes = [_time_knn(*shape, gen, plain=i == 0)
               for i, shape in enumerate(KNN_SHAPES)]
@@ -3228,7 +3506,12 @@ def phase_kernels(launches, errs, completion, train, solve, models,
         row["train_main_launches"] = {
             "vrcnet": train["train"]["launches"].get(row["name"], 0),
             **{m: models_train[m]["train"]["launches"].get(row["name"], 0)
-               for m in ("pcn", "ecg")}}
+               for m in ("pcn", "ecg")},
+            "vrcnet_knn": vrcnet_knn["train"]["launches"].get(row["name"],
+                                                              0)}
+        row["vrcnet_knn_launches"] = {
+            run: vrcnet_knn[run]["launches"].get(row["name"], 0)
+            for run in ("train", "repeated", "sweep")}
     return out
 
 
@@ -3285,6 +3568,7 @@ def main(argv=None) -> int:
     timed(phase_train_reference_ecg)
     train = timed(phase_train)
     models_train = timed(phase_train_models)
+    vrcnet_knn = timed(phase_vrcnet_knn)
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
     profiles = {"houv_fast": timed(phase_profile)}
@@ -3292,10 +3576,11 @@ def main(argv=None) -> int:
     timed(phase_profile_vrcnet)
     profiles["vrcnet"] = timed(phase_profile_train)
     profiles["ecg"] = timed(phase_profile_train, "ecg")
+    profiles["vrcnet_knn"] = vrcnet_knn["profile"]
     timed(phase_fps_census, profiles)
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select,
-                           classical, combine, gen)})
+                           classical, combine, vrcnet_knn, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

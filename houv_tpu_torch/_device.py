@@ -26,3 +26,12 @@ def check_on(device: torch.device, *tensors: torch.Tensor) -> None:
             raise ValueError(
                 f"tensor on {t.device} but device={device}; move it first"
             )
+
+
+def exact_cuda_math() -> None:
+    """The card's products as the model asks for them: f32 products in
+    full f32 (TF32 off in cuBLAS and cuDNN), and bf16 products summed in
+    f32 (no reduced-precision bf16 reductions in cuBLAS)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -435,8 +435,12 @@ class MVPRegistrationDataset:
 class MVPCompletionDataset:
     """MVP_CP (reference completion/dataset.py:12-61): 26 partials per
     complete model, gt = complete[index // 26], train scale aug uniform in
-    {0.8, ..., 1.2}. ``with_voxels`` (the MVP_CP_EX grid indices of
-    ``vrcnet_knn``) is not ported yet."""
+    {0.8, ..., 1.2}. ``with_voxels`` adds ``coords``, each point's indices
+    on the fixed [min_volume, max_volume]³ grid of ``grid_size`` cells a
+    side (the MVP_CP_EX clouds of ``vrcnet_knn``'s voxel branch, reference
+    completion/dataset.py:64-142 ``point_to_voxel``), taken from the
+    partial as the batch holds it: in a train batch after the scale
+    augmentation."""
 
     split: str
     path: str | None = None
@@ -446,12 +450,11 @@ class MVPCompletionDataset:
     index_range: tuple[int, int] | None = None
     category: int | None = None
     with_voxels: bool = False
+    grid_size: int = 50
+    min_volume: float = -0.5
+    max_volume: float = 0.5
 
     def __post_init__(self):
-        if self.with_voxels:
-            raise NotImplementedError(
-                "the voxelized clouds of vrcnet_knn are not ported yet "
-                "(ROADMAP.md Queue 1, item 8a)")
         if self.data is None:
             if self.path is None:
                 raise ValueError("need path or data")
@@ -477,12 +480,23 @@ class MVPCompletionDataset:
     def __len__(self):
         return len(self.partial)
 
+    def _voxel_coords(self, partial: np.ndarray) -> np.ndarray:
+        """(B, N, 3) int32 grid indices: floor((clip(x) - min) / interval),
+        interval = range / (G - 1), clipped to [0, G - 1]."""
+        interval = (self.max_volume - self.min_volume) / (self.grid_size - 1)
+        clipped = np.clip(partial, self.min_volume, self.max_volume)
+        idx = np.floor((clipped - self.min_volume) / interval).astype(np.int32)
+        return np.clip(idx, 0, self.grid_size - 1)
+
     def get_batch(self, indices, rng: np.random.Generator | None = None):
         indices = np.asarray(indices)
         partial = self.partial[indices].astype(np.float32)
         labels = self.labels[indices].astype(np.int32)
         if self.split == "test":
-            return {"partial": partial, "label": labels}
+            batch = {"partial": partial, "label": labels}
+            if self.with_voxels:
+                batch["coords"] = self._voxel_coords(partial)
+            return batch
         gt_idx = self.orig_idx[indices] // self.views_per_model
         gt = self.complete[gt_idx].astype(np.float32)
         if self.split == "train" and self.scale_aug:
@@ -491,4 +505,7 @@ class MVPCompletionDataset:
             alpha = rng.integers(8, 13, len(indices)) / 10.0
             partial = partial * alpha[:, None, None].astype(np.float32)
             gt = gt * alpha[:, None, None].astype(np.float32)
-        return {"partial": partial, "gt": gt, "label": labels}
+        batch = {"partial": partial, "gt": gt, "label": labels}
+        if self.with_voxels:
+            batch["coords"] = self._voxel_coords(partial)
+        return batch

@@ -6,13 +6,13 @@ from houv_tpu_torch.models.alignment import AlignmentClassifier
 from houv_tpu_torch.models.ecg import ECG
 from houv_tpu_torch.models.pcn import PCN, PCNEncoder
 from houv_tpu_torch.models.vrcnet import VRCNet
+from houv_tpu_torch.models.vrcnet_knn import VRCNetKNN
 
-MODELS = {"pcn": PCN, "ecg": ECG, "vrcnet": VRCNet,
+MODELS = {"pcn": PCN, "ecg": ECG, "vrcnet": VRCNet, "vrcnet_knn": VRCNetKNN,
           "alignment_spconv": AlignmentClassifier}
 # models of the JAX package's factory the port lacks, by the ROADMAP.md
 # Queue 1 items that port them
-_NOT_PORTED = {"transformer": "item 11", "vrcnet_knn": "items 8a, 8b and 11",
-               "voxel_asym": "items 8b and 12",
+_NOT_PORTED = {"transformer": "item 11", "voxel_asym": "items 8b and 12",
                "model_embedding": "item 12",
                "dcp": "item 12", "deepgmr": "item 12", "idam": "item 12"}
 
@@ -31,4 +31,4 @@ def get_model(name: str, **kwargs):
 
 
 __all__ = ["AlignmentClassifier", "ECG", "MODELS", "PCN", "PCNEncoder",
-           "VRCNet", "get_model"]
+           "VRCNet", "VRCNetKNN", "get_model"]

@@ -46,11 +46,23 @@ class FlaxNamed(nn.Module):
         return module
 
 
+def lecun_normal_(w: torch.Tensor,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's lecun-normal in place, for a kernel in flax's layout: fan_in
+    the product of all axes but the last, a normal truncated at ±2σ."""
+    std = math.sqrt(1.0 / int(np.prod(w.shape[:-1]))) / 0.87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
-    """flax ``Dense`` initialisation, drawn from ``generator`` in module
-    order: lecun-normal kernels (a normal truncated at ±2σ, scaled to
-    variance 1 / fan_in) and zero biases, so that an untrained port has the
-    JAX model's scale."""
+    """flax's initialisation, drawn from ``generator`` in module order:
+    ``Dense`` kernels and the conv kernels a module names in
+    ``lecun_params`` lecun-normal (a normal truncated at ±2σ, scaled to
+    variance 1 / fan_in, fan_in the product of all axes but the last),
+    zero biases, ``Embed`` tables normal at variance 1 / features; so that
+    an untrained port has the JAX model's scale, the same on every
+    device."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Linear):
@@ -61,6 +73,41 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
                 m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                w = torch.randn(m.weight.shape, generator=generator)
+                m.weight.copy_(w / math.sqrt(m.weight.shape[-1]))
+            for name in getattr(m, "lecun_params", ()):
+                p = getattr(m, name)
+                p.copy_(lecun_normal_(torch.empty(p.shape), generator))
+
+
+def compute_dtype_of(name) -> torch.dtype | None:
+    """A config's ``compute_dtype`` ('bfloat16', a torch dtype, None or
+    'float32') as the torch dtype a layer rounds to; None is f32."""
+    if name is None or name in ("float32", torch.float32):
+        return None
+    return name if isinstance(name, torch.dtype) else getattr(torch, name)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """flax ``Dense(dtype=compute_dtype)`` on ``layer``'s f32 parameters:
+    the input and the kernel rounded to the dtype, their product rounded
+    to it, then the bias, rounded, added in it; a result in that dtype.
+    None runs the layer as it is."""
+    if compute_dtype is None:
+        return layer(x)
+    y = torch.matmul(x.to(compute_dtype), layer.weight.to(compute_dtype).t())
+    if layer.bias is not None:
+        y = y + layer.bias.to(compute_dtype)
+    return y
+
+
+def to_f32(x: torch.Tensor, compute_dtype: torch.dtype | None) -> torch.Tensor:
+    """A bf16 layer's result back in f32, where the JAX module casts it;
+    without a compute dtype ``x`` as it is (f32, or f64 in the f64
+    reference runs)."""
+    return x if compute_dtype is None else x.float()
 
 
 def max_pool_points(x: torch.Tensor) -> torch.Tensor:

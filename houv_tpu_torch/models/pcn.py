@@ -14,8 +14,11 @@ from houv_tpu_torch.metrics.cd import calc_cd
 from houv_tpu_torch.metrics.emd import calc_emd
 from houv_tpu_torch.models.common import (
     FlaxNamed,
+    compute_dtype_of,
+    dense,
     gen_grid_up,
     max_pool_points,
+    to_f32,
 )
 
 
@@ -40,10 +43,14 @@ class PCNEncoder(FlaxNamed):
 class PCNEncoderLabel(FlaxNamed):
     """Label-conditioned encoder: a 16-way class embedding joins the first
     stage's global feature. (x (B, N, 3), label (B,) int) ->
-    (global feature (B, output_size), point feature (B, N, 1024))."""
+    (global feature (B, output_size), point feature (B, N, 1024)), both
+    f32. With ``compute_dtype`` bf16 its Dense layers run in bf16 (flax
+    ``Dense(dtype=bf16)``, ``models/common.py:dense``) and the embedding
+    joins them rounded to bf16."""
 
-    def __init__(self, output_size: int = 1024):
+    def __init__(self, output_size: int = 1024, compute_dtype=None):
         super().__init__()
+        self.dt = compute_dtype_of(compute_dtype)
         self.child("fc1", nn.Linear(3, 512))
         self.child("embed", nn.Embedding(16, 256))
         self.child("fc2", nn.Linear(512 + 768, 512))
@@ -51,11 +58,15 @@ class PCNEncoderLabel(FlaxNamed):
         self.child("fc4", nn.Linear(1024, output_size))
 
     def forward(self, x: torch.Tensor, label: torch.Tensor):
-        h = torch.relu(self.fc1(x))
-        g = torch.cat([self.embed(label), max_pool_points(h)], -1)
+        dt = self.dt
+        h = torch.relu(dense(self.fc1, x, dt))
+        g = torch.cat([self.embed(label.long()).to(h.dtype),
+                       max_pool_points(h)], -1)
         h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)], -1)
-        point_feature = torch.relu(self.fc3(torch.relu(self.fc2(h))))
-        return max_pool_points(self.fc4(point_feature)), point_feature
+        h = torch.relu(dense(self.fc3, torch.relu(dense(self.fc2, h, dt)),
+                             dt))
+        out = max_pool_points(dense(self.fc4, h, dt))
+        return to_f32(out, dt), to_f32(h, dt)
 
 
 def fc_coarse(module: FlaxNamed, feat_size: int, num_coarse: int) -> None:

@@ -35,9 +35,12 @@ from houv_tpu_torch.metrics.emd import calc_emd
 from houv_tpu_torch.models.common import (
     EFExpansion,
     FlaxNamed,
+    compute_dtype_of,
+    dense,
     edge_preserve_sampling,
     gen_grid_up,
     get_edge_features,
+    to_f32,
 )
 from houv_tpu_torch.models.pcn import PCNEncoder
 from houv_tpu_torch.ops.gather import gather_rows
@@ -50,14 +53,18 @@ from houv_tpu_torch.ops.sampling import furthest_point_sample
 
 class SAModule(FlaxNamed):
     """Point self-attention over a kNN graph: x (B, N, C), idx (B, N, k) ->
-    (B, N, out_planes), residual. The projections are pointwise, so they run
-    before the neighbour gather, as in the JAX module."""
+    (B, N, out_planes) f32, residual. The projections are pointwise, so they
+    run before the neighbour gather, as in the JAX module. With
+    ``compute_dtype`` bf16 the layers run in bf16 (``common.dense``), the
+    weighted sum over the neighbours too (summed in f32, rounded), and the
+    residual is added in bf16 before the f32 result."""
 
     def __init__(self, rel_planes: int, mid_planes: int, out_planes: int,
-                 share_planes: int = 8, k: int = 16):
+                 share_planes: int = 8, k: int = 16, compute_dtype=None):
         super().__init__()
         self.rel, self.mid, self.share, self.k = (
             rel_planes, mid_planes, share_planes, k)
+        self.dt = compute_dtype_of(compute_dtype)
         c = out_planes
         self.child("q", nn.Linear(c, rel_planes))
         self.child("kv_rel", nn.Linear(c, rel_planes))
@@ -70,18 +77,20 @@ class SAModule(FlaxNamed):
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
+        dt = self.dt
         h = torch.relu(x)
-        x1 = self.q(h)
+        x1 = dense(self.q, h, dt)
         x23 = get_edge_features(
-            torch.cat([self.kv_rel(h), self.kv_mid(h)], -1), idx)
+            torch.cat([dense(self.kv_rel, h, dt), dense(self.kv_mid, h, dt)],
+                      -1), idx)
         x2 = x23[..., :self.rel].reshape(b, n, self.k * self.rel)
         x3 = x23[..., self.rel:]                               # (B, N, k, mid)
         w = torch.relu(torch.cat([x1, x2], -1))
-        w = torch.relu(self.w1(w))
-        w = self.w2(w).reshape(b, n, self.k, self.mid // self.share)
+        w = torch.relu(dense(self.w1, w, dt))
+        w = dense(self.w2, w, dt).reshape(b, n, self.k, self.mid // self.share)
         x3r = x3.reshape(b, n, self.k, self.share, self.mid // self.share)
         out = (w[:, :, :, None, :] * x3r).sum(2).reshape(b, n, self.mid)
-        return self.proj(torch.relu(out)) + x
+        return to_f32(dense(self.proj, torch.relu(out), dt) + x, dt)
 
 
 class SKSAModule(FlaxNamed):
@@ -90,13 +99,15 @@ class SKSAModule(FlaxNamed):
 
     def __init__(self, rel_planes: int, mid_planes: int, out_planes: int,
                  share_planes: int = 8, ks: tuple = (10, 20), r: int = 2,
-                 L: int = 32):
+                 L: int = 32, compute_dtype=None):
         super().__init__()
         d = max(out_planes // r, L)
+        self.dt = compute_dtype_of(compute_dtype)
         self.sa = nn.ModuleList()
         for i, k in enumerate(ks):
             self.sa.append(self.child(f"sa.{i}", SAModule(
-                rel_planes, mid_planes, out_planes, share_planes, k)))
+                rel_planes, mid_planes, out_planes, share_planes, k,
+                compute_dtype)))
         self.child("squeeze", nn.Linear(out_planes, d))
         self.excite = nn.ModuleList()
         for i in range(len(ks)):
@@ -104,34 +115,40 @@ class SKSAModule(FlaxNamed):
                                           nn.Linear(d, out_planes)))
 
     def forward(self, x: torch.Tensor, idxs: list) -> torch.Tensor:
+        dt = self.dt
         feas = torch.stack([torch.relu(sa(x, idx))
                             for sa, idx in zip(self.sa, idxs)], 1)
-        fea_z = self.squeeze(feas.sum(1).mean(1))                 # (B, d)
-        att = torch.stack([fc(fea_z) for fc in self.excite], 1)  # (B, nk, C)
-        att = torch.softmax(att, dim=1)[:, :, None, :]
+        fea_z = dense(self.squeeze, feas.sum(1).mean(1), dt)      # (B, d)
+        att = torch.stack([dense(fc, fea_z, dt) for fc in self.excite],
+                          1)                                      # (B, nk, C)
+        att = torch.softmax(to_f32(att, dt), dim=1)[:, :, None, :]
         return (feas * att).sum(1)
 
 
 class SKNResUnit(FlaxNamed):
-    """Dense -> SK-SA blocks -> Dense, plus a Dense residual projection."""
+    """Dense -> SK-SA blocks -> Dense, plus a Dense residual projection;
+    an f32 result (summed in bf16 with ``compute_dtype`` bf16)."""
 
     def __init__(self, input_size: int, output_size: int,
-                 ks: tuple = (10, 20), layers: int = 1):
+                 ks: tuple = (10, 20), layers: int = 1, compute_dtype=None):
         super().__init__()
         c = output_size
+        self.dt = compute_dtype_of(compute_dtype)
         self.child("fc_in", nn.Linear(input_size, c, bias=False))
         self.sk = nn.ModuleList()
         for i in range(layers):
             self.sk.append(self.child(f"sk.{i}", SKSAModule(
-                c // 16, c // 4, c, 8, ks)))
+                c // 16, c // 4, c, 8, ks, compute_dtype=compute_dtype)))
         self.child("fc_out", nn.Linear(c, c, bias=False))
         self.child("shortcut", nn.Linear(input_size, c, bias=False))
 
     def forward(self, feat: torch.Tensor, idxs: list) -> torch.Tensor:
-        x = self.fc_in(feat)
+        dt = self.dt
+        x = dense(self.fc_in, feat, dt)
         for sk in self.sk:
             x = sk(x, idxs)
-        return self.fc_out(torch.relu(x)) + self.shortcut(feat)
+        return to_f32(dense(self.fc_out, torch.relu(x), dt)
+                      + dense(self.shortcut, feat, dt), dt)
 
 
 def saskn_geometry(points: torch.Tensor, pts_num: tuple, ks: tuple, pk: int):
@@ -166,22 +183,27 @@ class SASKNResEncoder(FlaxNamed):
     ``dropout``: None (inference, the identity) or the two keep masks of
     ``dropout_masks`` for the bottleneck's two dropouts. ``remat``
     recomputes the SK-SA units in the backward instead of keeping their
-    (B, N, k, C) maps; the geometry stays outside and is never recomputed."""
+    (B, N, k, C) maps; the geometry stays outside and is never recomputed.
+    With ``compute_dtype`` bf16 the units and the bottleneck's and U-Net's
+    Dense layers run in bf16, their results back in f32 where the JAX
+    module casts them: after the units, the bottleneck's dropouts, ``up4``,
+    ``up3``, ``up2`` and the last layer (``up1``'s stays bf16)."""
 
     dropout_rate = 0.5
     dropout_widths = (512, 1024)
 
     def __init__(self, input_size: int, ks: tuple = (10, 20), pk: int = 16,
                  output_size: int = 64, layers: tuple = (2, 2, 2, 2),
-                 remat: bool = False):
+                 remat: bool = False, compute_dtype=None):
         super().__init__()
         self.ks, self.pk = tuple(ks), pk
         self.remat = remat
+        self.dt = compute_dtype_of(compute_dtype)
         c1 = 64
         self.units = nn.ModuleList()
         for i, c_in in enumerate((input_size, c1 * 2, c1 * 4, c1 * 8)):
             self.units.append(self.child(f"units.{i}", SKNResUnit(
-                c_in, c1 * 2**i, ks, layers[i])))
+                c_in, c1 * 2**i, ks, layers[i], compute_dtype)))
         self.child("g1", nn.Linear(c1 * 8, 1024))
         self.child("g2", nn.Linear(1024, 512))
         self.child("g3", nn.Linear(512, 1024))
@@ -226,19 +248,23 @@ class SASKNResEncoder(FlaxNamed):
         x1, x2, x3, x4 = skips
         keep = [None, None] if dropout is None else [
             m.to(x4.device) / (1.0 - self.dropout_rate) for m in dropout]
-        g = self.g1(x4).amax(1)                                   # (B, 1024)
-        g = torch.relu(self.g2(g))
+        dt = self.dt
+        g = dense(self.g1, x4, dt).amax(1)                        # (B, 1024)
+        g = torch.relu(dense(self.g2, g, dt))
         if keep[0] is not None:
-            g = g * keep[0]
-        g = torch.relu(self.g3(g))
+            g = g * keep[0].to(g.dtype)
+        g = torch.relu(dense(self.g3, g, dt))
         if keep[1] is not None:
-            g = g * keep[1]
-        g = g[:, None, :].expand(-1, x4.shape[1], -1)
-        x = torch.relu(self.up4(torch.cat([g, x4], -1)))
-        x = torch.relu(self.up3(torch.cat([unpool(x), x3], -1)))
-        x = torch.relu(self.up2(torch.cat([unpool(x), x2], -1)))
-        x = torch.relu(self.up1(torch.cat([unpool(x), x1], -1)))
-        return self.out(x)
+            g = g * keep[1].to(g.dtype)
+        g = to_f32(g, dt)[:, None, :].expand(-1, x4.shape[1], -1)
+        x = torch.relu(to_f32(dense(self.up4, torch.cat([g, x4], -1), dt),
+                              dt))
+        x = torch.relu(to_f32(dense(self.up3, torch.cat([unpool(x), x3], -1),
+                                    dt), dt))
+        x = torch.relu(to_f32(dense(self.up2, torch.cat([unpool(x), x2], -1),
+                                    dt), dt))
+        x = torch.relu(dense(self.up1, torch.cat([unpool(x), x1], -1), dt))
+        return to_f32(dense(self.out, x, dt), dt)
 
 
 class Folding(FlaxNamed):

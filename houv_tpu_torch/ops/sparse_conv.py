@@ -13,6 +13,8 @@ emit the valid rows ascending in x-major flat id, the masked tail last.
 - ``sparse_conv_down``: strided conv, kernel 3, padding 1, with the exact
   spconv output-site rule (``downsample_sites``), which also counts the
   sites it drops beyond the list's capacity.
+- ``to_dense``: the list scattered into a (B, G, G, G, C) volume, where
+  the hybrid encoder's dense levels take over.
 
 With ``compute_dtype='bfloat16'`` the conv rounds both operands of its
 product to bf16 and multiplies them in f32 (a bf16 × bf16 product is exact
@@ -60,8 +62,8 @@ def from_point_voxels(grid_ind: torch.Tensor, point_features: torch.Tensor,
                       grid_size: int) -> SparseGrid:
     """Point voxel indices (B, N, 3) + features (B, N, C) -> the
     deduplicated SparseGrid of capacity N: a voxel's feature is the mean of
-    its points' features, its row the rank of its flat id among the
-    occupied ones."""
+    its points' features (summed in point order on every device), its row
+    the rank of its flat id among the occupied ones."""
     b, n, _ = grid_ind.shape
     c = point_features.shape[-1]
     g = grid_size
@@ -74,8 +76,23 @@ def from_point_voxels(grid_ind: torch.Tensor, point_features: torch.Tensor,
     rows = (dest + torch.arange(b, device=dev)[:, None] * n).reshape(-1)
     cnt = torch.zeros(b * n, device=dev).index_add_(
         0, rows, torch.ones(b * n, device=dev))
-    sums = torch.zeros((b * n, c), device=dev).index_add_(
-        0, rows, point_features.float().reshape(b * n, c))
+    # A voxel's points are summed in point order, one point a voxel a pass
+    # (the pass adds exact zeros everywhere else), so that the sum does not
+    # hang on the order in which the card's atomic adds land: the same
+    # cloud gives the same features, bit for bit.
+    order = torch.argsort(rows, stable=True)
+    sorted_rows = rows[order]
+    pos = torch.arange(b * n, device=dev)
+    first = torch.ones(b * n, dtype=torch.bool, device=dev)
+    first[1:] = sorted_rows[1:] != sorted_rows[:-1]
+    start = torch.cummax(torch.where(first, pos, 0), 0).values
+    rank = torch.empty_like(pos)
+    rank[order] = pos - start                  # the point's place in its voxel
+    src = point_features.float().reshape(b * n, c)
+    sums = torch.zeros((b * n, c), device=dev)
+    for r in range(int(rank.max()) + 1):
+        sums = sums.index_add(0, rows, torch.where((rank == r)[:, None], src,
+                                                   0.0))
     feats = (sums / cnt.clamp_min(1.0)[:, None]).reshape(b, n, c)
     # every point of a voxel writes the same coordinates
     coords = torch.zeros((b, n, 3), dtype=torch.long, device=dev).scatter_(
@@ -245,6 +262,20 @@ def sparse_conv_down(sg: SparseGrid, lookup: torch.Tensor,
     feats = sparse_conv_down_features(sg, lookup, weights, out_coords,
                                       out_mask, stride, compute_dtype)
     return SparseGrid(feats, out_coords, out_mask, out_g, dropped)
+
+
+def to_dense(sg: SparseGrid) -> torch.Tensor:
+    """(B, G, G, G, C) f32 volume (spconv's ``SparseConvTensor.dense()``):
+    each valid row's features at its site, zeros elsewhere."""
+    g = sg.grid_size
+    b, v, c = sg.features.shape
+    flat = torch.where(sg.mask, _flat(sg.coords, g), g ** 3)
+    dense = torch.zeros((b, g ** 3 + 1, c), dtype=torch.float32,
+                        device=sg.features.device)
+    # masked rows all land in the last column, which is cut off
+    dense = dense.scatter(1, flat[..., None].expand(b, v, c),
+                          sg.features.float())
+    return dense[:, :g ** 3].reshape(b, g, g, g, c)
 
 
 def masked_max(sg: SparseGrid) -> torch.Tensor:

@@ -4,9 +4,10 @@
 (converted to numpy by the caller) into the port's parameter tensors, so both
 packages can be fed the same restarts. ``config_from_jax`` converts a JAX
 ``HOUVConfig`` field by field. ``state_from_flax`` turns the flax variables
-of a JAX model (PCN, ECG, VRCNet, the alignment classifier, or one of their
-modules: ``params``, and ``batch_stats`` where the model has BatchNorm) into
-the port's ``state_dict``. None imports anything of the JAX package.
+of a JAX model (PCN, ECG, VRCNet, vrcnet_knn, the alignment classifier, or
+one of their modules: ``params``, and ``batch_stats`` where the model has
+BatchNorm) into the port's ``state_dict``. None imports anything of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -60,8 +61,9 @@ def _flax_to_torch(module: nn.Module, tree: dict, prefix: str,
     ``Dense`` kernel (in, out) becomes ``Linear.weight`` (out, in), an
     ``Embed`` table ``Embedding.weight``, and a leaf of a module with
     ``flax_leaves`` the tensor that names (a sparse conv's (K, Cin, Cout)
-    ``kernel`` as it is; BatchNorm's ``scale``, ``bias``, ``mean`` and
-    ``var`` its ``weight``, ``bias``, ``running_mean`` and
+    and a dense conv's (kx, ky, kz, Cin, Cout) ``kernel`` and
+    ``down_kernel`` as they are; BatchNorm's ``scale``, ``bias``, ``mean``
+    and ``var`` its ``weight``, ``bias``, ``running_mean`` and
     ``running_var``)."""
     for flax_name, sub in tree.items():
         if not isinstance(sub, dict):
@@ -95,7 +97,8 @@ def _flax_to_torch(module: nn.Module, tree: dict, prefix: str,
 def state_from_flax(params: dict, model: nn.Module) -> dict:
     """A JAX model's variables -> a ``state_dict`` for ``model``, the port's
     model of the same class and configuration (``PCN``, ``ECG``,
-    ``VRCNet``, ``AlignmentClassifier``, or one of their ``FlaxNamed``
+    ``VRCNet``, ``VRCNetKNN`` with its voxel branch dense from 13³ or fully
+    sparse, ``AlignmentClassifier``, or one of their ``FlaxNamed``
     modules, given that module's flax variables). ``params`` is the nested
     dict of ``init``'s ``params`` (leaves as numpy arrays), or a dict
     holding it under ``'params'`` and, for a model with BatchNorm, its
@@ -104,7 +107,9 @@ def state_from_flax(params: dict, model: nn.Module) -> dict:
     pair up by flax auto-name (``PCNEncoder_0``, ``ECGDecoder_0``,
     ``DenseConv_2``, ``ResBlock_1``, ``BatchNorm_3``, ``Dense_7``). Every
     flax leaf must have a counterpart; ``model.load_state_dict(...,
-    strict=True)`` then checks the converse."""
+    strict=True)`` then checks the converse. Layers pair up by flax
+    auto-name (``PCNEncoderLabel_0``, ``Asymm3DSpconv_0``,
+    ``DenseResBlock_0`` or ``ResBlock_2``, ``KNNDecoder_0``)."""
     out: dict = {}
     if "params" not in params:
         _flax_to_torch(model, params, "", out)

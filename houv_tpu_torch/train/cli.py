@@ -1,7 +1,7 @@
 """Command-line entries (counterpart of ``houv_tpu/train/cli.py`` on one
-device): the test sweep (HOUV registration; PCN, ECG or VRCNet completion),
-the merge of a sharded sweep, the training of a completion model and the
-evaluation of the registration solvers.
+device): the test sweep (HOUV registration; PCN, ECG, VRCNet or vrcnet_knn
+completion), the merge of a sharded sweep, the training of a completion
+model and the evaluation of the registration solvers.
 
     python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml [-l L -r R]
         [--data-path FILE] [--device cuda|cpu]
@@ -10,7 +10,8 @@ evaluation of the registration solvers.
     python -m houv_tpu_torch.train.cli -c cfgs/vrcnet.yaml [--device cpu]
     python -m houv_tpu_torch.train.cli train -c cfgs/vrcnet.yaml
         [--data-path FILE] [--device cuda|cpu]
-    (likewise cfgs/pcn.yaml and cfgs/ecg.yaml)
+    (likewise cfgs/pcn.yaml, cfgs/ecg.yaml, cfgs/vrcnet_knn.yaml and, for
+    the sweep, cfgs/vrcnet_knn_extratest.yaml)
     python -m houv_tpu_torch.train.cli train -c cfgs/houv_rescore.yaml
     python -m houv_tpu_torch.train.cli train -c cfgs/fgr.yaml
     (likewise cfgs/goicp_bnb.yaml, and model_name icp or goicp)
@@ -113,14 +114,15 @@ def build_dataset(cfg: Config, split: str, index_range=None):
             return MVPCompletionDataset(
                 split, path=cfg.data_path, scale_aug=cfg.scale_aug,
                 index_range=index_range, category=cfg.category,
-                with_voxels=with_voxels)
+                with_voxels=with_voxels, grid_size=cfg.grid_size)
         data = synthesize_completion_set(
             max(n // 8, 2), views_per_model=8,
             n_partial=cfg.num_input or cfg.num_points,
             n_complete=cfg.num_points, seed=seed)
         return MVPCompletionDataset(
             split, data=data, views_per_model=8, scale_aug=cfg.scale_aug,
-            index_range=index_range, with_voxels=with_voxels)
+            index_range=index_range, with_voxels=with_voxels,
+            grid_size=cfg.grid_size)
     if have_file:
         return MVPRegistrationDataset(
             split, path=cfg.data_path, max_angle_deg=cfg.max_angle,
@@ -407,21 +409,27 @@ def icp_eval_main(cfg: Config, log, device) -> dict:
 def _completion_sweep(cfg: Config, ds, device, log):
     """Complete the test split batch by batch with the config's model
     (``load_model``'s weights, else the seeded initialisation):
-    (N, num_points, 3)."""
+    (N, points, 3), the model's output cloud (num_points; vrcnet_knn's
+    num_coarse + num_points), and the seconds of all batches and of the
+    first alone (its allocations and kernel set-up)."""
     trainer = CompletionTrainer(cfg, device)
     trainer.init_state()
     outs = []
     t0 = time.perf_counter()
+    first = None
     # pad_last keeps one batch shape for the whole sweep
     for i, batch in enumerate(batch_iterator(ds, cfg.batch_size,
                                              pad_last=True)):
         valid = int(batch.pop("valid"))
         outs.append(trainer.predict_batch(batch, step=i)[:valid].cpu()
                     .numpy())
+        if first is None:
+            first = time.perf_counter() - t0
     seconds = time.perf_counter() - t0
     log.info("completed %d clouds, %.2f s", len(ds), seconds)
     return np.concatenate(outs, axis=0), {"n_clouds": len(ds),
-                                          "seconds": seconds}
+                                          "seconds": seconds,
+                                          "first_batch_seconds": first}
 
 
 def _shard_range(path: str) -> tuple[int, int] | None:
@@ -513,8 +521,8 @@ def test_main(argv=None) -> dict:
     """Run the sweep; returns the paths written, the wall seconds of the
     sweep's batches (set-up excluded) and its counts: ``n_pairs`` and
     ``n_retry`` (the pairs that entered the retry passes) for registration,
-    ``n_clouds`` for completion. With ``--combine``, ``combine_main``'s
-    record."""
+    ``n_clouds`` and ``first_batch_seconds`` for completion. With
+    ``--combine``, ``combine_main``'s record."""
     p = argparse.ArgumentParser()
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-l", type=int, default=None)

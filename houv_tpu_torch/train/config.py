@@ -64,7 +64,8 @@ class Config:
     # with MVP-like chamfer statistics, what the quality gates use)
     synthetic_shape: str = "blobs"
     scale_aug: bool = True           # completion train split only
-    # 'bfloat16' AMP is not ported: None (f32) only
+    # 'bfloat16' runs vrcnet_knn's layers with bf16 operands (the JAX
+    # package's AMP); every other model of the port is f32 only
     compute_dtype: str | None = None
 
     # optimization
@@ -100,10 +101,25 @@ class Config:
     num_coarse: int = 1024
     num_coarse_raw: int = 1024
     num_fps: int = 2048
+    # vrcnet_knn: the fine and the FPS-native clouds, and the width of the
+    # global feature beside the voxel branch's (the JAX model reads neither
+    # this nor the port: the width follows from the two branches)
+    num_fine: int = 3072
+    num_native: int = 2048
+    feature_size: int = 2048
     distribution_loss: str = "KLD"
-    # recompute the SK-SA units in the backward (batch headroom); no effect
-    # at inference, and the parameters keep their names either way
+    # recompute the SK-SA units (vrcnet_knn: the whole SA-SKN encoder) in
+    # the backward (batch headroom); no effect at inference
     use_remat: bool = False
+    # vrcnet_knn: recompute the voxel branch's sparse conv bodies in the
+    # backward instead of keeping their gathered neighbours
+    voxel_conv_remat: bool = False
+    # vrcnet_knn: the train loss's three chamfers as one, over the clouds
+    # stacked on the batch axis (padded, masked)
+    fused_cd: bool = False
+    # vrcnet_knn: the voxel branch's init channel width (4x inside the
+    # blocks, 8x the feature it returns)
+    voxel_init_size: int = 128
 
     # HOUV solver (solvers/houv.py HOUVConfig)
     kernel: int = 64
@@ -124,8 +140,9 @@ class Config:
     num_iters: int = 3
     # classifier-rescored restart selection (solvers/rescore.py): the
     # alignment classifier's checkpoint (a JAX flax msgpack file), its
-    # voxel grid, the candidates per pair, their rotation-NMS angle, the
-    # logit margin an override needs and the test-time rotations (1 = off)
+    # voxel grid (also vrcnet_knn's and its dataset's), the candidates per
+    # pair, their rotation-NMS angle, the logit margin an override needs
+    # and the test-time rotations (1 = off)
     rescore_ckpt: str | None = None
     grid_size: int = 50
     rescore_cands: int = 16

@@ -36,16 +36,20 @@ from houv_tpu_torch.utils.meters import AverageValueMeter
 logger = logging.getLogger("houv_tpu_torch")
 
 # the completion models of the port; its other models are not trained yet
-_COMPLETION = {"pcn", "ecg", "vrcnet"}
+_COMPLETION = {"pcn", "ecg", "vrcnet", "vrcnet_knn"}
 
 # models that draw random numbers (latent noise, dropout) and so take a
-# generator; PCN and ECG draw none
-_MODEL_RNGS = {"vrcnet"}
+# generator; PCN and ECG draw none, vrcnet_knn only its dropout masks
+_MODEL_RNGS = {"vrcnet", "vrcnet_knn"}
+
+# models that take the batch's class labels and voxel indices
+_VOXEL_MODELS = {"vrcnet_knn"}
 
 
 def model_from_config(cfg: Config) -> torch.nn.Module:
-    """The config's completion model (pcn, ecg or vrcnet), f32 only: the
-    config's keys mapped onto the model's constructor."""
+    """The config's completion model (pcn, ecg, vrcnet or vrcnet_knn): the
+    config's keys mapped onto the model's constructor. ``compute_dtype``
+    bfloat16 is ported for vrcnet_knn only; the others are f32."""
     name = cfg.model_name
     if name not in MODELS:
         get_model(name)  # raises, citing the ROADMAP item that ports it
@@ -53,10 +57,19 @@ def model_from_config(cfg: Config) -> torch.nn.Module:
         raise NotImplementedError(
             f"training {name!r} is not ported yet (ROADMAP.md Queue 1, "
             "item 12)")
-    if cfg.compute_dtype not in (None, "float32"):
+    if cfg.compute_dtype not in (None, "float32") and name != "vrcnet_knn":
         raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: only f32 is ported "
-            "(ROADMAP.md Queue 1, item 11)")
+            f"compute_dtype={cfg.compute_dtype!r} is ported for vrcnet_knn "
+            f"only; {name!r} runs in f32 (ROADMAP.md Queue 1, item 11)")
+    if name == "vrcnet_knn":
+        return get_model(
+            name, num_native=cfg.num_native, num_coarse=cfg.num_coarse,
+            num_fine=cfg.num_fine, feature_size=cfg.feature_size,
+            layers=tuple(cfg.layers), knn_list=tuple(cfg.knn_list),
+            pk=cfg.pk, voxel_grid_size=cfg.grid_size,
+            voxel_init_size=cfg.voxel_init_size, remat=cfg.use_remat,
+            compute_dtype=cfg.compute_dtype,
+            voxel_conv_remat=cfg.voxel_conv_remat, fused_cd=cfg.fused_cd)
     kw = dict(num_points=cfg.num_points, num_coarse=cfg.num_coarse,
               train_loss=cfg.loss, eval_emd=cfg.eval_emd)
     if name == "ecg":
@@ -95,7 +108,7 @@ def _make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
 
 class CompletionTrainer:
     """Training, validation and inference of a completion model (pcn, ecg,
-    vrcnet) on one device."""
+    vrcnet, vrcnet_knn) on one device."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
         self.cfg = cfg
@@ -141,17 +154,29 @@ class CompletionTrainer:
     def _tensor(self, batch: dict, key: str) -> torch.Tensor:
         return torch.as_tensor(batch[key], device=self.device)
 
+    def _inputs(self, batch: dict, epoch: int | None = None) -> dict:
+        """The model call's inputs beside the clouds: vrcnet_knn's class
+        labels and voxel indices (None where the batch has none); for the
+        other models, in a train step (``epoch`` given), the epoch's
+        alpha, the weight of the fine cloud's loss."""
+        if self.cfg.model_name not in _VOXEL_MODELS:
+            return {} if epoch is None else {
+                "alpha": alpha_schedule(self.cfg, epoch)}
+        return {k: self._tensor(batch, k).long() if k in batch else None
+                for k in ("label", "coords")}
+
     def train_step(self, batch: dict, epoch: int, step: int) -> torch.Tensor:
         """One optimizer step on ``batch`` at the epoch's alpha and lr;
         returns the total loss (taken before the update). The gradients
-        stay on the parameters until the next step."""
+        stay on the parameters until the next step; BatchNorm's running
+        statistics move here only."""
         lr = lr_schedule(self.cfg, epoch)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
         out = self.model(self._tensor(batch, "partial"),
                          self._tensor(batch, "gt"), prefix="train",
-                         alpha=alpha_schedule(self.cfg, epoch),
+                         **self._inputs(batch, epoch),
                          **self._rng(_seeded(self.seed, step)))
         loss = out["total_loss"]
         loss.backward()
@@ -207,9 +232,11 @@ class CompletionTrainer:
         return self.model
 
     def predict_batch(self, batch: dict, step: int = 0) -> torch.Tensor:
-        """The no-gt test step on one batch: (B, num_points, 3)."""
+        """The no-gt test step on one batch: (B, num_points, 3); for
+        vrcnet_knn its fine cloud, (B, num_coarse + num_points, 3)."""
         with torch.inference_mode():
             return self.model(self._tensor(batch, "partial"), prefix="test",
+                              **self._inputs(batch),
                               **self._rng(latent_generator(step)))["result"]
 
     def validate(self, val_ds, epoch: int = 0) -> dict:
@@ -226,6 +253,7 @@ class CompletionTrainer:
             with torch.inference_mode():
                 out = self.model(self._tensor(batch, "partial"),
                                  self._tensor(batch, "gt"), prefix="val",
+                                 **self._inputs(batch),
                                  **self._rng(latent_generator(i)))
             for m, meter in meters.items():
                 meter.update(float(out[m].mean()), len(batch["partial"]))

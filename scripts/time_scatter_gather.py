@@ -26,22 +26,24 @@ beside this one on one card, in turns:
   4, 2 and 2 K4 launches a step), and pairs/s of ``test_main`` on
   cfgs/houv_fast.yaml over 100 pairs (``run_sweep``; no K4 or K5: the
   host's speed on this machine);
-- nn_both: K1's device time at its nine path shapes (``NN_SHAPES``,
+- nn_both: K1's device time at its twelve path shapes (``NN_SHAPES``,
   ``_time_nn_both``: houv_fast's final phase, houv.yaml's 6400-row step,
-  the train steps' calc_cd, the ICP and grid Go-ICP batches);
+  the train steps' calc_cd, the ICP and grid Go-ICP batches, vrcnet_knn's
+  calc_cd and its fused_cd stack);
 - houv: pairs/s, wall seconds, retries and median rotation error of
   ``test_main`` on cfgs/houv.yaml over 100 pairs, one batch (``run_sweep``;
   501 K1 launches a pass);
-- knn: K6's device time at its 32 path shapes (``KNN_SHAPES``,
+- knn: K6's device time at its 42 path shapes (``KNN_SHAPES``,
   ``_time_knn``: VRCNet's 14 per forward, ECG's 6, get_uniform_loss's 10
-  per ECG step, FGR's k 16 and 17) and their sum over VRCNet's 14;
+  per ECG step, FGR's k 16 and 17, vrcnet_knn's 10) and their sum over
+  VRCNet's 14;
 - vrcnet_test: clouds/s of ``test_main`` on cfgs/vrcnet.yaml over 512
   synthetic clouds (14 K6 launches a batch of 32);
 - profiles: device milliseconds of one VRCNet and one ECG train step under
   torch.profiler (``phase_profile_train``), with the port's kernels' share;
-- fps: K2's device time at its 17 path shapes (``FPS_SHAPES``,
+- fps: K2's device time at its 21 path shapes (``FPS_SHAPES``,
   ``_time_fps``: houv_fast's phases, combine, VRCNet's 5 and ECG's 14 a
-  train step);
+  train step, goicp_bnb's, vrcnet_knn's 4 a forward);
 - emd: K7's device time, rounds and bids on its paths' own clouds
   (``emd_path_inputs``, ``EMD_SHAPES``: validate's first batch with
   eval_emd and the auctions of one ``loss: emd`` step of VRCNet and ECG),

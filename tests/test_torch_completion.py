@@ -204,7 +204,7 @@ def test_pcn_and_ecg_test_main_and_validate_on_cpu(tmp_path, model):
 
 def test_completion_branch_raises_what_is_not_ported(tmp_path):
     for extra, match in ((dict(model_name="transformer"), "item 11"),
-                         (dict(model_name="vrcnet_knn"), "items 8"),
+                         (dict(model_name="voxel_asym"), "items 8b and 12"),
                          (dict(compute_dtype="bfloat16"), "f32")):
         cfg = load_config(_tiny_cfg(tmp_path, **extra))
         with pytest.raises(NotImplementedError, match=match):
@@ -217,7 +217,10 @@ def test_completion_branch_raises_what_is_not_ported(tmp_path):
     cfg = load_config(_tiny_cfg(tmp_path, load_model=str(tmp_path / "no.ckpt")))
     with pytest.raises(FileNotFoundError):
         CompletionTrainer(cfg, "cpu").init_state()
-    with pytest.raises(NotImplementedError, match="voxel"):
-        build_dataset(load_config(_tiny_cfg(tmp_path,
-                                            model_name="vrcnet_knn")),
-                      "test")
+    # vrcnet_knn's clouds carry their voxel indices on the config's grid
+    batch = build_dataset(load_config(_tiny_cfg(
+        tmp_path, model_name="vrcnet_knn", grid_size=20)), "test").get_batch(
+        np.arange(3))
+    assert batch["coords"].shape == (3, 256, 3)
+    assert batch["coords"].dtype == np.int32
+    assert batch["coords"].min() >= 0 and batch["coords"].max() <= 19
