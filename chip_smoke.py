@@ -27,12 +27,13 @@ failed check exits non-zero:
    NaN point in a finite cloud: bit for bit against the plain version and
    against the gather of K1's indices);
    ``fps``
-   (exact indices at its 21 path shapes, ``FPS_SHAPES``: the solver's,
-   VRCNet's, ECG's, goicp_bnb's and vrcnet_knn's, the uniform losses'
-   seeds included; at
+   (exact indices at its 22 path shapes, ``FPS_SHAPES``: the solver's,
+   VRCNet's, ECG's, goicp_bnb's, vrcnet_knn's and the transformer's, the
+   uniform losses' seeds included; at
    the edges of its plan, one point, K == 1 and K >= N, the limit of 8192 points and
    8193 refused; integer grids, every point twice, planted copies);
-   ``knn`` at VRCNet's shapes, FGR's (k 16 and 17), vrcnet_knn's ten and
+   ``knn`` at VRCNet's shapes, FGR's (k 16 and 17), vrcnet_knn's ten, the
+   learned registration models' three ((32, 2048)², k 12, 20, 21) and
    ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
    with repeated points) and at the edges of its design (fewer queries
@@ -103,7 +104,18 @@ failed check exits non-zero:
    kept and dropped at each strided sparse conv and the 13³ occupancy, a
    ``fused_cd`` loss equal to the separate chamfers', the sweep of
    cfgs/vrcnet_knn_extratest.yaml over 512 clouds, and one profiled train
-   step;
+   step; then the learned models (``phase_learned``): the card against the
+   port's CPU path at the parity tests' size for DCP, DeepGMR and IDAM
+   (transforms, a train forward's loss and running statistics) and the
+   trained transformer of ``log/transformer_cd_debug/`` on 4 clouds at full
+   width; cfgs/dcp.yaml, deepgmr.yaml and idam.yaml at full width (batch
+   32, 2048 points) through ``train_main`` (8 steps, the five ``best_*``
+   checkpoints) and ``test_main`` with ``load_model`` over 64 pairs, then
+   10 steps on one batch (the loss must fall; steps/s, pairs/s, peak
+   memory); cfgs/transformer.yaml on the trained checkpoint through the
+   sweep over 512 clouds and ``validate`` with eval_emd (the auction's
+   rounds), ``train_main`` and 10 steps; one profiled train step of each
+   registration model, its forward's parts timed;
 6. short ``houv_solve`` runs of ``cfgs/houv.yaml`` (4 pairs, 100 steps):
    ``grad_mode='scatter'`` beside the gather mode, and ``nn_select=True``
    beside the default (with a profiled window of 5 steps of each at 16
@@ -111,18 +123,22 @@ failed check exits non-zero:
    exported row gather on that solve's matches;
 7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
    one houv_rescore window (8 pairs: the pool solve, then the scoring by
-   the trained classifier), of one VRCNet test batch (32 clouds) and of
+   the trained classifier; both windows the device's activity only), of
+   one VRCNet test batch (32 clouds) and of
    one VRCNet, one ECG and one vrcnet_knn train step; K2's census,
    (B, N, K) at its every launch in that window and those steps, each of
    them one of ``FPS_SHAPES``;
 8. a ``kernels`` line: each of the eight kernels' time at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above (and on the
-   classical and combine runs, ``classical_launches``, and on the
-   vrcnet_knn runs, ``vrcnet_knn_launches``); ``nn_both`` at its twelve
+   classical and combine runs, ``classical_launches``, on the
+   vrcnet_knn runs, ``vrcnet_knn_launches``, and on the learned models'
+   runs, ``learned_launches``); ``nn_both`` at its twelve
    path shapes, ``nn_select`` at the solver's two (with K1 and its two
-   gathers on the same inputs beside it), ``fps`` at its 21, ``knn`` at
-   its 42 and ``knn_wide`` at its seven, each but ``fps`` with
+   gathers on the same inputs beside it), ``fps`` at its 22 (the
+   transformer's (32, 2048) -> 256 among them), ``knn`` at its 45 (the
+   learned registration models' (32, 2048)² at k 12, 20 and 21 among
+   them) and ``knn_wide`` at its seven, each but ``fps`` with
    the floor of its
    contract (K2's latency floor: ``scripts/time_fps_variants.py``), and
    ``emd`` on its paths' own clouds (``EMD_SHAPES``: validate's first
@@ -381,7 +397,8 @@ FPS_SHAPES = ((16, 2048, 512, "houv_fast"), (16, 2048, 1024, "houv_fast"),
               (32, 2048, 102, "ecg"), (32, 1024, 51, "ecg"),
               (8, 2048, 256, "goicp_bnb"),
               (16, 3072, 1536, "vrcnet_knn"), (16, 1536, 768, "vrcnet_knn"),
-              (16, 768, 384, "vrcnet_knn"), (16, 3072, 2048, "vrcnet_knn"))
+              (16, 768, 384, "vrcnet_knn"), (16, 3072, 2048, "vrcnet_knn"),
+              (32, 2048, 256, "transformer"))
 # the edges of K2's plan (N at and beside the sizes where its block or its
 # points a thread change, one point, a warp, the limit; K == 1 and K >= N)
 # on random clouds: (B, N, K)
@@ -487,12 +504,13 @@ def phase_knn(gen):
     x = pts[:16, :2048].contiguous()
     for k in (16, 17):
         err = max(err, check_knn(x, x, k, f"fgr_B16_N2048_k{k}"))
-    # vrcnet_knn's 10 searches a forward, at its batch of 16
+    # vrcnet_knn's 10 searches a forward, at its batch of 16, and the
+    # learned registration models' self-kNN at batch 32
     for b_, m, n_, k, _ in KNN_SHAPES:
-        if _ == "vrcnet_knn":
+        if _ in ("vrcnet_knn", "dcp", "deepgmr", "idam"):
             err = max(err, check_knn(pts[:b_, :m].contiguous(),
                                      pts[:b_, :n_].contiguous(), k,
-                                     f"vrcnet_knn_B{b_}_M{m}_N{n_}_k{k}"))
+                                     f"{_}_B{b_}_M{m}_N{n_}_k{k}"))
     del half, q, r
     err = max(err, _phase_knn_edges(gen))
     return max(err, _phase_knn_ecg(pts, gen))
@@ -1714,6 +1732,11 @@ def _sum(*counts):
 # (the U-Net's 3-level pyramid over coarse + input, fine 3072 -> native
 # 2048) a forward; 3 calc_cd a train step (coarse, fine, native; fine's
 # counted twice in the loss), the val metric on fine.
+# transformer: 1 fps a forward (2048 -> 256 latent points), 1 calc_cd a
+# train step, the val metric.
+# dcp, deepgmr, idam: 1 knn a cloud a forward (DCP's DGCNN graph at k 20,
+# DeepGMR's RRI at k 21, IDAM's GNN graph at k 12), whatever the prefix;
+# IDAM's train-time nearest neighbour is a dense argmin, no kernel.
 LAUNCHES = {
     "vrcnet": {"test": {"knn": 14, "fps": 4},
                "val": {"knn": 14, "fps": 4, "nn_both": 1},
@@ -1729,6 +1752,10 @@ LAUNCHES = {
                    "val": {"knn": 10, "fps": 4, "nn_both": 1},
                    "train": {"knn": 10, "fps": 4, "nn_both": 3,
                              "scatter_add": 3}},
+    "transformer": {"test": {"fps": 1}, "val": {"fps": 1, "nn_both": 1},
+                    "train": {"fps": 1, "nn_both": 1, "scatter_add": 1}},
+    **{m: {run: {"knn": 2} for run in ("test", "val", "train")}
+       for m in ("dcp", "deepgmr", "idam")},
 }
 
 
@@ -1739,7 +1766,8 @@ def _model_cfg(tmp, model, n_clouds, **extra):
         raw = yaml.safe_load(f)
     raw.update(synthetic_size=n_clouds, work_dir=str(tmp), **extra)
     path = Path(tmp) / (f"{model}_{n_clouds}_" + "_".join(
-        f"{k}{v}" for k, v in sorted(extra.items())) + ".yaml")
+        f"{k}{v}" for k, v in sorted(extra.items()) if k != "load_model")
+        + ("_loaded" if "load_model" in extra else "") + ".yaml")
     path.write_text(yaml.safe_dump(raw))
     return str(path)
 
@@ -2514,6 +2542,472 @@ def phase_vrcnet_knn():
     return out
 
 
+LEARNED = ("dcp", "deepgmr", "idam")
+TRANSFORMER_CKPT = str(REPO / "log" / "transformer_cd_debug"
+                       / "best_cd_p_network.ckpt")
+REG_METRICS = ("RotE", "transE", "MSE", "RMSE", "recall")
+# the parity tests' sizes (tests/test_torch_{dcp,deepgmr,idam}.py): the
+# model's keywords and the points a cloud
+LEARNED_SMALL = {"dcp": (dict(emb_dims=32), 64),
+                 "deepgmr": (dict(rri_size=20), 64),
+                 "idam": (dict(descriptor_size=16), 96)}
+
+
+def _learned_trainer(cfg):
+    from houv_tpu_torch.train.cli import make_trainer
+
+    trainer = make_trainer(cfg, "cuda")
+    trainer.init_state()
+    return trainer
+
+
+def _registration_pair(seed, b, n):
+    """(src, tgt, t_gt): n uniform points and their copy under a random
+    rotation of 9 to 45 degrees and a shift, with noise 0.005 and a third
+    of the target replaced by outliers (IDAM's sampling then has positives
+    and negatives); t_gt (B, 4, 4) aligns src to tgt."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-0.5, 0.5, (b, n, 3))
+    t_gt = np.tile(np.eye(4), (b, 1, 1))
+    for i in range(b):
+        axis = rng.standard_normal(3)
+        axis /= np.linalg.norm(axis)
+        ang = np.radians(rng.uniform(9.0, 45.0))
+        k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        t_gt[i, :3, :3] = np.eye(3) + np.sin(ang) * k \
+            + (1 - np.cos(ang)) * (k @ k)
+        t_gt[i, :3, 3] = rng.uniform(-0.25, 0.25, 3)
+    tgt = src @ t_gt[:, :3, :3].transpose(0, 2, 1) + t_gt[:, None, :3, 3]
+    tgt = tgt + 0.005 * rng.standard_normal(tgt.shape)
+    tgt[:, 2 * n // 3:] = rng.uniform(-0.8, 0.8, (b, n - 2 * n // 3, 3))
+    return [torch.tensor(a, dtype=torch.float32) for a in (src, tgt, t_gt)]
+
+
+def _closeness_scores(model, gen):
+    """IDAM's similarity blocks set to score a pair by 5·relu(3 −
+    distance) through one channel, small draws elsewhere (as
+    tests/test_torch_idam.py sets them): drawn blocks send every kept
+    point to one target point, whose rank-1 Procrustes problem any
+    rounding turns."""
+    e = model.emb
+    with torch.no_grad():
+        for i in range(model.num_iters):
+            for kind in ("sim1_", "sim2_"):
+                blk = getattr(model, f"{kind}{i}")
+                for p in blk.parameters():
+                    p.copy_(1e-3 * torch.randn(p.shape, generator=gen))
+                blk.bn0.weight.fill_(1.0)
+                blk.bn0.running_var.fill_(1.0)
+                blk.bn0.running_mean.zero_()
+                if kind == "sim1_":
+                    blk.fc0.weight[0, 2 * e] = -1.0
+                    blk.bn0.running_mean[0] = -3.0
+                    blk.out.weight[0, 0] = 1.0
+                else:
+                    blk.fc0.weight[0, 0] = 1.0
+                    blk.out.weight[0, 0] = 5.0
+
+
+def _learned_small_run(model_name, dev):
+    """The seeded small model on ``dev``: the val outputs, the test
+    transform, and one train forward's loss and the running statistics
+    it moved (IDAM on Gumbel noise drawn on the host)."""
+    from houv_tpu_torch.models import get_model
+    from houv_tpu_torch.models.common import init_like_flax
+
+    kw, n = LEARNED_SMALL[model_name]
+    model = get_model(model_name, **kw)
+    gen = torch.Generator().manual_seed(11)
+    init_like_flax(model, gen)
+    if model_name == "idam":
+        _closeness_scores(model, gen)
+    model.to(dev)
+    src, tgt, t_gt = (a.to(dev) for a in _registration_pair(5, 2, n))
+    extra = {}
+    if model_name == "idam":
+        g = torch.Generator().manual_seed(12)
+        extra["gumbel"] = tuple(-torch.log(-torch.log(torch.rand(
+            (2, n), generator=g).clamp_min(1e-30))).to(dev)
+            for _ in range(2))
+    with torch.no_grad():
+        val = model(src, tgt, t_gt, prefix="val", train=False)
+        test = model(src, tgt, None, prefix="test")
+        train = model(src, tgt, t_gt, prefix="train", train=True, **extra)
+    stats = {k: v.cpu() for k, v in model.named_buffers()}
+    return ({k: v.cpu() for k, v in val.items()}, test.cpu(),
+            float(train["loss"]), stats)
+
+
+def _learned_cpu_vs_card(model_name):
+    """The card against the port's CPU path at the parity tests' size:
+    the val transform and errors (1e-4; the rotation error 1e-2 degrees,
+    its arccos near 1), the test transform, a train forward's loss (1e-4
+    relative) and the running statistics it moved (1e-4 of each tensor's
+    largest entry)."""
+    c_val, c_test, c_loss, c_st = _learned_small_run(model_name, "cpu")
+    g_val, g_test, g_loss, g_st = _learned_small_run(model_name, "cuda")
+    diffs = {"transform": float((c_val["transform"]
+                                 - g_val["transform"]).abs().max()),
+             "test_transform": float((c_test - g_test).abs().max()),
+             "r_err_deg": float((c_val["r_err"] - g_val["r_err"]).abs()
+                                .max()),
+             "rmse": float((c_val["rmse"] - g_val["rmse"]).abs().max()),
+             "loss_rel": abs(c_loss - g_loss) / max(abs(c_loss), 1e-12),
+             "stats_rel": max((float((g_st[k] - c_st[k]).abs().max()
+                                     / c_st[k].abs().max().clamp_min(1e-12))
+                               for k in c_st), default=0.0)}
+    bounds = {"transform": 1e-4, "test_transform": 1e-4, "r_err_deg": 1e-2,
+              "rmse": 1e-4, "loss_rel": 1e-4, "stats_rel": 1e-4}
+    rec = {"phase": "learned_reference", "model": model_name,
+           "small": LEARNED_SMALL[model_name][0],
+           "points": LEARNED_SMALL[model_name][1], "pairs": 2,
+           "loss_cpu": c_loss, "loss_cuda": g_loss,
+           "rmse_cuda": g_val["rmse"].tolist(), "diffs": diffs,
+           "bounds": bounds}
+    emit(rec)
+    bad = {k: v for k, v in diffs.items() if not v <= bounds[k]}
+    if bad:
+        fail(f"{model_name} on the card differs from the CPU path: {bad}")
+    return rec
+
+
+def _transformer_cpu_vs_card():
+    """The trained transformer (``TRANSFORMER_CKPT``) on 4 val clouds of
+    the synthetic split at full width, on the card and on the CPU: the
+    completions as point sets (the largest distance from a point of either
+    cloud to the other, 1e-4) and point for point."""
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(_model_cfg(tmp, "transformer", 16,
+                                     load_model=TRANSFORMER_CKPT))
+        batch = build_dataset(cfg, "val").get_batch(np.arange(4))
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            trainer = CompletionTrainer(cfg, dev)
+            trainer.init_state()
+            outs[dev] = trainer.predict_batch(batch).cpu()
+    c, g = outs["cpu"], outs["cuda"]
+    d = torch.cdist(c.double(), g.double())
+    set_dist = float(torch.maximum(d.amin(-1).amax(-1),
+                                   d.amin(-2).amax(-1)).max())
+    rec = {"phase": "learned_reference", "model": "transformer",
+           "checkpoint": TRANSFORMER_CKPT, "clouds": 4, "points": 2048,
+           "max_set_dist": set_dist,
+           "max_abs_diff": float((c - g).abs().max()), "tolerance": 1e-4}
+    emit(rec)
+    if not set_dist <= 1e-4 or g.shape != (4, 2048, 3):
+        fail(f"the trained transformer on the card differs from the CPU "
+             f"path: clouds {set_dist:.3g} apart, {list(g.shape)}")
+    return rec
+
+
+def run_learned_train(tmp, model):
+    """``train_main`` on cfgs/<model>.yaml at full width over the
+    synthetic split cut to 128 train and 64 val pairs (``nepoch`` 100 ->
+    2: 8 steps, two validations of 2 batches), launches held to
+    ``LAUNCHES``, the five ``best_<metric>_network.ckpt`` written; a last
+    ``validate`` for the five meters; then ``test_main`` with
+    ``load_model`` over 64 test pairs, its (64, 4, 4) transforms and
+    launches held."""
+    from houv_tpu_torch.train.cli import build_dataset, test_main, train_main
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    counters = _completion_counters()
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    out = train_main(["-c", _full_train_cfg(tmp, model, nepoch=2)])
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer = out.pop("trainer")
+    cfg = trainer.cfg
+    steps = len(out["losses"])
+    expected = _sum(_times(LAUNCHES[model]["train"], steps),
+                    _times(LAUNCHES[model]["val"], 4))
+    files = sorted(os.listdir(out["log_dir"]))
+    want = {f"best_{m}_network.ckpt" for m in REG_METRICS} | {"network.ckpt"}
+    best = dict(trainer.best)
+    meters = trainer.validate(build_dataset(cfg, "val"), epoch=2)
+    del trainer
+    torch.cuda.empty_cache()
+    _zero(counters)
+    res = test_main(["-c", _full_train_cfg(tmp, model, synthetic_size=64,
+                                           load_model=out["checkpoint"])])
+    sweep_launches = _read(counters)
+    results = read_results_h5(res["results_h5"])
+    rot = results[:, :3, :3]
+    ortho = float(np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max())
+    rec = {"phase": "learned", "config": f"cfgs/{model}.yaml",
+           "run": "train_main", "batch": cfg.batch_size,
+           "points": cfg.num_points, "epochs": 2,
+           "steps": steps, "losses": out["losses"],
+           "seconds": out["seconds"],
+           "steps_per_s_with_validate_and_save": steps / out["seconds"],
+           "peak_memory_gib": peak, "launches": launches,
+           "expected_launches": expected, "best": best,
+           "val_meters": meters,
+           "checkpoint_files": files, "test_main_pairs": res["n_pairs"],
+           "test_main_seconds": res["seconds"],
+           "test_main_pairs_per_s": res["n_pairs"] / res["seconds"],
+           "test_main_first_batch_seconds": res["first_batch_seconds"],
+           "results": list(results.shape), "rotation_orthonormal_err": ortho,
+           "test_main_launches": sweep_launches,
+           "expected_test_main_launches": _times(LAUNCHES[model]["test"], 2)}
+    emit(rec)
+    if steps != 8 or not np.isfinite(out["losses"]).all():
+        fail(f"{model} train_main: {steps} steps, losses {out['losses']}")
+    if launches != expected or sweep_launches != rec[
+            "expected_test_main_launches"]:
+        fail(f"{model} launches: train_main {launches}, expected "
+             f"{expected}; test_main {sweep_launches}")
+    if not want <= set(files):
+        fail(f"{model} train_main wrote {files}, not {sorted(want)}")
+    if results.shape != (64, 4, 4) or not np.isfinite(results).all() \
+            or ortho > 1e-4 or not all(np.isfinite(v)
+                                       for v in meters.values()):
+        fail(f"{model}: results {results.shape} (rotations {ortho:.3g} "
+             f"from orthonormal), meters {meters}")
+    return rec
+
+
+def _learned_repeated(tmp, model, n_steps=10):
+    """``n_steps`` train steps of cfgs/<model>.yaml at full width on one
+    repeated batch of 32 pairs (IDAM's sampling repeated too: the step's
+    generator stays that of step 0), from the seeded initialisation: the
+    losses (they must fall), steps/s and pairs/s after a first step outside
+    the clock, peak memory, launches held."""
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+
+    cfg = load_config(_full_train_cfg(tmp, model))
+    trainer = _learned_trainer(cfg)
+    batch = build_dataset(cfg, "train").get_batch(
+        np.arange(cfg.batch_size), rng=np.random.default_rng(0))
+    counters = _completion_counters()
+    _zero(counters)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(trainer.train_step(batch, 0, 0))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1, n_steps):
+        losses.append(float(trainer.train_step(batch, 0, 0)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec = {"phase": "learned", "config": f"cfgs/{model}.yaml",
+           "run": "repeated_batch", "batch": cfg.batch_size,
+           "points": cfg.num_points, "steps": n_steps, "losses": losses,
+           "steps_per_s": (n_steps - 1) / seconds,
+           "pairs_per_s": cfg.batch_size * (n_steps - 1) / seconds,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": _read(counters),
+           "expected_launches": _times(LAUNCHES[model]["train"], n_steps)}
+    emit(rec)
+    del trainer
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{model}: {n_steps} steps on one batch did not lower the loss:"
+             f" {losses}")
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"{model} repeated batch launches {rec['launches']}, expected "
+             f"{rec['expected_launches']}")
+    return rec
+
+
+def _forward_ranges(model):
+    """The forward parts whose device time the profile reads, by name:
+    DCP's DGCNN and transformer (``attention``), DeepGMR's RRI features
+    and PointNet, IDAM's GNN and its similarity convolutions; and the
+    whole forward."""
+    name = type(model).__name__
+    if name == "DCP":
+        parts = {"dgcnn": [model.emb_nn], "attention": [model.pointer]}
+    elif name == "DeepGMR":
+        parts = {"rri": [model, "_features"], "backbone": [model.backbone]}
+    else:
+        parts = {"gnn": [model.emb_nn],
+                 "similarity": [getattr(model, f"{k}{i}")
+                                for i in range(model.num_iters)
+                                for k in ("sim1_", "sim2_", "weight_fc")]}
+    return dict(parts, forward=[model])
+
+
+def _wrap_ranges(model):
+    """Wrap each part of ``_forward_ranges`` in a profiler range
+    ``learned::<name>`` (the instance's own attribute, on this model
+    only)."""
+    from torch.profiler import record_function
+
+    def wrap(fn, label):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    for label, parts in _forward_ranges(model).items():
+        if len(parts) == 2 and isinstance(parts[1], str):
+            obj, attr = parts
+            setattr(obj, attr, wrap(getattr(obj, attr), RANGE_PREFIX + label))
+            continue
+        for mod in parts:
+            mod.forward = wrap(mod.forward, RANGE_PREFIX + label)
+
+
+def phase_profile_learned(model):
+    """torch.profiler over one train step of cfgs/<model>.yaml at full
+    width (batch 32, 2048 points), after two warm-up steps: the kernels by
+    device time, and the device time of the forward and of its parts
+    (``_forward_ranges``; the backward's kernels run outside the
+    ranges)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(_full_train_cfg(tmp, model))
+        trainer = _learned_trainer(cfg)
+        _wrap_ranges(trainer.model)
+        batch = build_dataset(cfg, "train").get_batch(
+            np.arange(cfg.batch_size), rng=np.random.default_rng(0))
+        for step in range(2):
+            trainer.train_step(batch, 0, step)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch, 0, 2)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    top = _profile_top(prof, wall_ms)
+    # each range's device time, the kernels launched inside it (nested
+    # ranges included), summed over its calls, from the host-side range
+    # (the device-side one spans only the kernels outside nested ranges):
+    # the forward's parts and the whole forward
+    ranges = {}
+    for ev in prof.events():
+        if ev.name.startswith(RANGE_PREFIX) \
+                and not str(ev.device_type).endswith("CUDA"):
+            rec = ranges.setdefault(ev.name[len(RANGE_PREFIX):],
+                                    {"device_ms": 0.0, "calls": 0})
+            rec["device_ms"] += getattr(ev, "device_time_total", getattr(
+                ev, "cuda_time_total", 0)) / 1e3
+            rec["calls"] += 1
+    fwd = ranges.get("forward", {}).get("device_ms", 0.0)
+    for rec in ranges.values():
+        rec["share_of_forward"] = rec["device_ms"] / max(fwd, 1e-9)
+        rec["share_of_step"] = rec["device_ms"] / max(top["device_ms"],
+                                                      1e-9)
+    rec = {"phase": "profile", "config": f"cfgs/{model}.yaml",
+           "pairs": cfg.batch_size, "run": "train_step", **top,
+           "forward_ranges": ranges}
+    emit(rec)
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_learned():
+    """The learned models (no new kernel: K6 carries the registration
+    models, K2, K1, K4 and K7 the transformer):
+    (a) for each of cfgs/dcp.yaml, deepgmr.yaml and idam.yaml at full
+        width (batch 32, 2048 points): ``train_main`` and ``test_main``
+        with ``load_model`` (``run_learned_train``), then 10 steps on one
+        batch (``_learned_repeated``: the loss must fall; steps/s, pairs/s,
+        peak memory);
+    (b) cfgs/transformer.yaml with the trained JAX checkpoint
+        ``TRANSFORMER_CKPT``: ``test_main`` over 512 clouds, ``validate``
+        with eval_emd over 64 (cd_p, cd_t, f1, emd and the auction's
+        rounds on trained weights), ``train_main`` (8 steps, checkpoint
+        reloads bit-equal) and 10 steps on one batch;
+    (c) the card against the port's CPU path at the parity tests' size for
+        the three registration models, and the trained transformer on 4
+        val clouds at full width;
+    (d) one profiled train step of each registration model
+        (``phase_profile_learned``: DCP's attention, DeepGMR's RRI, IDAM's
+        similarity convolutions)."""
+    from houv_tpu_torch.ops.emd import emd_auction_with_stats
+    from houv_tpu_torch.train.cli import build_dataset, test_main
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    out = {"reference": {m: _learned_cpu_vs_card(m) for m in LEARNED}}
+    out["reference"]["transformer"] = _transformer_cpu_vs_card()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for model in LEARNED:
+            out[model] = {"train": run_learned_train(tmp, model),
+                          "repeated": _learned_repeated(tmp, model)}
+        counters = _completion_counters()
+        _zero(counters)
+        res = test_main(["-c", _model_cfg(tmp, "transformer", 512,
+                                          load_model=TRANSFORMER_CKPT)])
+        launches = _read(counters)
+        results = read_results_h5(res["results_h5"])
+        steady = res["seconds"] - res["first_batch_seconds"]
+        sweep = {"phase": "learned", "config": "cfgs/transformer.yaml",
+                 "run": "test_main", "checkpoint": TRANSFORMER_CKPT,
+                 "clouds": res["n_clouds"], "batch": 32,
+                 "seconds": res["seconds"],
+                 "first_batch_seconds": res["first_batch_seconds"],
+                 "clouds_per_s": res["n_clouds"] / res["seconds"],
+                 "clouds_per_s_after_first": (res["n_clouds"] - 32) / steady,
+                 "result": list(results.shape), "launches": launches,
+                 "expected_launches": _times(LAUNCHES["transformer"]["test"],
+                                             512 // 32)}
+        emit(sweep)
+        if results.shape != (512, 2048, 3) or not np.isfinite(results).all() \
+                or launches != sweep["expected_launches"]:
+            fail(f"transformer sweep: results {results.shape}, launches "
+                 f"{launches}")
+        cfg = load_config(_model_cfg(tmp, "transformer", 64, eval_emd=True,
+                                     load_model=TRANSFORMER_CKPT))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        val_ds = build_dataset(cfg, "val")
+        torch.cuda.synchronize()
+        _zero(counters)
+        t0 = time.perf_counter()
+        with _EmdInputs(2) as emd_inputs:
+            metrics = trainer.validate(val_ds)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read(counters)
+        rounds = [emd_auction_with_stats(*args)[2].float()
+                  for args in emd_inputs.kept]
+        rounds = torch.cat(rounds)
+        val = {"phase": "learned", "config": "cfgs/transformer.yaml",
+               "run": "validate", "checkpoint": TRANSFORMER_CKPT,
+               "eval_emd": True, "clouds": len(val_ds), "seconds": seconds,
+               "clouds_per_s": len(val_ds) / seconds, "metrics": metrics,
+               "emd_rounds_mean": float(rounds.mean()),
+               "emd_rounds_max": float(rounds.max()),
+               "emd_pairs_at_3000_rounds": int((rounds >= 3000).sum()),
+               "launches": launches,
+               "expected_launches": _times(dict(
+                   LAUNCHES["transformer"]["val"], emd=1), 2)}
+        emit(val)
+        del trainer
+        torch.cuda.empty_cache()
+        if set(metrics) != {"cd_p", "cd_t", "emd", "f1"} or not all(
+                np.isfinite(v) for v in metrics.values()) \
+                or launches != val["expected_launches"]:
+            fail(f"transformer validate: metrics {metrics}, launches "
+                 f"{launches}")
+        train = run_train_main(tmp, "transformer")
+        rep = _repeated_batch(tmp, 10, False, "transformer")
+        _falling(rep, "transformer")
+        out["transformer"] = {"sweep": sweep, "validate": val,
+                              "train": train, "repeated": rep}
+    out["profiles"] = {m: phase_profile_learned(m) for m in LEARNED}
+    return out
+
+
 def _short_solve_inputs(pairs=4):
     """cfgs/houv.yaml's solver config with the budget cut to 100 steps, and
     ``pairs`` pairs of the structured split on the card: (config, src, tgt,
@@ -2840,6 +3334,11 @@ PORT_KERNELS = ("nn_both_kernel", "nn_both_unpack_kernel", "nn_select_kernel",
                 "gather_rows_kernel")
 
 
+# the prefix of the profiler ranges ``_wrap_ranges`` opens: their spans on
+# the device are not kernels, and the device's sums leave them out
+RANGE_PREFIX = "learned::"
+
+
 def _profile_top(prof, wall_ms):
     """Device time by kernel: the ten largest, and every one of the port's
     own kernels (its instantiations summed), wherever it ranks."""
@@ -2847,7 +3346,8 @@ def _profile_top(prof, wall_ms):
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0))
-        if str(getattr(ev, "device_type", "")).endswith("CUDA") and t > 0:
+        if str(getattr(ev, "device_type", "")).endswith("CUDA") and t > 0 \
+                and not ev.key.startswith(RANGE_PREFIX):
             kernels.append((t / 1e3, ev.count, ev.key))
     kernels.sort(reverse=True)
     device_ms = sum(k[0] for k in kernels)
@@ -2893,10 +3393,16 @@ def phase_profile_vrcnet():
           "run": "predict_batch", **_profile_top(prof, wall_ms)})
 
 
+# The solver windows' profiles record the device's activity only: a window
+# launches ≈250,000 kernels, and parsing the host's operators beside them
+# took minutes a window (PERF.md §6), more than the script's time limit
+# holds. Their wall time is then the window's without the host-side
+# profiler's overhead.
 def phase_profile():
-    """Where one houv_fast window's time goes: torch.profiler over one
-    angle pass of the 16-pair split, device time by kernel name, and K2's
-    census in that window (``fps_census``: (B, N, K) of each launch)."""
+    """Where one houv_fast window's time goes: torch.profiler (the device's
+    activity only) over one angle pass of the 16-pair split, device time
+    by kernel name, and K2's census in that window (``fps_census``:
+    (B, N, K) of each launch)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -2918,8 +3424,7 @@ def phase_profile():
     params0 = init_params(torch.Generator().manual_seed(0), 16, scfg.kernel,
                           device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof, \
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
             _Census(furthest_point_sample) as census:
         t0 = time.perf_counter()
         houv_solve(src, tgt, scfg, params0=params0)
@@ -2934,9 +3439,9 @@ def phase_profile():
 
 def phase_profile_rescore():
     """Where one rescored window's time goes (cfgs/houv_rescore.yaml, 8
-    pairs, one angle window): torch.profiler over the pool solve, then over
-    the candidates' scoring by the trained classifier, each with its wall
-    time and device time by kernel."""
+    pairs, one angle window): torch.profiler (the device's activity only)
+    over the pool solve, then over the candidates' scoring by the trained
+    classifier, each with its wall time and device time by kernel."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -2964,15 +3469,13 @@ def phase_profile_rescore():
     rec = {"phase": "profile_rescore", "config": "cfgs/houv_rescore.yaml",
            "pairs": n, "angle_passes": 1, "rescore_cands": cfg.rescore_cands}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pools = houv_candidate_pools(src, tgt, scfg, params0=params0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rec["pool"] = _profile_top(prof, wall_ms)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = houv_solve_rescored(src, tgt, scfg, scorer,
                                   n_cand=cfg.rescore_cands,
@@ -3103,9 +3606,12 @@ def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
 # poolings at k 10, three_nn on the way up), ECG's 6 (the poolings at k 16,
 # three_nn), get_uniform_loss's 10 per ECG step (FPS-seeded balls of 5%
 # of the cloud, fine 2048 and coarse 1024 points, at five percentages, k 2)
-# FGR's 4 a batch (the normals at k 16 and FPFH at k 17, each cloud) and
+# FGR's 4 a batch (the normals at k 16 and FPFH at k 17, each cloud),
 # vrcnet_knn's 10 per forward at its batch of 16 (the k 16 graphs of the
 # pyramid 3072/1536/768/384, the pk 10 poolings, three_nn on the way up)
+# and the learned registration models' 2 a forward (one a cloud: DCP's
+# graph at k 20, DeepGMR's RRI at k 21 with the point itself, IDAM's
+# graph at k 12)
 KNN_SHAPES = tuple(
     [(32, n, n, k, "vrcnet") for n in (3072, 1536, 768, 384)
      for k in (20, 10)]
@@ -3122,7 +3628,9 @@ KNN_SHAPES = tuple(
     + [(16, 2048, 2048, k, "fgr") for k in (16, 17)]
     + [(16, n, n, 16, "vrcnet_knn") for n in (3072, 1536, 768, 384)]
     + [(16, n // 2, n, 10, "vrcnet_knn") for n in (3072, 1536, 768)]
-    + [(16, n, n // 2, 3, "vrcnet_knn") for n in (3072, 1536, 768)])
+    + [(16, n, n // 2, 3, "vrcnet_knn") for n in (3072, 1536, 768)]
+    + [(32, 2048, 2048, k, m) for m, k in (("dcp", 20), ("deepgmr", 21),
+                                           ("idam", 12))])
 
 
 def _time_knn(b, m, n, k, path, gen, yardsticks=True, plain=False):
@@ -3394,7 +3902,8 @@ def _time_gather_rows(gen):
 
 
 def phase_kernels(launches, errs, completion, train, solve, models,
-                  models_train, select, classical, combine, vrcnet_knn, gen):
+                  models_train, select, classical, combine, vrcnet_knn,
+                  learned, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
@@ -3405,7 +3914,8 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     classical solvers' runs and the combine's re-solve, whose launches
     each row carries under ``classical_launches``; ``vrcnet_knn``: its
     phase, whose runs' launches each row carries under
-    ``vrcnet_knn_launches``."""
+    ``vrcnet_knn_launches``; ``learned``: the learned models' phase,
+    whose runs' launches each row carries under ``learned_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import emd
@@ -3436,7 +3946,7 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     vrc = {k: completion["test"]["launches"].get(k, 0)
            + completion["validate"]["launches"].get(k, 0)
            for k in ("knn", "emd")}
-    # knn at its 42 path shapes, the first VRCNet's level-0 self-kNN (32
+    # knn at its 45 path shapes, the first VRCNet's level-0 self-kNN (32
     # clouds of 3072 points, k 20), the plain version timed there
     shapes = [_time_knn(*shape, gen, plain=i == 0)
               for i, shape in enumerate(KNN_SHAPES)]
@@ -3512,7 +4022,23 @@ def phase_kernels(launches, errs, completion, train, solve, models,
         row["vrcnet_knn_launches"] = {
             run: vrcnet_knn[run]["launches"].get(row["name"], 0)
             for run in ("train", "repeated", "sweep")}
+        row["learned_launches"] = {
+            m: {run: rec[key].get(row["name"], 0)
+                for run, rec, key in _learned_runs(learned, m)}
+            for m in LEARNED + ("transformer",)}
     return out
+
+
+def _learned_runs(learned, model):
+    """(run, record, launches key) of each run of ``model`` in the learned
+    phase."""
+    rec = learned[model]
+    if model == "transformer":
+        return [(run, rec[run], "launches")
+                for run in ("sweep", "validate", "train", "repeated")]
+    return [("train_main", rec["train"], "launches"),
+            ("test_main", rec["train"], "test_main_launches"),
+            ("repeated", rec["repeated"], "launches")]
 
 
 def main(argv=None) -> int:
@@ -3569,6 +4095,7 @@ def main(argv=None) -> int:
     train = timed(phase_train)
     models_train = timed(phase_train_models)
     vrcnet_knn = timed(phase_vrcnet_knn)
+    learned = timed(phase_learned)
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
     profiles = {"houv_fast": timed(phase_profile)}
@@ -3580,7 +4107,7 @@ def main(argv=None) -> int:
     timed(phase_fps_census, profiles)
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select,
-                           classical, combine, vrcnet_knn, gen)})
+                           classical, combine, vrcnet_knn, learned, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

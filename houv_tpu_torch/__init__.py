@@ -1,5 +1,6 @@
 """houv_tpu_torch — the HOUV registration sweep (its quality modes
-included) and PCN, ECG and VRCNet completion in PyTorch and CUDA.
+included), the classical and learned registration baselines, and PCN,
+ECG, VRCNet, vrcnet_knn and transformer completion in PyTorch and CUDA.
 
 The PyTorch/CUDA counterpart of ``houv_tpu``, module for module:
 
@@ -9,18 +10,20 @@ The PyTorch/CUDA counterpart of ``houv_tpu``, module for module:
   gather, each a hand-written CUDA kernel (``csrc/``) with a plain PyTorch
   version beside it for CPU tensors; ball query, grouping and three-NN
   interpolation; voxel indices and sparse 3D convolutions.
-- ``houv_tpu_torch.geometry``  rigid-transform math (Rodrigues, errors).
+- ``houv_tpu_torch.geometry``  rigid-transform math (Rodrigues, errors,
+  weighted Kabsch).
 - ``houv_tpu_torch.metrics``   chamfer (cd_p, cd_t, F1), EMD, and the
   bisected truncated chamfer mean.
 - ``houv_tpu_torch.solvers``   the HOUV hybrid solver (canonical objective,
   view loss) and its classifier-rescored selection.
-- ``houv_tpu_torch.models``    PCN, ECG and VRCNet with their in-model
-  losses (inference, validation, training); the alignment classifier.
+- ``houv_tpu_torch.models``    PCN, ECG, VRCNet, vrcnet_knn and the
+  transformer, DCP, DeepGMR and IDAM with their in-model losses
+  (inference, validation, training); the alignment classifier.
 - ``houv_tpu_torch.data``      MVP registration and completion data,
   synthetic fixtures, batching.
 - ``houv_tpu_torch.train``     YAML configs, results.h5 writer, test CLI,
-  the solver's evaluation, the completion harness, checkpoints (the JAX
-  package's flax files read too).
+  the solvers' evaluation, the completion and registration harness,
+  checkpoints (the JAX package's flax files read too).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The package imports neither JAX nor anything of ``houv_tpu``.

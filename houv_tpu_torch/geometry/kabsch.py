@@ -50,14 +50,16 @@ def weighted_kabsch(src: torch.Tensor, tgt: torch.Tensor,
 
     src, tgt: (..., N, 3); weights (..., N), not necessarily normalised
     (their sum is floored at the dtype's ``tiny``) -> (R, t) with
-    tgt ≈ src @ Rᵀ + t. The covariance and its SVD run in f32."""
+    tgt ≈ src @ Rᵀ + t. The covariance and its SVD run in f32 (in f64 for
+    f64 clouds, which the gradient checks use)."""
     w = weights / torch.clamp_min(weights.sum(-1, keepdim=True),
                                   torch.finfo(src.dtype).tiny)
     src_c = (src * w[..., None]).sum(-2, keepdim=True)
     tgt_c = (tgt * w[..., None]).sum(-2, keepdim=True)
     src0 = src - src_c
     tgt0 = tgt - tgt_c
-    h = ((src0 * w[..., None]).transpose(-1, -2) @ tgt0).float()
+    h = (src0 * w[..., None]).transpose(-1, -2) @ tgt0
+    h = h.to(torch.promote_types(h.dtype, torch.float32))
     u, _, vt = torch.linalg.svd(h, full_matrices=False)
     r = fix_reflection(u, vt).to(src.dtype)
     t = tgt_c[..., 0, :] - (r @ src_c[..., 0, :, None])[..., 0]

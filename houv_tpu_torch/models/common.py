@@ -5,7 +5,15 @@ an ``nn.Linear`` over the last axis. ``FlaxNamed`` modules record, for each
 child layer, the auto-name flax gives the same layer (``Dense_3``,
 ``SKNResUnit_2``), so ``houv_tpu_torch.state.state_from_flax`` can carry JAX
 parameters across name by name. ``get_graph_feature`` and ``EFExpansion``
-build their graphs in the feature space, on the wide kNN kernel.
+build their graphs in the feature space, on the wide kNN kernel (on
+coordinates, C == 3, on the coordinate kernel).
+
+flax's normalisations are not torch's defaults: ``BatchNorm`` (ε 1e-5,
+running statistics moved by 1% a train step) and ``LayerNorm`` (ε 1e-6)
+take the biased variance as E[x²] − E[x]², floored at 0, and compute
+(x − mean) · (rsqrt(var + ε) · scale) + bias. ``attention`` and
+``MultiHeadAttention`` are the JAX package's dense products (scores scaled
+by 1/√d_k, a softmax, the weighted values), not a fused attention kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +24,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from houv_tpu_torch.geometry.kabsch import weighted_kabsch
+from houv_tpu_torch.geometry.rotations import (
+    rmse_loss,
+    rotation_error,
+    rotation_geodesic_error,
+    translation_error,
+)
 from houv_tpu_torch.ops.gather import gather_edge_features, gather_rows
 from houv_tpu_torch.ops.grouping import ball_query, knn_indices, knn_points
 from houv_tpu_torch.ops.sampling import furthest_point_sample
@@ -108,6 +123,192 @@ def to_f32(x: torch.Tensor, compute_dtype: torch.dtype | None) -> torch.Tensor:
     without a compute dtype ``x`` as it is (f32, or f64 in the f64
     reference runs)."""
     return x if compute_dtype is None else x.float()
+
+
+def flax_statistics(x: torch.Tensor, mask: torch.Tensor | None = None,
+                    dims: tuple | None = None):
+    """flax's (mean, variance) over ``dims`` (default every axis but the
+    last): the variance biased, E[x²] − E[x]² floored at 0. ``mask``
+    (broadcastable to ``x``, bool) keeps only the rows it marks; ``dims``
+    is then every axis but the last."""
+    if mask is None:
+        dims = tuple(range(x.dim() - 1)) if dims is None else dims
+        mean = x.mean(dims)
+        mean2 = (x * x).mean(dims)
+    else:
+        dims = tuple(range(x.dim() - 1))
+        count = mask.sum()
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        mean = torch.where(mask, x, zero).sum(dims) / count
+        mean2 = torch.where(mask, x * x, zero).sum(dims) / count
+    return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+
+
+def flax_normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                   eps: float, weight: torch.Tensor | None,
+                   bias: torch.Tensor | None) -> torch.Tensor:
+    """(x − mean) · (rsqrt(var + ε) · weight) + bias, flax's order."""
+    mul = torch.rsqrt(var + eps)
+    if weight is not None:
+        mul = mul * weight
+    y = (x - mean) * mul
+    return y if bias is None else y + bias
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over (..., C), unmasked: with ``train`` the
+    batch's statistics over every axis but the last normalise, and the
+    running ones move to 0.99 · running + 0.01 · batch (a module called
+    twice in one step, on the source and then on the target, moves them
+    twice, as flax does within one ``apply``); otherwise the running
+    statistics normalise and nothing changes. ``use_bias`` and
+    ``use_scale`` drop the offset or the scale, as flax's do."""
+
+    flax_class = "BatchNorm"
+    flax_leaves = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                   "var": "running_var"}
+    momentum = 0.99
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 use_bias: bool = True, use_scale: bool = True):
+        super().__init__()
+        self.eps = eps
+        self.weight = (nn.Parameter(torch.ones(channels)) if use_scale
+                       else None)
+        self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def statistics(self, x: torch.Tensor, train: bool,
+                   mask: torch.Tensor | None = None):
+        """The (mean, variance) that normalise ``x``: in a train step the
+        batch's (over the rows ``mask`` keeps), moving the running ones;
+        otherwise the running ones."""
+        if not train:
+            return self.running_mean, self.running_var
+        mean, var = flax_statistics(x, mask)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return mean, var
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return flax_normalize(x, *self.statistics(x, train), self.eps,
+                              self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: ε 1e-6 (flax's default,
+    where torch's is 1e-5), the variance E[x²] − E[x]² floored at 0."""
+
+    flax_leaves = {"scale": "weight", "bias": "bias"}
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = flax_statistics(x, dims=(-1,))
+        return flax_normalize(x, mean[..., None], var[..., None], self.eps,
+                              self.weight, self.bias)
+
+
+class PointMLP(FlaxNamed):
+    """Per-point MLP over (B, N, C): ``Dense`` layers of ``features``
+    widths, each (with ``use_bn``) followed by a ``BatchNorm``, with a ReLU
+    between them and, with ``relu_last``, after the last."""
+
+    def __init__(self, features, in_features: int, relu_last: bool = False,
+                 use_bn: bool = False):
+        super().__init__()
+        self.relu_last, self.use_bn = relu_last, use_bn
+        self.n = len(features)
+        for i, f in enumerate(features):
+            self.child(f"fc{i}", nn.Linear(in_features, f))
+            if use_bn:
+                self.child(f"bn{i}", BatchNorm(f))
+            in_features = f
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for i in range(self.n):
+            x = getattr(self, f"fc{i}")(x)
+            if self.use_bn:
+                x = getattr(self, f"bn{i}")(x, train)
+            if i < self.n - 1 or self.relu_last:
+                x = torch.relu(x)
+        return x
+
+
+def attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+              mask: torch.Tensor | None = None):
+    """Scaled dot-product attention over (..., L, D): scores q·kᵀ / √d_k
+    (−1e9 where ``mask`` is 0), a softmax over the keys, the weighted
+    values. Returns (output, probabilities)."""
+    scores = torch.matmul(query, key.transpose(-1, -2)) / math.sqrt(
+        query.shape[-1])
+    if mask is not None:
+        scores = scores.masked_fill(mask == 0, -1e9)
+    p = torch.softmax(scores, -1)
+    return torch.matmul(p, value), p
+
+
+class MultiHeadAttention(FlaxNamed):
+    """Multi-head attention over inputs of width ``d_model``: ``Dense``
+    projections of the query, key and value split into ``n_heads`` heads,
+    ``attention`` per head, and an output ``Dense``."""
+
+    def __init__(self, n_heads: int, d_model: int):
+        super().__init__()
+        self.n_heads, self.d_model = n_heads, d_model
+        for name in ("q", "k", "v", "out"):
+            self.child(name, nn.Linear(d_model, d_model))
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor,
+                value: torch.Tensor, mask=None) -> torch.Tensor:
+        b, d_k = query.shape[0], self.d_model // self.n_heads
+
+        def split(x, layer):
+            return layer(x).reshape(b, -1, self.n_heads, d_k).transpose(1, 2)
+
+        out, _ = attention(split(query, self.q), split(key, self.k),
+                           split(value, self.v), mask)
+        return self.out(out.transpose(1, 2).reshape(b, -1, self.d_model))
+
+
+def svd_head(src: torch.Tensor, tgt_corr: torch.Tensor,
+             weights: torch.Tensor | None = None, stop_grad: bool = False):
+    """The weighted-Procrustes head of DCP, DeepGMR and IDAM: (R, t)
+    aligning src to tgt_corr (``geometry/kabsch.py:weighted_kabsch``),
+    equal weights by default; ``stop_grad`` detaches its inputs (IDAM)."""
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype,
+                             device=src.device)
+    if stop_grad:
+        src, tgt_corr, weights = (src.detach(), tgt_corr.detach(),
+                                  weights.detach())
+    return weighted_kabsch(src, tgt_corr, weights)
+
+
+def registration_outputs(loss, src, t_12, r, t, t_gt) -> dict:
+    """The learned registration models' train and val outputs: the loss,
+    the rotation error (degrees), translation error, RMSE of the moved
+    source and geodesic + translation error per pair, and the transform."""
+    r_gt, t_gt_vec = t_gt[:, :3, :3], t_gt[:, :3, 3]
+    return {"loss": loss, "r_err": rotation_error(r, r_gt),
+            "t_err": translation_error(t, t_gt_vec),
+            "rmse": rmse_loss(src, t_12, t_gt),
+            "rt_mse": rotation_geodesic_error(r, r_gt)
+            + translation_error(t, t_gt_vec),
+            "transform": t_12}
+
+
+def transform_mse(t_12: torch.Tensor, t_gt: torch.Tensor) -> torch.Tensor:
+    """mean((T12 · T_gt⁻¹ − I)²)."""
+    eye = torch.eye(4, dtype=t_12.dtype, device=t_12.device)
+    return ((t_12 @ torch.linalg.inv(t_gt) - eye) ** 2).mean()
 
 
 def max_pool_points(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,107 @@
+"""The transformer point regressor (counterpart of
+``houv_tpu/models/embedding.py:TransformerRegressor`` and
+``TransformerCompletion``, the ``transformer`` completion model).
+
+A per-point MLP lifts the partial cloud to ``d_model`` features; FPS (K2,
+``ops/sampling.py``) picks ``num_latent`` of them as latent points, which
+pass ``n_layers`` pre-norm blocks of self-attention, cross-attention to
+every point's features and a feed-forward layer. Each latent point is then
+repeated ``ratio`` times, tagged with a 1-D offset in [-0.05, 0.05], and an
+MLP regresses the output coordinates. The train loss is cd_p + 0.02 · cd_t
+on K1 (its backward on K4); validation gives cd_p, cd_t, f1 (and EMD with
+``eval_emd``, on K7).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from houv_tpu_torch.metrics.cd import calc_cd
+from houv_tpu_torch.metrics.emd import calc_emd
+from houv_tpu_torch.models.common import (FlaxNamed, LayerNorm,
+                                          MultiHeadAttention, PointMLP)
+from houv_tpu_torch.ops.gather import gather_rows
+from houv_tpu_torch.ops.sampling import furthest_point_sample
+
+
+class TransformerRegressor(FlaxNamed):
+    """(B, N, 3) partial cloud -> (B, num_out, 3)."""
+
+    def __init__(self, num_latent: int = 256, num_out: int = 2048,
+                 d_model: int = 256, n_heads: int = 4, n_layers: int = 2):
+        super().__init__()
+        self.num_latent, self.num_out, self.n_layers = (num_latent, num_out,
+                                                        n_layers)
+        self.child("mlp", PointMLP((64, d_model), 3, relu_last=True))
+        for i in range(n_layers):
+            self.child(f"self_norm{i}", LayerNorm(d_model))
+            self.child(f"self_attn{i}", MultiHeadAttention(n_heads, d_model))
+            self.child(f"cross_norm{i}", LayerNorm(d_model))
+            self.child(f"cross_attn{i}", MultiHeadAttention(n_heads,
+                                                            d_model))
+            self.child(f"ff_norm{i}", LayerNorm(d_model))
+            # flax names the outer Dense first: it is built before the
+            # inner one it is applied to
+            self.child(f"ff_out{i}", nn.Linear(2 * d_model, d_model))
+            self.child(f"ff_in{i}", nn.Linear(d_model, 2 * d_model))
+        self.child("head_out", nn.Linear(128, 3))
+        self.child("head_in", nn.Linear(d_model + 1, 128))
+        self.ratio = -(-num_out // num_latent)
+        grid = np.tile(np.linspace(-0.05, 0.05, self.ratio,
+                                   dtype=np.float32), num_latent)[:num_out]
+        self.register_buffer("grid", torch.from_numpy(grid[:, None]),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        feats = self.mlp(x)
+        idx = furthest_point_sample(x, self.num_latent, device=x.device)
+        latent = gather_rows(feats, idx)
+        for i in range(self.n_layers):
+            h = getattr(self, f"self_norm{i}")(latent)
+            latent = latent + getattr(self, f"self_attn{i}")(h, h, h)
+            h = getattr(self, f"cross_norm{i}")(latent)
+            latent = latent + getattr(self, f"cross_attn{i}")(h, feats,
+                                                              feats)
+            h = getattr(self, f"ff_norm{i}")(latent)
+            latent = latent + getattr(self, f"ff_out{i}")(
+                torch.relu(getattr(self, f"ff_in{i}")(h)))
+        up = latent.repeat_interleave(self.ratio, 1)[:, :self.num_out]
+        grid = self.grid.to(up.dtype).expand(b, -1, -1)
+        h = torch.cat([up, grid], -1)
+        return self.head_out(torch.relu(self.head_in(h)))
+
+
+class TransformerCompletion(FlaxNamed):
+    """``TransformerRegressor`` under the completion-model contract:
+    x (B, N, 3) -> {'result'} ('test'); with gt, cd_p, cd_t, f1 (and emd)
+    per cloud ('val'); or {'out2', 'loss2', 'total_loss'} ('train': mean
+    cd_p + 0.02 · mean cd_t). The model draws no random numbers; ``alpha``
+    is accepted and not used, as in the JAX model."""
+
+    def __init__(self, num_points: int = 2048, num_latent: int = 256,
+                 eval_emd: bool = False):
+        super().__init__()
+        self.eval_emd = eval_emd
+        self.child("regressor", TransformerRegressor(
+            num_latent=num_latent, num_out=num_points))
+
+    def forward(self, x: torch.Tensor, gt: torch.Tensor | None = None,
+                prefix: str = "test", alpha: float | None = None) -> dict:
+        out = self.regressor(x)
+        if prefix == "train":
+            cd_p, cd_t = calc_cd(out, gt)
+            return {"out2": out, "loss2": cd_t,
+                    "total_loss": cd_p.mean() + cd_t.mean() * 0.02}
+        if prefix == "val":
+            cd_p, cd_t, f1 = calc_cd(out, gt, calc_f1=True)
+            res = {"out2": out, "cd_p": cd_p, "cd_t": cd_t, "f1": f1}
+            if self.eval_emd:
+                res["emd"] = calc_emd(out, gt, eps=0.004, iterations=3000)
+            return res
+        if prefix != "test":
+            raise ValueError(
+                f"prefix is 'train', 'val' or 'test', got {prefix!r}")
+        return {"result": out}

@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from houv_tpu_torch.models.common import FlaxNamed, lecun_normal_
+from houv_tpu_torch.models.common import (BatchNorm, FlaxNamed,
+                                          flax_normalize, lecun_normal_)
 from houv_tpu_torch.ops.sparse_conv import (
     SparseGrid,
     build_lookup,
@@ -120,46 +121,17 @@ class SparseDownConv(nn.Module):
         return SparseGrid(feats, out_coords, out_mask, out_g, dropped)
 
 
-class MaskedBatchNorm(nn.Module):
+class MaskedBatchNorm(BatchNorm):
     """flax ``nn.BatchNorm`` over the valid rows (the reference's
     BatchNorm1d over the ragged voxel list), rows outside the mask set to
-    0: (x − mean) · (rsqrt(var + ε) · scale) + bias. With ``train`` the
-    mean and variance are the batch's over the valid rows of every cloud,
-    the variance E[x²] − E[x]² floored at 0 (biased), and the running
-    statistics move to 0.99 · running + 0.01 · batch; otherwise the
-    running statistics normalise and nothing changes."""
-
-    flax_class = "BatchNorm"
-    flax_leaves = {"scale": "weight", "bias": "bias", "mean": "running_mean",
-                   "var": "running_var"}
-    momentum = 0.99
-
-    def __init__(self, channels: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+    0: ``common.BatchNorm``'s arithmetic, its train-mode statistics over
+    the valid rows of every cloud."""
 
     def forward(self, sg: SparseGrid, train: bool = False) -> SparseGrid:
-        x = sg.features
         mask = sg.mask[..., None]
-        if train:
-            count = mask.sum()
-            zero = torch.zeros((), dtype=x.dtype, device=x.device)
-            mean = torch.where(mask, x, zero).sum((0, 1)) / count
-            mean2 = torch.where(mask, x * x, zero).sum((0, 1)) / count
-            var = torch.clamp_min(mean2 - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        feats = (x - mean) * mul + self.bias
+        mean, var = self.statistics(sg.features, train, mask)
+        feats = flax_normalize(sg.features, mean, var, self.eps, self.weight,
+                               self.bias)
         feats = torch.where(mask, feats, 0.0)
         return SparseGrid(feats, sg.coords, sg.mask, sg.grid_size)
 

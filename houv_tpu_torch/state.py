@@ -102,7 +102,8 @@ def state_from_flax(params: dict, model: nn.Module) -> dict:
     modules, given that module's flax variables). ``params`` is the nested
     dict of ``init``'s ``params`` (leaves as numpy arrays), or a dict
     holding it under ``'params'`` and, for a model with BatchNorm, its
-    running statistics under ``'batch_stats'`` (a checkpoint's two trees;
+    running statistics under ``'batch_stats'`` (either alone gives its
+    part of the ``state_dict``) (a checkpoint's two trees;
     other keys, such as an optimizer state, are not model state). Layers
     pair up by flax auto-name (``PCNEncoder_0``, ``ECGDecoder_0``,
     ``DenseConv_2``, ``ResBlock_1``, ``BatchNorm_3``, ``Dense_7``). Every
@@ -111,10 +112,10 @@ def state_from_flax(params: dict, model: nn.Module) -> dict:
     auto-name (``PCNEncoderLabel_0``, ``Asymm3DSpconv_0``,
     ``DenseResBlock_0`` or ``ResBlock_2``, ``KNNDecoder_0``)."""
     out: dict = {}
-    if "params" not in params:
+    if not {"params", "batch_stats"} & set(params):
         _flax_to_torch(model, params, "", out)
         return out
-    for tree in (params["params"], params.get("batch_stats") or {}):
+    for tree in (params.get("params") or {}, params.get("batch_stats") or {}):
         _flax_to_torch(model, tree, "", out)
     return out
 

@@ -6,13 +6,17 @@ A checkpoint of the port is a ``torch.save`` of ``{"model": state_dict,
 ``flax.serialization.msgpack_serialize`` writes them) are read by
 ``read_flax_msgpack`` into a tree of numpy arrays, with a decoder of its own
 (no ``msgpack`` package); ``houv_tpu_torch.state.state_from_flax`` maps
-that tree onto a model of the port.
+that tree onto a model of the port. ``load_checkpoint`` takes either, told
+apart by the file's content: ``torch.save`` writes a zip archive, flax a
+msgpack map.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import struct
+import zipfile
 
 import numpy as np
 import torch
@@ -35,7 +39,21 @@ def load_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None) -> int:
     """Load ``path`` into ``model`` (strictly) and, when both are there,
     into ``optimizer``. Returns the checkpoint's epoch (0 for a model-only
-    file). Tensors land on the device the model already lies on."""
+    file). Tensors land on the device the model already lies on. A JAX
+    package's checkpoint gives its ``params`` and ``batch_stats`` (mapped
+    by ``state_from_flax``) and its epoch; its optimizer state is not
+    carried across, and ``optimizer`` stays as it is."""
+    if not zipfile.is_zipfile(path):
+        from houv_tpu_torch.state import state_from_flax
+
+        tree = read_flax_msgpack(path)
+        model.load_state_dict(state_from_flax(tree, model), strict=True)
+        epoch = int(tree.get("epoch", 0))
+        logging.getLogger("houv_tpu_torch").info(
+            "%s: a JAX package checkpoint: parameters and running "
+            "statistics mapped, epoch %d restored, the optimizer state "
+            "left fresh", path, epoch)
+        return epoch
     state = torch.load(path, map_location="cpu", weights_only=True)
     if "model" not in state:            # a bare state_dict
         state = {"model": state}

@@ -1,7 +1,8 @@
 """Command-line entries (counterpart of ``houv_tpu/train/cli.py`` on one
-device): the test sweep (HOUV registration; PCN, ECG, VRCNet or vrcnet_knn
-completion), the merge of a sharded sweep, the training of a completion
-model and the evaluation of the registration solvers.
+device): the test sweep (HOUV or learned registration; PCN, ECG, VRCNet,
+vrcnet_knn or transformer completion), the merge of a sharded sweep, the
+training of a completion or learned registration model and the evaluation
+of the registration solvers.
 
     python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml [-l L -r R]
         [--data-path FILE] [--device cuda|cpu]
@@ -10,8 +11,9 @@ model and the evaluation of the registration solvers.
     python -m houv_tpu_torch.train.cli -c cfgs/vrcnet.yaml [--device cpu]
     python -m houv_tpu_torch.train.cli train -c cfgs/vrcnet.yaml
         [--data-path FILE] [--device cuda|cpu]
-    (likewise cfgs/pcn.yaml, cfgs/ecg.yaml, cfgs/vrcnet_knn.yaml and, for
-    the sweep, cfgs/vrcnet_knn_extratest.yaml)
+    (likewise cfgs/pcn.yaml, cfgs/ecg.yaml, cfgs/vrcnet_knn.yaml,
+    cfgs/transformer.yaml, cfgs/dcp.yaml, cfgs/deepgmr.yaml, cfgs/idam.yaml
+    and, for the sweep, cfgs/vrcnet_knn_extratest.yaml)
     python -m houv_tpu_torch.train.cli train -c cfgs/houv_rescore.yaml
     python -m houv_tpu_torch.train.cli train -c cfgs/fgr.yaml
     (likewise cfgs/goicp_bnb.yaml, and model_name icp or goicp)
@@ -21,12 +23,13 @@ The sweep runs the test split batch by batch and writes ``results.h5`` (the
 ``submission.zip`` under ``<work_dir>/<model_name>/``; with ``-l L -r R``
 it solves pairs [L, R) into ``results_L_R.h5``, and ``--combine`` merges
 those shards, solves the ranges none covers and writes ``results.h5``,
-``submission.zip`` and ``manifest.json``. With ``load_model`` set, the
-completion sweep runs that checkpoint's weights; with ``rescore_ckpt`` set,
+``submission.zip`` and ``manifest.json``. With ``load_model`` set (a
+checkpoint of the port or of the JAX package), the completion and learned
+registration sweeps run that checkpoint's weights; with ``rescore_ckpt`` set,
 the HOUV sweep picks each pair's transform among rotation-diverse
 candidates with that trained classifier (``solvers/rescore.py``).
-``train`` fits the config's completion model and writes ``network.ckpt``
-and ``best_<metric>_network.ckpt`` under
+``train`` fits the config's completion or learned registration model and
+writes ``network.ckpt`` and ``best_<metric>_network.ckpt`` under
 ``<work_dir>/<model>_<loss>_<flag>/``; for ``model_name: houv`` it runs
 ``houv_eval_main`` on the labelled val split instead, and for the
 classical solvers (``icp``, ``goicp``, ``goicp_bnb``, ``fgr``)
@@ -81,7 +84,9 @@ from houv_tpu_torch.state import state_from_flax
 from houv_tpu_torch.train.checkpoint import read_flax_msgpack
 from houv_tpu_torch.train.config import (Config, load_config,
                                          parse_refresh_schedule)
-from houv_tpu_torch.train.harness import CompletionTrainer
+from houv_tpu_torch.train.harness import (LEARNED_REGISTRATION,
+                                          CompletionTrainer,
+                                          RegistrationTrainer)
 from houv_tpu_torch.train.submission import (read_results_h5,
                                              write_results_h5,
                                              write_submission)
@@ -96,6 +101,14 @@ CLASSICAL_MODELS = ("icp", "goicp", "goicp_bnb", "fgr")
 
 def is_registration(cfg: Config) -> bool:
     return cfg.model_name in REGISTRATION_MODELS or cfg.dataset.endswith("rg")
+
+
+def make_trainer(cfg: Config, device):
+    """The trainer of the config's model: ``RegistrationTrainer`` for a
+    learned registration model, else ``CompletionTrainer``."""
+    if cfg.model_name in LEARNED_REGISTRATION:
+        return RegistrationTrainer(cfg, device)
+    return CompletionTrainer(cfg, device)
 
 
 def build_dataset(cfg: Config, split: str, index_range=None):
@@ -230,7 +243,7 @@ def _houv_sweep(cfg: Config, ds, device, log, offset: int = 0):
             "evaluate it with `train -c`")
     if cfg.model_name != "houv":
         raise NotImplementedError(
-            f"the registration sweep runs model_name 'houv' only, got "
+            f"the registration sweep runs houv, dcp, deepgmr and idam, got "
             f"{cfg.model_name!r} (ROADMAP.md Queue 1, item 12)")
     scfg = solver_config(cfg)
     scorer = make_rescorer(cfg, log, device)
@@ -406,18 +419,17 @@ def icp_eval_main(cfg: Config, log, device) -> dict:
     return rec
 
 
-def _completion_sweep(cfg: Config, ds, device, log):
-    """Complete the test split batch by batch with the config's model
-    (``load_model``'s weights, else the seeded initialisation):
-    (N, points, 3), the model's output cloud (num_points; vrcnet_knn's
-    num_coarse + num_points), and the seconds of all batches and of the
-    first alone (its allocations and kernel set-up)."""
-    trainer = CompletionTrainer(cfg, device)
+def _model_sweep(cfg: Config, ds, device):
+    """The test split batch by batch through the config's trained model
+    (``load_model``'s weights, else the seeded initialisation): its
+    predictions, the seconds of all batches and of the first alone (its
+    allocations and kernel set-up). The tail batch is padded by repetition
+    (``pad_last``), so every batch has one shape."""
+    trainer = make_trainer(cfg, device)
     trainer.init_state()
     outs = []
     t0 = time.perf_counter()
     first = None
-    # pad_last keeps one batch shape for the whole sweep
     for i, batch in enumerate(batch_iterator(ds, cfg.batch_size,
                                              pad_last=True)):
         valid = int(batch.pop("valid"))
@@ -426,10 +438,28 @@ def _completion_sweep(cfg: Config, ds, device, log):
         if first is None:
             first = time.perf_counter() - t0
     seconds = time.perf_counter() - t0
+    return np.concatenate(outs, axis=0), seconds, first
+
+
+def _completion_sweep(cfg: Config, ds, device, log):
+    """Complete the test split with the config's model: (N, points, 3),
+    the model's output cloud (num_points; vrcnet_knn's num_coarse +
+    num_points), and the seconds of all batches and of the first alone."""
+    results, seconds, first = _model_sweep(cfg, ds, device)
     log.info("completed %d clouds, %.2f s", len(ds), seconds)
-    return np.concatenate(outs, axis=0), {"n_clouds": len(ds),
-                                          "seconds": seconds,
-                                          "first_batch_seconds": first}
+    return results, {"n_clouds": len(ds), "seconds": seconds,
+                     "first_batch_seconds": first}
+
+
+def _learned_registration_sweep(cfg: Config, ds, device, log):
+    """Register the test split's pairs with the config's learned model
+    (dcp, deepgmr or idam): the (N, 4, 4) transforms, and the seconds of
+    all batches and of the first alone."""
+    results, seconds, first = _model_sweep(cfg, ds, device)
+    log.info("registered %d pairs with %s, %.2f s", len(ds), cfg.model_name,
+             seconds)
+    return results, {"n_pairs": len(ds), "seconds": seconds,
+                     "first_batch_seconds": first}
 
 
 def _shard_range(path: str) -> tuple[int, int] | None:
@@ -520,8 +550,9 @@ def _flag(value) -> bool:
 def test_main(argv=None) -> dict:
     """Run the sweep; returns the paths written, the wall seconds of the
     sweep's batches (set-up excluded) and its counts: ``n_pairs`` and
-    ``n_retry`` (the pairs that entered the retry passes) for registration,
-    ``n_clouds`` and ``first_batch_seconds`` for completion. With
+    ``n_retry`` (the pairs that entered the retry passes) for HOUV,
+    ``n_pairs`` and ``first_batch_seconds`` for a learned registration
+    model, ``n_clouds`` and ``first_batch_seconds`` for completion. With
     ``--combine``, ``combine_main``'s record."""
     p = argparse.ArgumentParser()
     p.add_argument("-c", "--config", required=True)
@@ -553,7 +584,9 @@ def test_main(argv=None) -> dict:
 
     index_range = (args.l, args.r) if args.l is not None else None
     ds = build_dataset(cfg, "test", index_range=index_range)
-    if is_registration(cfg):
+    if cfg.model_name in LEARNED_REGISTRATION:
+        results, counts = _learned_registration_sweep(cfg, ds, device, log)
+    elif is_registration(cfg):
         results, counts = _houv_sweep(cfg, ds, device, log,
                                       offset=args.l or 0)
     else:
@@ -570,12 +603,12 @@ def test_main(argv=None) -> dict:
 
 
 def train_main(argv=None) -> dict:
-    """Train the config's completion model (``CompletionTrainer.fit`` on the
-    train split, validating on the val split). Returns the trainer, its log
-    directory, the checkpoint ``fit`` wrote last, the per-step losses and
-    the wall seconds of ``fit`` (set-up excluded). For ``model_name: houv``
-    returns ``houv_eval_main``'s meters, for the classical solvers
-    ``icp_eval_main``'s."""
+    """Train the config's completion or learned registration model (the
+    trainer's ``fit`` on the train split, validating on the val split).
+    Returns the trainer, its log directory, the checkpoint ``fit`` wrote
+    last, the per-step losses and the wall seconds of ``fit`` (set-up
+    excluded). For ``model_name: houv`` returns ``houv_eval_main``'s
+    meters, for the classical solvers ``icp_eval_main``'s."""
     p = argparse.ArgumentParser(prog="houv_tpu_torch.train.cli train")
     p.add_argument("-c", "--config", required=True)
     p.add_argument("--data-path", default=None,
@@ -597,15 +630,19 @@ def train_main(argv=None) -> dict:
     if cfg.model_name in CLASSICAL_MODELS:
         log = setup_logging(os.path.join(cfg.work_dir, cfg.model_name))
         return icp_eval_main(cfg, log, device)
-    if is_registration(cfg):
+    if is_registration(cfg) and cfg.model_name not in LEARNED_REGISTRATION:
         raise NotImplementedError(
             f"training registration model {cfg.model_name!r} is not ported "
             "yet (ROADMAP.md Queue 1, item 12)")
+    if cfg.use_native_loader and is_registration(cfg):
+        raise NotImplementedError(
+            "use_native_loader (the C++ prefetching loader) is not ported "
+            "yet (ROADMAP.md Queue 1, item 14)")
     if cfg.n_devices and cfg.n_devices > 1:
         raise NotImplementedError(
             "multi-device training is not ported yet (ROADMAP.md Queue 1, "
             "item 13)")
-    trainer = CompletionTrainer(cfg, device)
+    trainer = make_trainer(cfg, device)
     log = setup_logging(trainer.log_dir)
     log.info("config: %s", cfg)
     train_ds = build_dataset(cfg, "train")

@@ -1,7 +1,8 @@
 """Typed configuration read from the repository's ``cfgs/*.yaml``.
 
 Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep
-(its rescored mode included), the completion sweeps and training read.
+(its rescored mode included), the completion and learned registration
+models, their sweeps and training read.
 Keys of other models land in ``extras``, as unknown keys do there. The
 reference's comma-separated lists ("2, 2, 2, 2", "0.01, 0.1, 0.5, 1") are
 parsed into tuples.
@@ -121,6 +122,18 @@ class Config:
     # blocks, 8x the feature it returns)
     voxel_init_size: int = 128
 
+    # learned registration: DCP's cycle-consistency term; DeepGMR's
+    # rotation-invariant features over rri_size neighbours (else centred
+    # coordinates) and its mixture components; IDAM's descriptor width
+    # (its similarity iterations are num_iters)
+    cycle: bool = False
+    use_rri: bool = True
+    rri_size: int = 20
+    num_groups: int = 16
+    descriptor_size: int = 64
+    # the native C++ prefetching loader of the JAX package: not ported
+    use_native_loader: bool = False
+
     # HOUV solver (solvers/houv.py HOUVConfig)
     kernel: int = 64
     num_epochs: int = 500            # solver steps (reference naming)
@@ -136,7 +149,8 @@ class Config:
     nn_refresh_schedule: str | None = None  # "N:R[:S],..." phases | "auto"
     window_select: str = "loss"
     # the classical solvers' iterations (train -c with icp, goicp, fgr;
-    # goicp_bnb's BnB levels), each under its own floor in icp_eval_main
+    # goicp_bnb's BnB levels), each under its own floor in icp_eval_main;
+    # IDAM's similarity iterations
     num_iters: int = 3
     # classifier-rescored restart selection (solvers/rescore.py): the
     # alignment classifier's checkpoint (a JAX flax msgpack file), its

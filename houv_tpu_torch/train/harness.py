@@ -1,18 +1,20 @@
-"""Completion harness (counterpart of
-``houv_tpu/train/harness.py:CompletionTrainer``).
+"""Train and eval harness (counterpart of ``houv_tpu/train/harness.py``'s
+``CompletionTrainer`` and ``RegistrationTrainer``).
 
-``CompletionTrainer`` builds the config's model and optimizer, initialises
-the model from a seed or from ``load_model`` (``init_state``), trains it
-(``train_step``, ``fit``, ``fit_steps``: alpha and lr from the schedules,
-the lr written into the optimizer each step), runs the no-gt test step
-(``predict_batch``) and the validation metrics (``validate``, which writes
-``best_<metric>_network.ckpt`` when a metric improves; ``fit`` writes
-``network.ckpt``), all under ``<work_dir>/<model>_<loss>_<flag>/``.
+Both trainers share ``_Trainer``: it builds the config's model and
+optimizer, initialises the model from a seed or from ``load_model`` (a
+checkpoint of the port, or one of the JAX package's, ``init_state``),
+trains it (``train_step``, ``fit``, ``fit_steps``: the lr from the
+schedule written into the optimizer each step) and saves it, all under
+``<work_dir>/<model>_<loss>_<flag>/``. Each trainer adds its model's train
+loss, the no-gt test step (``predict_batch``) and the validation metrics
+(``validate``, which writes ``best_<metric>_network.ckpt`` when a metric
+improves; ``fit`` writes ``network.ckpt``).
 
 Randomness is seeded per step: the latent noise of test or val batch i comes
 from a ``torch.Generator`` seeded by (0, i), as the JAX harness folds the
-batch index into ``PRNGKey(0)``; the noise and dropout masks of train step s
-from one seeded by (manual_seed, s).
+batch index into ``PRNGKey(0)``; the noise, dropout masks and sampled
+points of train step s from one seeded by (manual_seed, s).
 """
 
 from __future__ import annotations
@@ -31,29 +33,33 @@ from houv_tpu_torch.models.common import init_like_flax
 from houv_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from houv_tpu_torch.train.config import Config
 from houv_tpu_torch.train.schedules import alpha_schedule, lr_schedule
-from houv_tpu_torch.utils.meters import AverageValueMeter
+from houv_tpu_torch.utils.meters import AverageValueMeter, SplitMeterGrid
 
 logger = logging.getLogger("houv_tpu_torch")
 
-# the completion models of the port; its other models are not trained yet
-_COMPLETION = {"pcn", "ecg", "vrcnet", "vrcnet_knn"}
+# the models each trainer of the port trains; the port's other models
+# (the alignment classifier) are not trained yet
+COMPLETION_MODELS = {"pcn", "ecg", "vrcnet", "vrcnet_knn", "transformer"}
+LEARNED_REGISTRATION = {"dcp", "deepgmr", "idam"}
 
-# models that draw random numbers (latent noise, dropout) and so take a
-# generator; PCN and ECG draw none, vrcnet_knn only its dropout masks
-_MODEL_RNGS = {"vrcnet", "vrcnet_knn"}
+# models that draw random numbers (latent noise, dropout, sampled points)
+# and so take a generator; PCN, ECG, the transformer, DCP and DeepGMR draw
+# none, vrcnet_knn only its dropout masks, IDAM its train-time sampling
+_MODEL_RNGS = {"vrcnet", "vrcnet_knn", "idam"}
 
 # models that take the batch's class labels and voxel indices
 _VOXEL_MODELS = {"vrcnet_knn"}
 
 
 def model_from_config(cfg: Config) -> torch.nn.Module:
-    """The config's completion model (pcn, ecg, vrcnet or vrcnet_knn): the
+    """The config's completion model (pcn, ecg, vrcnet, vrcnet_knn or
+    transformer) or learned registration model (dcp, deepgmr or idam): the
     config's keys mapped onto the model's constructor. ``compute_dtype``
     bfloat16 is ported for vrcnet_knn only; the others are f32."""
     name = cfg.model_name
     if name not in MODELS:
         get_model(name)  # raises, citing the ROADMAP item that ports it
-    if name not in _COMPLETION:
+    if name not in COMPLETION_MODELS | LEARNED_REGISTRATION:
         raise NotImplementedError(
             f"training {name!r} is not ported yet (ROADMAP.md Queue 1, "
             "item 12)")
@@ -70,6 +76,17 @@ def model_from_config(cfg: Config) -> torch.nn.Module:
             voxel_init_size=cfg.voxel_init_size, remat=cfg.use_remat,
             compute_dtype=cfg.compute_dtype,
             voxel_conv_remat=cfg.voxel_conv_remat, fused_cd=cfg.fused_cd)
+    if name == "dcp":
+        return get_model(name, cycle=cfg.cycle)
+    if name == "deepgmr":
+        return get_model(name, use_rri=cfg.use_rri, rri_size=cfg.rri_size,
+                         num_groups=cfg.num_groups)
+    if name == "idam":
+        return get_model(name, descriptor_size=cfg.descriptor_size,
+                         num_iters=cfg.num_iters)
+    if name == "transformer":
+        return get_model(name, num_points=cfg.num_points,
+                         eval_emd=cfg.eval_emd)
     kw = dict(num_points=cfg.num_points, num_coarse=cfg.num_coarse,
               train_loss=cfg.loss, eval_emd=cfg.eval_emd)
     if name == "ecg":
@@ -106,27 +123,28 @@ def _make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=cfg.lr, betas=betas)
 
 
-class CompletionTrainer:
-    """Training, validation and inference of a completion model (pcn, ecg,
-    vrcnet, vrcnet_knn) on one device."""
+
+
+class _Trainer:
+    """What the completion and registration trainers share: the model, its
+    optimizer, initialisation and checkpoints, the train step and the
+    loops over it. A trainer supplies ``_metrics`` (names, the higher-is-
+    better ones in ``_higher``), ``_train_loss`` and ``validate``."""
+
+    _metrics: tuple = ()
+    _higher: frozenset = frozenset()
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if cfg.use_gan:
-            raise NotImplementedError(
-                "use_gan (the cascade-GAN branch) is not ported yet "
-                "(ROADMAP.md Queue 1, item 11)")
         self.model = model_from_config(cfg)
         self.optimizer = _make_optimizer(cfg, self.model.parameters())
         self.seed = cfg.manual_seed or 2021
         self.epoch = 0
         self.log_dir = os.path.join(
             cfg.work_dir, f"{cfg.model_name}_{cfg.loss}_{cfg.flag}")
-        self.best = {m: (0, float("inf")) for m in ("cd_p", "cd_t")}
-        self.best["f1"] = (0, -float("inf"))
-        if cfg.eval_emd:
-            self.best["emd"] = (0, float("inf"))
+        self.best = {m: (0, -float("inf") if m in self._higher
+                         else float("inf")) for m in self._metrics}
 
     def _rng(self, generator: torch.Generator) -> dict:
         """The model call's ``generator`` argument, for a model that draws
@@ -137,8 +155,9 @@ class CompletionTrainer:
 
     def init_state(self) -> torch.nn.Module:
         """Seeded flax-like initialisation (``manual_seed``, default 2021),
-        then ``load_model``'s weights (and optimizer state and epoch, when
-        the checkpoint has them) over it."""
+        then ``load_model``'s weights over it: a checkpoint of the port
+        (with its optimizer state and epoch, when it has them) or of the
+        JAX package (its parameters, running statistics and epoch)."""
         init_like_flax(self.model, torch.Generator().manual_seed(self.seed))
         self.model.to(self.device).eval()
         if self.cfg.load_model:
@@ -154,31 +173,16 @@ class CompletionTrainer:
     def _tensor(self, batch: dict, key: str) -> torch.Tensor:
         return torch.as_tensor(batch[key], device=self.device)
 
-    def _inputs(self, batch: dict, epoch: int | None = None) -> dict:
-        """The model call's inputs beside the clouds: vrcnet_knn's class
-        labels and voxel indices (None where the batch has none); for the
-        other models, in a train step (``epoch`` given), the epoch's
-        alpha, the weight of the fine cloud's loss."""
-        if self.cfg.model_name not in _VOXEL_MODELS:
-            return {} if epoch is None else {
-                "alpha": alpha_schedule(self.cfg, epoch)}
-        return {k: self._tensor(batch, k).long() if k in batch else None
-                for k in ("label", "coords")}
-
     def train_step(self, batch: dict, epoch: int, step: int) -> torch.Tensor:
-        """One optimizer step on ``batch`` at the epoch's alpha and lr;
-        returns the total loss (taken before the update). The gradients
-        stay on the parameters until the next step; BatchNorm's running
-        statistics move here only."""
+        """One optimizer step on ``batch`` at the epoch's lr; returns the
+        loss (taken before the update). The gradients stay on the
+        parameters until the next step; BatchNorm's running statistics
+        move here only."""
         lr = lr_schedule(self.cfg, epoch)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(self._tensor(batch, "partial"),
-                         self._tensor(batch, "gt"), prefix="train",
-                         **self._inputs(batch, epoch),
-                         **self._rng(_seeded(self.seed, step)))
-        loss = out["total_loss"]
+        loss = self._train_loss(batch, epoch, step)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
@@ -231,6 +235,55 @@ class CompletionTrainer:
                 self.validate(val_ds, epoch)
         return self.model
 
+    def _keep_best(self, meters: dict, epoch: int, n_batches: int) -> None:
+        """``best_<metric>_network.ckpt`` for each metric that improved."""
+        for m, meter in meters.items():
+            better = (meter.avg > self.best[m][1] if m in self._higher
+                      else meter.avg < self.best[m][1])
+            if better and n_batches:
+                self.best[m] = (epoch, meter.avg)
+                self.save(f"best_{m}_network.ckpt")
+                logger.info("Best %s net saved!", m)
+        logger.info("val: " + "".join(
+            f"curr_{m}: {v.avg:f}; " for m, v in meters.items()))
+
+
+class CompletionTrainer(_Trainer):
+    """Training, validation and inference of a completion model (pcn, ecg,
+    vrcnet, vrcnet_knn, transformer) on one device."""
+
+    _higher = frozenset({"f1"})
+
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+        if cfg.use_gan:
+            raise NotImplementedError(
+                "use_gan (the cascade-GAN branch) is not ported yet "
+                "(ROADMAP.md Queue 1, item 11)")
+        if cfg.model_name in LEARNED_REGISTRATION:
+            raise ValueError(f"{cfg.model_name!r} is a registration model: "
+                             "train it with RegistrationTrainer")
+        self._metrics = ("cd_p", "cd_t", "f1") + (
+            ("emd",) if cfg.eval_emd else ())
+        super().__init__(cfg, device)
+
+    def _inputs(self, batch: dict, epoch: int | None = None) -> dict:
+        """The model call's inputs beside the clouds: vrcnet_knn's class
+        labels and voxel indices (None where the batch has none); for the
+        other models, in a train step (``epoch`` given), the epoch's
+        alpha, the weight of the fine cloud's loss."""
+        if self.cfg.model_name not in _VOXEL_MODELS:
+            return {} if epoch is None else {
+                "alpha": alpha_schedule(self.cfg, epoch)}
+        return {k: self._tensor(batch, k).long() if k in batch else None
+                for k in ("label", "coords")}
+
+    def _train_loss(self, batch: dict, epoch: int, step: int):
+        out = self.model(self._tensor(batch, "partial"),
+                         self._tensor(batch, "gt"), prefix="train",
+                         **self._inputs(batch, epoch),
+                         **self._rng(_seeded(self.seed, step)))
+        return out["total_loss"]
+
     def predict_batch(self, batch: dict, step: int = 0) -> torch.Tensor:
         """The no-gt test step on one batch: (B, num_points, 3); for
         vrcnet_knn its fine cloud, (B, num_coarse + num_points, 3)."""
@@ -258,13 +311,69 @@ class CompletionTrainer:
             for m, meter in meters.items():
                 meter.update(float(out[m].mean()), len(batch["partial"]))
             n_batches += 1
-        for m, meter in meters.items():
-            better = (meter.avg > self.best[m][1] if m == "f1"
-                      else meter.avg < self.best[m][1])
-            if better and n_batches:
-                self.best[m] = (epoch, meter.avg)
-                self.save(f"best_{m}_network.ckpt")
-                logger.info("Best %s net saved!", m)
-        logger.info("val: " + "".join(
-            f"curr_{m}: {v.avg:f}; " for m, v in meters.items()))
+        self._keep_best(meters, epoch, n_batches)
+        return {m: v.avg for m, v in meters.items()}
+
+
+class RegistrationTrainer(_Trainer):
+    """Training, validation and inference of a learned registration model
+    (dcp, deepgmr, idam) on one device. Its train loss is the model's
+    ``loss``; validation tracks RotE, transE, MSE (geodesic rotation plus
+    translation error), RMSE and recall (RMSE < 0.1) over all pairs and by
+    (rot_level, match_level) bucket."""
+
+    _metrics = ("RotE", "transE", "MSE", "RMSE", "recall")
+    _higher = frozenset({"recall"})
+
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+        if cfg.model_name not in LEARNED_REGISTRATION:
+            raise ValueError(f"{cfg.model_name!r} is not a learned "
+                             "registration model (dcp, deepgmr, idam)")
+        super().__init__(cfg, device)
+
+    def _clouds(self, batch: dict):
+        return self._tensor(batch, "src"), self._tensor(batch, "tgt")
+
+    def _train_loss(self, batch: dict, epoch: int, step: int):
+        out = self.model(*self._clouds(batch),
+                         self._tensor(batch, "transform"), prefix="train",
+                         train=True, **self._rng(_seeded(self.seed, step)))
+        return out["loss"]
+
+    def predict_batch(self, batch: dict, step: int = 0) -> torch.Tensor:
+        """The no-gt test step on one batch: the (B, 4, 4) transforms
+        aligning each src to its tgt."""
+        with torch.inference_mode():
+            return self.model(*self._clouds(batch), None, prefix="test",
+                              train=False,
+                              **self._rng(latent_generator(step)))
+
+    def validate(self, val_ds, epoch: int = 0,
+                 rmse_thresh: float = 0.1) -> dict:
+        """Mean RotE, transE, MSE, RMSE and recall over the full batches of
+        ``val_ds``, logged also by (rot_level, match_level) bucket where
+        the split has them; a metric that improved on its best writes
+        ``best_<metric>_network.ckpt``."""
+        meters = {m: AverageValueMeter() for m in self._metrics}
+        grid = SplitMeterGrid()
+        n_batches = 0
+        for batch in batch_iterator(val_ds, self.cfg.batch_size,
+                                    drop_last=True):
+            with torch.inference_mode():
+                out = self.model(*self._clouds(batch),
+                                 self._tensor(batch, "transform"),
+                                 prefix="val", train=False)
+            rmse = out["rmse"].cpu().numpy()
+            vals = {"RotE": out["r_err"].cpu().numpy(),
+                    "transE": out["t_err"].cpu().numpy(),
+                    "MSE": out["rt_mse"].cpu().numpy(), "RMSE": rmse,
+                    "recall": (rmse < rmse_thresh).astype(np.float32)}
+            for m, arr in vals.items():
+                meters[m].update(float(arr.mean()), len(batch["src"]))
+            if "rot_level" in batch and "match_level" in batch:
+                grid.update(batch["rot_level"], batch["match_level"], vals)
+            n_batches += 1
+        self._keep_best(meters, epoch, n_batches)
+        for line in grid.logs():
+            logger.info(line)
         return {m: v.avg for m, v in meters.items()}

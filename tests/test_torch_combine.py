@@ -132,7 +132,8 @@ def test_classical_models_have_no_test_sweep(tmp_path):
     path = _classical_yaml(tmp_path, "icp", synthetic_size=2)
     with pytest.raises(NotImplementedError, match="train -c"):
         tcli.test_main(["-c", path, "--device", "cpu"])
-    path = _yaml(tmp_path, "fgr.yaml", model_name="dcp", synthetic_size=2)
+    path = _yaml(tmp_path, "fgr.yaml", model_name="model_embedding",
+                 synthetic_size=2)
     with pytest.raises(NotImplementedError, match="item 12"):
         tcli.test_main(["-c", path, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -154,6 +154,6 @@ def test_one_function_carries_every_model_and_keeps_its_old_name(rng):
     with pytest.raises(RuntimeError, match="fold3.bias"):
         tm.load_state_dict(state, strict=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("transformer")
+        get_model("model_embedding")
     with pytest.raises(NotImplementedError):
         get_model("pcn", train_loss="l2")

@@ -535,9 +535,11 @@ def test_fit_steps_and_repeated_batch_lowers_the_loss(tmp_path):
 
 def test_what_training_does_not_run_yet_raises(tmp_path):
     cfg = tmp_path / "c.yaml"
-    for body, match in (("model_name: dcp\ndataset: mvp_rg\n", "item"),
-                        ("model_name: idam\n", "item 12"),
-                        ("model_name: transformer\ndataset: mvp_cp\n", "item 11")):
+    for body, match in (("model_name: dcp\nuse_native_loader: true\n",
+                         "item 14"),
+                        ("model_name: model_embedding\n", "item 12"),
+                        ("model_name: transformer\ndataset: mvp_cp\n"
+                         "compute_dtype: bfloat16\n", "item 11")):
         cfg.write_text(body)
         with pytest.raises(NotImplementedError, match=match):
             tcli.train_main(["-c", str(cfg), "--device", "cpu"])
