@@ -33,8 +33,8 @@ failed check exits non-zero:
    the edges of its plan, one point, K == 1 and K >= N, the limit of 8192 points and
    8193 refused; integer grids, every point twice, planted copies);
    ``knn`` at VRCNet's shapes, FGR's (k 16 and 17), vrcnet_knn's ten, the
-   learned registration models' three ((32, 2048)², k 12, 20, 21) and
-   ECG's (the
+   learned registration models' three ((32, 2048)², k 12, 20, 21), DCP's
+   on cfgs/modelnet.yaml ((32, 1024)², k 20) and ECG's (the
    poolings, the three-NN, the uniform losses' thousands of tiny clouds
    with repeated points) and at the edges of its design (fewer queries
    than a warp, sizes off its blocks, tiles and batches, N == k, every
@@ -53,7 +53,9 @@ failed check exits non-zero:
    paths' own clouds in ``phase_kernels``); ``scatter`` (bit
    for bit, at the kernel's edges too: order-sensitive sums, -0.0, one row
    of 65536, 200,000 rows, 70,000 batch entries; and against the dense
-   one-hot product) and ``gather_rows`` (bit for bit, out-of-range indices
+   one-hot product; and spconv.yaml's voxel targets, (8, 2048) rows of
+   4 channels onto 125,000 voxels) and ``gather_rows`` (bit for bit,
+   out-of-range indices
    and 70,000 batch entries included); the chamfer gradient against
    autograd through the gathered form;
 3. the registration path: the port's ``test_main`` on
@@ -115,7 +117,19 @@ failed check exits non-zero:
    memory); cfgs/transformer.yaml on the trained checkpoint through the
    sweep over 512 clouds and ``validate`` with eval_emd (the auction's
    rounds), ``train_main`` and 10 steps; one profiled train step of each
-   registration model, its forward's parts timed;
+   registration model, its forward's parts timed; then the aux models and
+   ModelNet (``phase_aux``, each run's work_dir a temporary directory):
+   cfgs/embedding.yaml (batch 32, 2048 points), cfgs/alignment.yaml (f32,
+   16 rows a step), cfgs/rescore_alignment.yaml (bf16, its split cut from
+   512 pairs to 64) and cfgs/spconv.yaml (VoxAsym, batch 8, grid 50)
+   through ``train_main`` (``nepoch`` 100 -> 2), the embedding's and
+   VoxAsym's 10 steps on one batch (the loss must fall), the trained
+   checkpoints of ``log/`` through ``test_main`` (their val meters; the
+   classifier's dropped sites, 0) and on the card against the CPU path
+   (VoxAsym's voxel targets, on K4, bit for bit); cfgs/modelnet.yaml
+   (DCP, 1024 points, batch 32) through ``train_main`` and the sweep over
+   64 pairs, variants clean and noisy, K6 held to 2 a forward; the SHA-256
+   of every checkpoint under ``log/`` unchanged by the phase;
 6. short ``houv_solve`` runs of ``cfgs/houv.yaml`` (4 pairs, 100 steps):
    ``grad_mode='scatter'`` beside the gather mode, and ``nn_select=True``
    beside the default (with a profiled window of 5 steps of each at 16
@@ -132,13 +146,15 @@ failed check exits non-zero:
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above (and on the
    classical and combine runs, ``classical_launches``, on the
-   vrcnet_knn runs, ``vrcnet_knn_launches``, and on the learned models'
-   runs, ``learned_launches``); ``nn_both`` at its twelve
+   vrcnet_knn runs, ``vrcnet_knn_launches``, on the learned models'
+   runs, ``learned_launches``, and on the aux runs, ``aux_launches``;
+   ``scatter_add`` also at the voxel targets' shape, ``at_voxel_targets``);
+   ``nn_both`` at its twelve
    path shapes, ``nn_select`` at the solver's two (with K1 and its two
    gathers on the same inputs beside it), ``fps`` at its 22 (the
-   transformer's (32, 2048) -> 256 among them), ``knn`` at its 45 (the
-   learned registration models' (32, 2048)² at k 12, 20 and 21 among
-   them) and ``knn_wide`` at its seven, each but ``fps`` with
+   transformer's (32, 2048) -> 256 among them), ``knn`` at its 46 (the
+   learned registration models' (32, 2048)² at k 12, 20 and 21 and
+   ModelNet's (32, 1024)² at k 20 among them) and ``knn_wide`` at its seven, each but ``fps`` with
    the floor of its
    contract (K2's latency floor: ``scripts/time_fps_variants.py``), and
    ``emd`` on its paths' own clouds (``EMD_SHAPES``: validate's first
@@ -488,8 +504,9 @@ def check_knn(q, r, k, name):
 def phase_knn(gen):
     """At VRCNet's level-0 shapes (batch 32): the self-kNN at k 20, the pk
     query 1536 x 3072 at k 10, three_nn 3072 x 1536; a ragged case; FGR's
-    self-kNN at k 16 and 17; vrcnet_knn's ten (batch 16); then ECG's
-    shapes."""
+    self-kNN at k 16 and 17; vrcnet_knn's ten (batch 16), the learned
+    models' three and DCP's on cfgs/modelnet.yaml ((32, 1024)², k 20);
+    then ECG's shapes."""
     b, n = 32, 3072
     pts = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
     half = pts[:, ::2].contiguous()
@@ -507,7 +524,7 @@ def phase_knn(gen):
     # vrcnet_knn's 10 searches a forward, at its batch of 16, and the
     # learned registration models' self-kNN at batch 32
     for b_, m, n_, k, _ in KNN_SHAPES:
-        if _ in ("vrcnet_knn", "dcp", "deepgmr", "idam"):
+        if _ in ("vrcnet_knn", "dcp", "deepgmr", "idam", "modelnet"):
             err = max(err, check_knn(pts[:b_, :m].contiguous(),
                                      pts[:b_, :n_].contiguous(), k,
                                      f"{_}_B{b_}_M{m}_N{n_}_k{k}"))
@@ -754,6 +771,16 @@ def check_scatter(idx, vals, m, name, ref=None):
     return err
 
 
+def voxel_target_inputs(gen, b=8, n=2048, g=50):
+    """K4's inputs in ``_voxel_targets``: the flat voxel ids of b clouds of
+    n uniform points in [-0.5, 0.5]³ on the g³ grid, and [1, x, y, z]."""
+    pts = torch.rand((b, n, 3), generator=gen) - 0.5
+    cell = torch.clamp(torch.floor((pts + 0.5) * (g - 1)), 0, g - 1).long()
+    flat = (cell[..., 0] * g + cell[..., 1]) * g + cell[..., 2]
+    vals = torch.cat([torch.ones_like(pts[..., :1]), pts], -1)
+    return flat.cuda(), vals.cuda()
+
+
 def phase_scatter(gen):
     """At the train steps' shapes (VRCNet's (64, 2048) -> 1024, 3072, 2048
     rows, PCN's and ECG's (32, 2048) -> 1024, 2048) and
@@ -763,8 +790,10 @@ def phase_scatter(gen):
     row receiving all of 65536 indices (16 chunks; held against the
     sequential sum in ascending i, which the plain version's 65536 rank
     passes would take seconds to reach), 200,000 rows (49 row blocks) and
-    70,000 batch entries (two launches); and against the dense one-hot
-    product at a small size (another order of summation: 1e-5)."""
+    70,000 batch entries (two launches); spconv.yaml's voxel targets,
+    (8, 2048) rows of 4 channels onto 125,000 voxels; and against the
+    dense one-hot product at a small size (another order of summation:
+    1e-5)."""
     def case(b, n, m, c, lo=0, hi=None):
         idx = torch.randint(lo, m if hi is None else hi, (b, n),
                             generator=gen).cuda()
@@ -825,6 +854,11 @@ def phase_scatter(gen):
     # past the grid's 65535 batch entries
     err = max(err, check_scatter(*case(70000, 4, 4, 3, lo=-1, hi=5), 4,
                                  "batch_B70000_N4_M4"))
+    # cfgs/spconv.yaml's voxel targets (train/aux.py:_voxel_targets): 8
+    # clouds of 2048 points onto the 50³ grid's 125,000 voxels, channels
+    # [1, x, y, z]
+    err = max(err, check_scatter(*voxel_target_inputs(gen), 125000,
+                                 "voxel_targets_B8_N2048_M125000_C4"))
 
     idx, vals = case(4, 256, 128, 3)
     saved = scatter.scatter_add.launches
@@ -3008,6 +3042,345 @@ def phase_learned():
     return out
 
 
+AUX_CKPTS = {"embedding": "log/model_embedding_cd_embed/best_acc_network.ckpt",
+             "alignment": "log/alignment_spconv_cd_aligned/best_acc_network.ckpt",
+             "spconv": "log/voxel_asym_cd_vox/best_iou_network.ckpt"}
+# the aux yamls' kernel launches a train step and a val batch, derived from
+# the code: VoxAsym's voxel targets one K4 scatter of (8, 2048, 4) onto
+# 125,000 voxels; DCP (cfgs/modelnet.yaml) K6 once a cloud a forward; the
+# embedding and the classifier none (plain gathers and GEMMs)
+AUX_LAUNCHES = {"embedding": {}, "alignment": {}, "rescore_alignment": {},
+                "spconv": {"scatter_add": 1}, "modelnet": {"knn": 2}}
+
+
+def _ckpt_hashes():
+    """SHA-256 of every checkpoint under ``log/``."""
+    import hashlib
+
+    return {str(p.relative_to(REPO)): hashlib.sha256(p.read_bytes())
+            .hexdigest() for p in sorted((REPO / "log").rglob("*.ckpt"))}
+
+
+class _SitesDropped:
+    """The most sites any alignment classifier's strided convs dropped in
+    the calls made inside the block (a global forward hook)."""
+
+    def __enter__(self):
+        from houv_tpu_torch.models.alignment import AlignmentClassifier
+
+        self.most, self.calls = 0, 0
+
+        def hook(module, args, out):
+            if isinstance(module, AlignmentClassifier):
+                self.most = max(self.most, int(module.sites_dropped))
+                self.calls += 1
+
+        self.handle = torch.nn.modules.module.register_module_forward_hook(
+            hook)
+        return self
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def _aux_batch(cfg, split, trainer, n=None, seed=0):
+    """``n`` items (default a batch) of the yaml's split through the
+    trainer's view."""
+    from houv_tpu_torch.train.cli import build_dataset
+
+    ds = trainer.wrap_dataset(build_dataset(cfg, split))
+    return ds.get_batch(np.arange(n or cfg.batch_size),
+                        rng=np.random.default_rng(seed))
+
+
+def run_aux_train(tmp, name, **extra):
+    """``train_main`` on cfgs/<name>.yaml at full width, ``nepoch`` cut to
+    2 (``extra`` overriding keys), its launches held to ``AUX_LAUNCHES``
+    a step and a val batch: steps/s with validation and checkpoints, peak
+    memory, losses, the tracked meter's best and the files written."""
+    from houv_tpu_torch.train.cli import build_dataset, train_main
+
+    counters = _completion_counters()
+    _zero(counters)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = train_main(["-c", _full_train_cfg(tmp, name, nepoch=2, **extra)])
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer = out.pop("trainer")
+    cfg = trainer.cfg
+    steps = len(out["losses"])
+    val = trainer.wrap_dataset(build_dataset(cfg, "val"))
+    val_batches = (len(val) // cfg.batch_size) * sum(
+        1 for e in range(2) if e % cfg.epoch_interval_to_val == 0)
+    expected = _sum(_times(AUX_LAUNCHES[name], steps + val_batches))
+    rows = cfg.batch_size * (2 if cfg.model_name == "alignment_spconv"
+                             else 1)
+    rec = {"phase": "aux", "config": f"cfgs/{name}.yaml", "run": "train_main",
+           "model": cfg.model_name, "batch": cfg.batch_size,
+           "rows_a_step": rows, "points": cfg.num_points,
+           "compute_dtype": cfg.compute_dtype,
+           "train_items": len(build_dataset(cfg, "train")),
+           "val_items": len(val), "epochs": 2, "steps": steps,
+           "losses": out["losses"], "seconds": out["seconds"],
+           "steps_per_s_with_validate_and_save": steps / out["seconds"],
+           "items_per_s_with_validate_and_save":
+               steps * cfg.batch_size / out["seconds"],
+           "peak_memory_gib": peak, "best": dict(trainer.best),
+           "launches": launches, "expected_launches": expected,
+           "checkpoint_files": sorted(os.listdir(out["log_dir"]))}
+    emit(rec)
+    tracked = f"best_{next(iter(trainer.best))}_network.ckpt"
+    del trainer
+    torch.cuda.empty_cache()
+    if not steps or not np.isfinite(out["losses"]).all():
+        fail(f"{name} train_main: {steps} steps, losses {out['losses']}")
+    if launches != expected:
+        fail(f"{name} train_main launches {launches}, expected {expected}")
+    if not {"network.ckpt", tracked} <= set(rec["checkpoint_files"]):
+        fail(f"{name} train_main wrote {rec['checkpoint_files']}")
+    return dict(rec, checkpoint=out["checkpoint"])
+
+
+def _aux_repeated(tmp, name, n_steps=10):
+    """``n_steps`` train steps of cfgs/<name>.yaml at full width on one
+    repeated batch from the seeded initialisation: the losses (they must
+    fall), steps/s and clouds/s after a first step outside the clock, peak
+    memory, launches held."""
+    from houv_tpu_torch.train.cli import make_trainer
+    from houv_tpu_torch.train.config import load_config
+
+    cfg = load_config(_full_train_cfg(tmp, name))
+    trainer = make_trainer(cfg, "cuda")
+    trainer.init_state()
+    batch = _aux_batch(cfg, "train", trainer)
+    counters = _completion_counters()
+    _zero(counters)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(trainer.train_step(batch, 0, 0))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(1, n_steps):
+        losses.append(float(trainer.train_step(batch, 0, step)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec = {"phase": "aux", "config": f"cfgs/{name}.yaml",
+           "run": "repeated_batch", "batch": cfg.batch_size,
+           "points": cfg.num_points, "steps": n_steps, "losses": losses,
+           "steps_per_s": (n_steps - 1) / seconds,
+           "clouds_per_s": cfg.batch_size * (n_steps - 1) / seconds,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": _read(counters),
+           "expected_launches": _times(AUX_LAUNCHES[name], n_steps)}
+    emit(rec)
+    del trainer
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"{name}: {n_steps} steps on one batch did not lower the loss: "
+             f"{losses}")
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"{name} repeated batch launches {rec['launches']}, expected "
+             f"{rec['expected_launches']}")
+    return rec
+
+
+def _aux_trained(tmp, name, ckpt, **extra):
+    """``test_main`` on cfgs/<name>.yaml with ``load_model`` the trained
+    JAX checkpoint ``ckpt`` (``work_dir`` in ``tmp``, ``extra`` overriding
+    keys): the val meters (their draws seeded), seconds, items/s, launches
+    held, and the sites the classifier dropped."""
+    from houv_tpu_torch.train.cli import build_dataset, test_main
+    from houv_tpu_torch.train.config import load_config
+
+    path = _full_train_cfg(tmp, name, load_model=str(REPO / ckpt), **extra)
+    cfg = load_config(path)
+    counters = _completion_counters()
+    _zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _SitesDropped() as sites:
+        meters = test_main(["-c", path])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read(counters)
+    n_val = len(build_dataset(cfg, "val"))
+    batches = n_val // cfg.batch_size
+    rec = {"phase": "aux", "config": f"cfgs/{name}.yaml", "run": "test_main",
+           "checkpoint": ckpt, "compute_dtype": cfg.compute_dtype,
+           "meters": meters, "val_items": n_val,
+           "items_evaluated": batches * cfg.batch_size, "seconds": seconds,
+           "items_per_s": batches * cfg.batch_size / seconds,
+           "launches": launches,
+           "expected_launches": _sum(_times(AUX_LAUNCHES[name], batches))}
+    if cfg.model_name == "alignment_spconv":
+        rec.update(sites_dropped=sites.most, classifier_calls=sites.calls)
+    emit(rec)
+    if not meters or not all(np.isfinite(v) for v in meters.values()) \
+            or launches != rec["expected_launches"]:
+        fail(f"{name} test_main on {ckpt}: meters {meters}, launches "
+             f"{launches}")
+    if rec.get("sites_dropped"):
+        fail(f"{name}: the classifier dropped {sites.most} sites")
+    return rec
+
+
+def _aux_cpu_vs_card(tmp, name, ckpt, tol, **extra):
+    """The trained checkpoint on one val batch at full width, on the card
+    and on the CPU: the embeddings and logits (embedding.yaml), the logits
+    (the classifier's yamls), or the occupancy probabilities and positions
+    over the valid voxels (spconv.yaml), each within ``tol``; for
+    spconv.yaml also ``_voxel_targets`` on the card against the CPU:
+    occupancy equal and the means bit for bit."""
+    from houv_tpu_torch.train.aux import _voxel_targets
+    from houv_tpu_torch.train.cli import make_trainer
+    from houv_tpu_torch.train.config import load_config
+
+    cfg = load_config(_full_train_cfg(tmp, name, load_model=str(REPO / ckpt),
+                                      **extra))
+    outs, batch = {}, None
+    for dev in ("cpu", "cuda"):
+        trainer = make_trainer(cfg, dev)
+        trainer.init_state()
+        batch = batch or _aux_batch(cfg, "val", trainer, seed=5)
+        with torch.inference_mode():
+            if name == "embedding":
+                out = trainer._embed(batch)[0]
+            elif name == "spconv":
+                probs, pos, _, mask = trainer.model(
+                    trainer._tensor(batch, "partial"),
+                    trainer._tensor(batch, "coords").long())
+                out = (probs[mask], pos[mask])
+            else:
+                out = (trainer._logits(batch, False),)
+        outs[dev] = [t.float().cpu() for t in out]
+        if name == "spconv":
+            outs[dev + "_targets"] = [t.cpu() for t in _voxel_targets(
+                trainer._tensor(batch, "gt"),
+                trainer._tensor(batch, "gt_coords"), cfg.grid_size)]
+        if name != "embedding":
+            outs[dev + "_sites"] = int(getattr(trainer.model,
+                                               "sites_dropped", 0) or 0)
+        del trainer
+    diffs = [float((c - g).abs().max()) for c, g in zip(outs["cpu"],
+                                                        outs["cuda"])]
+    rec = {"phase": "aux_reference", "config": f"cfgs/{name}.yaml",
+           "checkpoint": ckpt, "items": cfg.batch_size,
+           "points": cfg.num_points, "compute_dtype": cfg.compute_dtype,
+           "outputs": ["embedding", "logits"] if name == "embedding"
+           else ["probs", "positions"] if name == "spconv" else ["logits"],
+           "max_abs_diff": diffs, "tolerance": tol,
+           "largest_output": [float(t.abs().max()) for t in outs["cpu"]]}
+    if name == "spconv":
+        (occ_c, mean_c), (occ_g, mean_g) = (outs["cpu_targets"],
+                                            outs["cuda_targets"])
+        rec["targets_occupied"] = int(occ_c.sum())
+        rec["targets_occupancy_mismatches"] = int((occ_c != occ_g).sum())
+        rec["targets_mean_bit_mismatches"] = int(
+            (mean_c.view(torch.int32) != mean_g.view(torch.int32)).sum())
+    else:
+        rec["sites_dropped"] = outs.get("cuda_sites", 0)
+    emit(rec)
+    if not all(d <= tol for d in diffs):
+        fail(f"{name} on the card differs from the CPU path: {diffs}")
+    if rec.get("targets_occupancy_mismatches") or rec.get(
+            "targets_mean_bit_mismatches") or rec.get("sites_dropped"):
+        fail(f"{name}: {rec}")
+    return rec
+
+
+def run_modelnet(tmp):
+    """cfgs/modelnet.yaml (DCP at 1024 points, batch 32) at full width:
+    ``train_main`` over the synthetic 128 train and 64 val clouds, 2
+    epochs; then the test sweep with the trained weights over the 64-pair
+    split, variant clean and noisy, K6 held to 2 a forward."""
+    from houv_tpu_torch.train.cli import test_main
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    train = run_aux_train(tmp, "modelnet")
+    sweeps = {}
+    counters = _completion_counters()
+    for variant in ("clean", "noisy"):
+        _zero(counters)
+        res = test_main(["-c", _full_train_cfg(
+            tmp, "modelnet", variant=variant,
+            load_model=train["checkpoint"])])
+        launches = _read(counters)
+        results = read_results_h5(res["results_h5"])
+        rot = results[:, :3, :3]
+        ortho = float(np.abs(rot @ rot.transpose(0, 2, 1) - np.eye(3)).max())
+        batches = -(-res["n_pairs"] // 32)
+        sweeps[variant] = {
+            "phase": "aux", "config": "cfgs/modelnet.yaml",
+            "run": "test_main", "variant": variant,
+            "pairs": res["n_pairs"], "seconds": res["seconds"],
+            "pairs_per_s": res["n_pairs"] / res["seconds"],
+            "first_batch_seconds": res["first_batch_seconds"],
+            "results": list(results.shape),
+            "rotation_orthonormal_err": ortho, "launches": launches,
+            "expected_launches": _times(AUX_LAUNCHES["modelnet"], batches)}
+        emit(sweeps[variant])
+        if results.shape != (64, 4, 4) or not np.isfinite(results).all() \
+                or ortho > 1e-4 \
+                or launches != sweeps[variant]["expected_launches"]:
+            fail(f"modelnet {variant} sweep: {sweeps[variant]}")
+    return {"train": train, **sweeps}
+
+
+def phase_aux():
+    """The aux models and ModelNet at the yamls' full width (no new
+    kernel: K4 carries VoxAsym's voxel targets, K6 DCP on ModelNet), each
+    run's work_dir a temporary directory:
+    (a) cfgs/embedding.yaml (batch 32, 2048 points): ``train_main`` (128
+        train and 64 val clouds, ``nepoch`` 100 -> 2), 10 steps on one
+        triplet batch, the trained checkpoint of ``log/`` through
+        ``test_main`` (acc, cls_acc) and on the card against the CPU path;
+    (b) cfgs/alignment.yaml (f32, batch 8 -> 16 rows) and
+        cfgs/rescore_alignment.yaml (bf16, its structured split cut from
+        512 pairs to 64): ``train_main`` (64 train and 64 val pairs,
+        ``nepoch`` -> 2), the trained classifier of ``log/`` through
+        ``test_main`` (acc, sites dropped) and its logits on the card
+        against the CPU path;
+    (c) cfgs/spconv.yaml (VoxAsym, batch 8, grid 50): ``train_main``, 10
+        steps on one batch, the trained checkpoint through ``test_main``
+        (ce, pos_mse, iou), its outputs and ``_voxel_targets`` on the card
+        against the CPU path;
+    (d) cfgs/modelnet.yaml (``run_modelnet``).
+    The SHA-256 of every checkpoint under ``log/`` is the same after the
+    phase as before it."""
+    before = _ckpt_hashes()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["embedding"] = {
+            "train": run_aux_train(tmp, "embedding"),
+            "repeated": _aux_repeated(tmp, "embedding"),
+            "trained": _aux_trained(tmp, "embedding", AUX_CKPTS["embedding"]),
+            "reference": _aux_cpu_vs_card(tmp, "embedding",
+                                          AUX_CKPTS["embedding"], 1e-4)}
+        for name, tol in (("alignment", 1e-3), ("rescore_alignment", 5e-2)):
+            out[name] = {
+                "train": run_aux_train(tmp, name, synthetic_size=64),
+                "trained": _aux_trained(tmp, name, AUX_CKPTS["alignment"],
+                                        synthetic_size=64),
+                "reference": _aux_cpu_vs_card(tmp, name,
+                                              AUX_CKPTS["alignment"], tol,
+                                              synthetic_size=64)}
+        out["spconv"] = {
+            "train": run_aux_train(tmp, "spconv"),
+            "repeated": _aux_repeated(tmp, "spconv"),
+            "trained": _aux_trained(tmp, "spconv", AUX_CKPTS["spconv"]),
+            "reference": _aux_cpu_vs_card(tmp, "spconv", AUX_CKPTS["spconv"],
+                                          1e-4)}
+        out["modelnet"] = run_modelnet(tmp)
+    after = _ckpt_hashes()
+    emit({"phase": "aux_checkpoints", "sha256": before,
+          "unchanged": after == before})
+    if after != before or not before:
+        fail(f"log/'s checkpoints changed: {before} -> {after}")
+    return out
+
+
 def _short_solve_inputs(pairs=4):
     """cfgs/houv.yaml's solver config with the budget cut to 100 steps, and
     ``pairs`` pairs of the structured split on the card: (config, src, tgt,
@@ -3525,26 +3898,30 @@ def _time_fps(b, n, k, path, gen, plain=False):
     return row
 
 
-def _time_scatter(b, n, m, gen):
-    """scatter_add at idx (b, n) -> m rows, 3 channels: kernel, plain and
-    ``Tensor.scatter_add_`` milliseconds, and the function's bound: idx,
-    vals and out moved once, and b*n*3 additions, whichever takes longer."""
+def _time_scatter(b, n, m, gen, c=3, inputs=None):
+    """scatter_add at idx (b, n) -> m rows of c channels (uniform indices,
+    or ``inputs``' (idx, vals)): kernel, plain and ``Tensor.scatter_add_``
+    milliseconds, and the function's bound: idx, vals and out moved once,
+    and b*n*c additions, whichever takes longer."""
     from houv_tpu_torch.ops import scatter
 
-    idx = torch.randint(0, m, (b, n), generator=gen).cuda()
-    vals = torch.randn((b, n, 3), generator=gen).cuda()
+    if inputs is None:
+        idx = torch.randint(0, m, (b, n), generator=gen).cuda()
+        vals = torch.randn((b, n, c), generator=gen).cuda()
+    else:
+        idx, vals = inputs
     saved = scatter.scatter_add.launches
     ms = cuda_ms(lambda: scatter.scatter_add(idx, vals, m), reps=20)
     scatter.scatter_add.launches = saved
     plain_ms = cuda_ms(lambda: scatter._scatter_add_plain(idx, vals, m),
                        reps=10, warmup=2)
-    wide = idx[..., None].expand(-1, -1, 3)
+    wide = idx[..., None].expand(-1, -1, c)
     library_ms = cuda_ms(lambda: torch.zeros(
-        (b, m, 3), device="cuda").scatter_add_(1, wide, vals), reps=20,
+        (b, m, c), device="cuda").scatter_add_(1, wide, vals), reps=20,
         warmup=2)
-    bound_ms, bound_by = bound(8 * b * n + 12 * b * n + 12 * b * m,
-                               3.0 * b * n)
-    return {"shape": {"idx": [b, n], "vals": [b, n, 3], "rows": m},
+    bound_ms, bound_by = bound(8 * b * n + 4 * c * b * n + 4 * c * b * m,
+                               float(c * b * n))
+    return {"shape": {"idx": [b, n], "vals": [b, n, c], "rows": m},
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -3611,7 +3988,7 @@ def _time_knn_wide(b, n, c, k, gen, yardsticks=True):
 # pyramid 3072/1536/768/384, the pk 10 poolings, three_nn on the way up)
 # and the learned registration models' 2 a forward (one a cloud: DCP's
 # graph at k 20, DeepGMR's RRI at k 21 with the point itself, IDAM's
-# graph at k 12)
+# graph at k 12; DCP on cfgs/modelnet.yaml's 1024 points)
 KNN_SHAPES = tuple(
     [(32, n, n, k, "vrcnet") for n in (3072, 1536, 768, 384)
      for k in (20, 10)]
@@ -3630,7 +4007,8 @@ KNN_SHAPES = tuple(
     + [(16, n // 2, n, 10, "vrcnet_knn") for n in (3072, 1536, 768)]
     + [(16, n, n // 2, 3, "vrcnet_knn") for n in (3072, 1536, 768)]
     + [(32, 2048, 2048, k, m) for m, k in (("dcp", 20), ("deepgmr", 21),
-                                           ("idam", 12))])
+                                           ("idam", 12))]
+    + [(32, 1024, 1024, 20, "modelnet")])
 
 
 def _time_knn(b, m, n, k, path, gen, yardsticks=True, plain=False):
@@ -3903,7 +4281,7 @@ def _time_gather_rows(gen):
 
 def phase_kernels(launches, errs, completion, train, solve, models,
                   models_train, select, classical, combine, vrcnet_knn,
-                  learned, gen):
+                  learned, aux, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
@@ -3915,7 +4293,8 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     each row carries under ``classical_launches``; ``vrcnet_knn``: its
     phase, whose runs' launches each row carries under
     ``vrcnet_knn_launches``; ``learned``: the learned models' phase,
-    whose runs' launches each row carries under ``learned_launches``."""
+    whose runs' launches each row carries under ``learned_launches``;
+    ``aux``: the aux phase, likewise under ``aux_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import emd
@@ -3946,7 +4325,7 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     vrc = {k: completion["test"]["launches"].get(k, 0)
            + completion["validate"]["launches"].get(k, 0)
            for k in ("knn", "emd")}
-    # knn at its 45 path shapes, the first VRCNet's level-0 self-kNN (32
+    # knn at its 46 path shapes, the first VRCNet's level-0 self-kNN (32
     # clouds of 3072 points, k 20), the plain version timed there
     shapes = [_time_knn(*shape, gen, plain=i == 0)
               for i, shape in enumerate(KNN_SHAPES)]
@@ -3992,6 +4371,10 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     # of 2048 gt matches onto 3072 points; and at the solver's scatter mode
     at_train = _time_scatter(64, 2048, 3072, gen)
     at_solver = _time_scatter(1024, 2048, 2048, gen)
+    # and at spconv.yaml's voxel targets: (8, 2048) rows of [1, x, y, z]
+    # onto the 125,000 voxels of the 50³ grid
+    at_voxels = _time_scatter(8, 2048, 125000, gen, c=4,
+                              inputs=voxel_target_inputs(gen))
     out.append({"name": "scatter_add", "route": "cuda",
                 "source": "houv_tpu_torch/csrc/scatter.cu",
                 "replaces": "houv_tpu/ops/scatter.py:35",
@@ -3999,7 +4382,8 @@ def phase_kernels(launches, errs, completion, train, solve, models,
                 "launches_scatter_solve":
                     solve["scatter"]["scatter_launches"],
                 "max_abs_err": scatter_err, **at_train,
-                "at_solver_shape": at_solver})
+                "at_solver_shape": at_solver,
+                "at_voxel_targets": at_voxels})
     ecg = models["ecg"]
     out += new_kernel_rows(gen, errs, {
         "knn_wide": ecg["test"]["launches"]["knn_wide"]
@@ -4026,6 +4410,10 @@ def phase_kernels(launches, errs, completion, train, solve, models,
             m: {run: rec[key].get(row["name"], 0)
                 for run, rec, key in _learned_runs(learned, m)}
             for m in LEARNED + ("transformer",)}
+        row["aux_launches"] = {
+            f"{name}:{run}": rec["launches"].get(row["name"], 0)
+            for name, runs in aux.items() for run, rec in runs.items()
+            if "launches" in rec}
     return out
 
 
@@ -4096,6 +4484,7 @@ def main(argv=None) -> int:
     models_train = timed(phase_train_models)
     vrcnet_knn = timed(phase_vrcnet_knn)
     learned = timed(phase_learned)
+    aux = timed(phase_aux)
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
     profiles = {"houv_fast": timed(phase_profile)}
@@ -4107,7 +4496,8 @@ def main(argv=None) -> int:
     timed(phase_fps_census, profiles)
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select,
-                           classical, combine, vrcnet_knn, learned, gen)})
+                           classical, combine, vrcnet_knn, learned, aux,
+                           gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

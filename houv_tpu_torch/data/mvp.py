@@ -1,7 +1,8 @@
 """MVP data: pose synthesis, synthetic fixtures, h5 loading, datasets.
 
-Counterpart of ``houv_tpu/data/mvp.py`` (registration half, and the
-completion half without voxels), in plain numpy. The synthetic generators
+Counterpart of ``houv_tpu/data/mvp.py`` (the MVP registration and
+completion datasets, the latter's triplet batches and voxel indices, and
+the ModelNet registration variants), in plain numpy. The synthetic generators
 are copies of the JAX package's, so the same seed gives byte-identical
 arrays in both packages.
 
@@ -78,6 +79,12 @@ def random_poses_np(rng: np.random.Generator, n: int, max_angle: float,
     pose[:, :3, :3] = r
     pose[:, :3, 3] = t
     return pose
+
+
+def jitter_pcd(rng: np.random.Generator, pcd: np.ndarray, sigma: float = 0.01,
+               clip: float = 0.05) -> np.ndarray:
+    """Gaussian jitter clipped to ±clip (reference dataset.py:11-13)."""
+    return pcd + np.clip(sigma * rng.standard_normal(pcd.shape), -clip, clip)
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +295,16 @@ def synthesize_registration_pairs(
     }
 
 
+def synthesize_modelnet_set(n_clouds: int, n_points: int = 1024,
+                            seed: int = 2021) -> dict:
+    """Synthetic ModelNet-like clouds, {'points': (n_clouds, n_points, 3)}
+    (reference registration/dataset.py:154-187 reads 1024-point full
+    clouds; ``ModelNetDataset`` makes the pairs)."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([_random_shape(rng, n_points) for _ in range(n_clouds)])
+    return {"points": pts.astype(np.float32)}
+
+
 def synthesize_completion_set(
     n_models: int,
     views_per_model: int = 26,
@@ -432,6 +449,52 @@ class MVPRegistrationDataset:
 
 
 @dataclasses.dataclass
+class ModelNetDataset:
+    """ModelNet registration variants (reference registration/dataset.py:
+    154-187 ModelNet, :642-678 Modelnet_RG_rotated_bound): clouds from
+    the modelnet_{clean,noisy,unseen} or icl_nuim h5 file (``points``, or
+    ``source`` where there is no ``points``); a pair is a cloud and its
+    copy under a random pose (``random_poses_np`` at ``max_angle_deg``
+    and ``max_trans``), jittered in the ``noisy`` variant, the source
+    first."""
+
+    split: str
+    variant: str = "clean"
+    path: str | None = None
+    data: dict | None = None
+    max_angle_deg: float = 45.0
+    max_trans: float = 0.5
+    index_range: tuple[int, int] | None = None
+
+    def __post_init__(self):
+        if self.data is None:
+            if self.path is None:
+                raise ValueError("need path or data")
+            self.data = load_h5(self.path)
+        pts = self.data.get("points", self.data.get("source"))
+        self.points = np.asarray(pts, np.float32)
+        if self.index_range is not None:
+            l, r = self.index_range
+            self.points = self.points[l:r]
+
+    def __len__(self):
+        return len(self.points)
+
+    def get_batch(self, indices, rng: np.random.Generator | None = None):
+        rng = rng or np.random.default_rng()
+        src = self.points[np.asarray(indices)].copy()
+        transforms = random_poses_np(rng, len(src),
+                                     np.radians(self.max_angle_deg),
+                                     self.max_trans).astype(np.float32)
+        tgt = np.einsum("bij,bnj->bni", transforms[:, :3, :3],
+                        src).astype(np.float32) + transforms[:, None, :3, 3]
+        if self.variant == "noisy":
+            src = jitter_pcd(rng, src).astype(np.float32)
+            tgt = jitter_pcd(rng, tgt).astype(np.float32)
+        return {"src": src, "tgt": tgt, "transform": transforms}
+
+
+@dataclasses.dataclass
 class MVPCompletionDataset:
     """MVP_CP (reference completion/dataset.py:12-61): 26 partials per
     complete model, gt = complete[index // 26], train scale aug uniform in
@@ -509,3 +572,28 @@ class MVPCompletionDataset:
         if self.with_voxels:
             batch["coords"] = self._voxel_coords(partial)
         return batch
+
+    def get_triplet_batch(self, indices,
+                          rng: np.random.Generator | None = None) -> dict:
+        """Anchor, positive and negative partials for the embedding's
+        training (reference MVP_CP_choose_triple, completion/dataset.py:
+        313-428): the positive another view of the anchor's model, the
+        negative a view of another model, each drawn uniformly, row by
+        row, the positive first; the anchors' class labels."""
+        rng = rng or np.random.default_rng()
+        indices = np.asarray(indices)
+        v = self.views_per_model
+        n = len(self.partial)
+        all_models = self.orig_idx // v
+        models = self.orig_idx[indices] // v
+        pos_idx = np.empty_like(indices)
+        neg_idx = np.empty_like(indices)
+        for i, (idx, m) in enumerate(zip(indices, models)):
+            same = np.nonzero((all_models == m) & (np.arange(n) != idx))[0]
+            pos_idx[i] = rng.choice(same) if len(same) else idx
+            other = np.nonzero(all_models != m)[0]
+            neg_idx[i] = rng.choice(other) if len(other) else idx
+        return {"anchor": self.partial[indices].astype(np.float32),
+                "positive": self.partial[pos_idx].astype(np.float32),
+                "negative": self.partial[neg_idx].astype(np.float32),
+                "label": self.labels[indices].astype(np.int32)}

@@ -1,8 +1,16 @@
-"""The transformer point regressor (counterpart of
-``houv_tpu/models/embedding.py:TransformerRegressor`` and
-``TransformerCompletion``, the ``transformer`` completion model).
+"""Instance embeddings and the transformer point regressors (counterpart
+of ``houv_tpu/models/embedding.py``): ``InstanceEmbedding`` and
+``triplet_loss`` (the ``model_embedding`` model), ``TransformerRegressor``
+and ``TransformerCompletion`` (the ``transformer`` completion model) and
+``PCNTransformer``.
 
-A per-point MLP lifts the partial cloud to ``d_model`` features; FPS (K2,
+``InstanceEmbedding`` lifts each point with a per-point MLP (optionally
+adding multi-head self-attention), max-pools a global feature and returns
+its L2-normalised embedding (the norm floored at 1e-9) and class logits;
+trained on triplets of partial scans (``train/aux.py``), its distances
+drive the MVPN clustering.
+
+In the transformer regressor a per-point MLP lifts the partial cloud to ``d_model`` features; FPS (K2,
 ``ops/sampling.py``) picks ``num_latent`` of them as latent points, which
 pass ``n_layers`` pre-norm blocks of self-attention, cross-attention to
 every point's features and a feed-forward layer. Each latent point is then
@@ -21,9 +29,47 @@ from torch import nn
 from houv_tpu_torch.metrics.cd import calc_cd
 from houv_tpu_torch.metrics.emd import calc_emd
 from houv_tpu_torch.models.common import (FlaxNamed, LayerNorm,
-                                          MultiHeadAttention, PointMLP)
+                                          MultiHeadAttention, PointMLP,
+                                          max_pool_points)
 from houv_tpu_torch.ops.gather import gather_rows
 from houv_tpu_torch.ops.sampling import furthest_point_sample
+
+
+class InstanceEmbedding(FlaxNamed):
+    """(B, N, 3) cloud -> (unit embedding (B, embedding_size), class
+    logits (B, nclasses)), f32 throughout."""
+
+    def __init__(self, embedding_size: int = 32, nclasses: int = 16,
+                 use_attention: bool = False):
+        super().__init__()
+        self.use_attention = use_attention
+        self.child("mlp", PointMLP((64, 128, 256), 3, relu_last=True))
+        if use_attention:
+            self.child("attn", MultiHeadAttention(8, 256))
+        self.child("fc", nn.Linear(256, 256))
+        self.child("embed", nn.Linear(256, embedding_size))
+        # flax constructs the logits' Dense before the hidden one it is
+        # applied to, so the logits layer is Dense_2 and the hidden Dense_3
+        self.child("logits", nn.Linear(512, nclasses))
+        self.child("hidden", nn.Linear(256, 512))
+
+    def forward(self, x: torch.Tensor):
+        h = self.mlp(x)
+        if self.use_attention:
+            h = h + self.attn(h, h, h)
+        g = torch.relu(self.fc(max_pool_points(h)))
+        emb = self.embed(g)
+        emb = emb / torch.linalg.vector_norm(emb, dim=-1,
+                                             keepdim=True).clamp_min(1e-9)
+        return emb, self.logits(torch.relu(self.hidden(g)))
+
+
+def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
+                 negative: torch.Tensor, margin: float = 0.2) -> torch.Tensor:
+    """Mean margin triplet loss on squared embedding distances."""
+    d_pos = ((anchor - positive) ** 2).sum(-1)
+    d_neg = ((anchor - negative) ** 2).sum(-1)
+    return torch.clamp_min(d_pos - d_neg + margin, 0.0).mean()
 
 
 class TransformerRegressor(FlaxNamed):
@@ -105,3 +151,25 @@ class TransformerCompletion(FlaxNamed):
             raise ValueError(
                 f"prefix is 'train', 'val' or 'test', got {prefix!r}")
         return {"result": out}
+
+
+class PCNTransformer(FlaxNamed):
+    """PCN's encoder with an attention refinement head (reference
+    registration/models/pcn.py PCN_Transformer :31-52): (B, N, 3) ->
+    (B, output_size) global feature."""
+
+    def __init__(self, output_size: int = 1024):
+        super().__init__()
+        self.child("fc1", nn.Linear(3, 128))
+        self.child("fc2", nn.Linear(128, 256))
+        self.child("fc3", nn.Linear(512, 512))
+        self.child("attn", MultiHeadAttention(4, 512))
+        self.child("out", nn.Linear(512, output_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.fc2(torch.relu(self.fc1(x)))
+        g = max_pool_points(h)
+        h = torch.cat([h, g[:, None].expand_as(h)], -1)
+        h = torch.relu(self.fc3(h))
+        h = h + self.attn(h, h, h)
+        return max_pool_points(self.out(h))

@@ -4,8 +4,8 @@
 (converted to numpy by the caller) into the port's parameter tensors, so both
 packages can be fed the same restarts. ``config_from_jax`` converts a JAX
 ``HOUVConfig`` field by field. ``state_from_flax`` turns the flax variables
-of a JAX model (PCN, ECG, VRCNet, vrcnet_knn, the alignment classifier, or
-one of their modules: ``params``, and ``batch_stats`` where the model has
+of a JAX model (any model of the factory, ``PCNTransformer``, or one of
+their modules: ``params``, and ``batch_stats`` where the model has
 BatchNorm) into the port's ``state_dict``. None imports anything of the JAX
 package.
 """
@@ -98,8 +98,9 @@ def state_from_flax(params: dict, model: nn.Module) -> dict:
     """A JAX model's variables -> a ``state_dict`` for ``model``, the port's
     model of the same class and configuration (``PCN``, ``ECG``,
     ``VRCNet``, ``VRCNetKNN`` with its voxel branch dense from 13³ or fully
-    sparse, ``AlignmentClassifier``, or one of their ``FlaxNamed``
-    modules, given that module's flax variables). ``params`` is the nested
+    sparse, the learned registration models, the transformers,
+    ``InstanceEmbedding``, ``AlignmentClassifier``, ``VoxAsym``, or one of
+    their ``FlaxNamed`` modules, given that module's flax variables). ``params`` is the nested
     dict of ``init``'s ``params`` (leaves as numpy arrays), or a dict
     holding it under ``'params'`` and, for a model with BatchNorm, its
     running statistics under ``'batch_stats'`` (either alone gives its

@@ -1,8 +1,8 @@
 """Command-line entries (counterpart of ``houv_tpu/train/cli.py`` on one
 device): the test sweep (HOUV or learned registration; PCN, ECG, VRCNet,
 vrcnet_knn or transformer completion), the merge of a sharded sweep, the
-training of a completion or learned registration model and the evaluation
-of the registration solvers.
+training of a completion, learned registration or aux model, the aux
+models' evaluation and the evaluation of the registration solvers.
 
     python -m houv_tpu_torch.train.cli -c cfgs/houv_fast.yaml [-l L -r R]
         [--data-path FILE] [--device cuda|cpu]
@@ -12,7 +12,9 @@ of the registration solvers.
     python -m houv_tpu_torch.train.cli train -c cfgs/vrcnet.yaml
         [--data-path FILE] [--device cuda|cpu]
     (likewise cfgs/pcn.yaml, cfgs/ecg.yaml, cfgs/vrcnet_knn.yaml,
-    cfgs/transformer.yaml, cfgs/dcp.yaml, cfgs/deepgmr.yaml, cfgs/idam.yaml
+    cfgs/transformer.yaml, cfgs/dcp.yaml, cfgs/deepgmr.yaml, cfgs/idam.yaml,
+    cfgs/modelnet.yaml, the aux models' cfgs/embedding.yaml,
+    cfgs/alignment.yaml, cfgs/rescore_alignment.yaml and cfgs/spconv.yaml
     and, for the sweep, cfgs/vrcnet_knn_extratest.yaml)
     python -m houv_tpu_torch.train.cli train -c cfgs/houv_rescore.yaml
     python -m houv_tpu_torch.train.cli train -c cfgs/fgr.yaml
@@ -28,13 +30,15 @@ checkpoint of the port or of the JAX package), the completion and learned
 registration sweeps run that checkpoint's weights; with ``rescore_ckpt`` set,
 the HOUV sweep picks each pair's transform among rotation-diverse
 candidates with that trained classifier (``solvers/rescore.py``).
-``train`` fits the config's completion or learned registration model and
-writes ``network.ckpt`` and ``best_<metric>_network.ckpt`` under
+``train`` fits the config's completion, learned registration or aux model
+and writes ``network.ckpt`` and ``best_<metric>_network.ckpt`` under
 ``<work_dir>/<model>_<loss>_<flag>/``; for ``model_name: houv`` it runs
 ``houv_eval_main`` on the labelled val split instead, and for the
 classical solvers (``icp``, ``goicp``, ``goicp_bnb``, ``fgr``)
-``icp_eval_main``. When the MVP .h5 file is absent, a synthetic split
-stands in.
+``icp_eval_main``. The aux models (``model_embedding``,
+``alignment_spconv``, ``voxel_asym``) write no submission: their "test" is
+their validation meters on the val split. When the MVP or ModelNet .h5
+file is absent, a synthetic split stands in.
 """
 
 from __future__ import annotations
@@ -51,9 +55,11 @@ import torch
 
 from houv_tpu_torch._device import resolve_device
 from houv_tpu_torch.data.mvp import (
+    ModelNetDataset,
     MVPCompletionDataset,
     MVPRegistrationDataset,
     synthesize_completion_set,
+    synthesize_modelnet_set,
     synthesize_registration_pairs,
 )
 from houv_tpu_torch.data.pipeline import batch_iterator
@@ -81,10 +87,11 @@ from houv_tpu_torch.solvers.rescore import (
     make_classifier_scorer,
 )
 from houv_tpu_torch.state import state_from_flax
+from houv_tpu_torch.train.aux import AUX_TRAINERS
 from houv_tpu_torch.train.checkpoint import read_flax_msgpack
 from houv_tpu_torch.train.config import (Config, load_config,
                                          parse_refresh_schedule)
-from houv_tpu_torch.train.harness import (LEARNED_REGISTRATION,
+from houv_tpu_torch.train.harness import (AUX_MODELS, LEARNED_REGISTRATION,
                                           CompletionTrainer,
                                           RegistrationTrainer)
 from houv_tpu_torch.train.submission import (read_results_h5,
@@ -104,23 +111,33 @@ def is_registration(cfg: Config) -> bool:
 
 
 def make_trainer(cfg: Config, device):
-    """The trainer of the config's model: ``RegistrationTrainer`` for a
-    learned registration model, else ``CompletionTrainer``."""
+    """The trainer of the config's model: an aux model's of
+    ``train/aux.py``, ``RegistrationTrainer`` for a learned registration
+    model, else ``CompletionTrainer``."""
+    if cfg.model_name in AUX_TRAINERS:
+        return AUX_TRAINERS[cfg.model_name](cfg, device)
     if cfg.model_name in LEARNED_REGISTRATION:
         return RegistrationTrainer(cfg, device)
     return CompletionTrainer(cfg, device)
 
 
 def build_dataset(cfg: Config, split: str, index_range=None):
-    """The split of the config's task: the MVP .h5 file when present, else
-    a synthetic split (seed 2021 for train, 7 otherwise)."""
-    if cfg.dataset == "modelnet":
-        raise NotImplementedError(
-            "ModelNet datasets are not ported yet (ROADMAP.md Queue 1, "
-            "item 12)")
+    """The split of the config's task: the MVP or ModelNet .h5 file when
+    present, else a synthetic split (seed 2021 for train, 7 otherwise; of
+    ``synthetic_size`` items, by default 128 train and 64 other; ModelNet's
+    always 128 and 64, as in the JAX CLI)."""
     have_file = cfg.data_path and os.path.exists(cfg.data_path)
     n = cfg.synthetic_size or (64 if split != "train" else 128)
     seed = 2021 if split == "train" else 7
+    if cfg.dataset == "modelnet":
+        # reference registration/dataset.py:154-187's variants
+        kw = dict(variant=cfg.variant, max_angle_deg=cfg.max_angle,
+                  max_trans=cfg.max_trans, index_range=index_range)
+        if have_file:
+            return ModelNetDataset(split, path=cfg.data_path, **kw)
+        return ModelNetDataset(split, data=synthesize_modelnet_set(
+            64 if split != "train" else 128, n_points=cfg.num_points,
+            seed=seed), **kw)
     if not is_registration(cfg):
         with_voxels = cfg.model_name == "vrcnet_knn"
         if have_file:
@@ -242,9 +259,9 @@ def _houv_sweep(cfg: Config, ds, device, log, offset: int = 0):
             f"{cfg.model_name!r} has no test sweep, as in the JAX package: "
             "evaluate it with `train -c`")
     if cfg.model_name != "houv":
-        raise NotImplementedError(
+        raise ValueError(
             f"the registration sweep runs houv, dcp, deepgmr and idam, got "
-            f"{cfg.model_name!r} (ROADMAP.md Queue 1, item 12)")
+            f"{cfg.model_name!r}")
     scfg = solver_config(cfg)
     scorer = make_rescorer(cfg, log, device)
     # Pairs go in batches of batch_size (the restart expansion makes a
@@ -547,13 +564,26 @@ def _flag(value) -> bool:
     return str(value).strip().lower() not in ("", "0", "false", "no", "off")
 
 
+def aux_eval_main(cfg: Config, log, device) -> dict:
+    """An aux model's "test": its trainer's validation meters on the val
+    split (the reference evaluates these models in their training loops;
+    they have no submission), from ``load_model``'s weights or the seeded
+    initialisation."""
+    trainer = make_trainer(cfg, device)
+    trainer.init_state()
+    metrics = trainer.validate(build_dataset(cfg, "val"))
+    log.info("aux test metrics: %s", metrics)
+    return metrics
+
+
 def test_main(argv=None) -> dict:
     """Run the sweep; returns the paths written, the wall seconds of the
     sweep's batches (set-up excluded) and its counts: ``n_pairs`` and
     ``n_retry`` (the pairs that entered the retry passes) for HOUV,
     ``n_pairs`` and ``first_batch_seconds`` for a learned registration
-    model, ``n_clouds`` and ``first_batch_seconds`` for completion. With
-    ``--combine``, ``combine_main``'s record."""
+    model, ``n_clouds`` and ``first_batch_seconds`` for completion. For an
+    aux model, ``aux_eval_main``'s meters. With ``--combine``,
+    ``combine_main``'s record."""
     p = argparse.ArgumentParser()
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-l", type=int, default=None)
@@ -582,6 +612,9 @@ def test_main(argv=None) -> dict:
             "multi-device sweeps are not ported yet (ROADMAP.md Queue 1, "
             "item 13)")
 
+    if cfg.model_name in AUX_TRAINERS:
+        return aux_eval_main(cfg, log, device)
+
     index_range = (args.l, args.r) if args.l is not None else None
     ds = build_dataset(cfg, "test", index_range=index_range)
     if cfg.model_name in LEARNED_REGISTRATION:
@@ -603,8 +636,9 @@ def test_main(argv=None) -> dict:
 
 
 def train_main(argv=None) -> dict:
-    """Train the config's completion or learned registration model (the
-    trainer's ``fit`` on the train split, validating on the val split).
+    """Train the config's completion, learned registration or aux model
+    (the trainer's ``fit`` on the train split, validating on the val
+    split).
     Returns the trainer, its log directory, the checkpoint ``fit`` wrote
     last, the per-step losses and the wall seconds of ``fit`` (set-up
     excluded). For ``model_name: houv`` returns ``houv_eval_main``'s
@@ -630,10 +664,10 @@ def train_main(argv=None) -> dict:
     if cfg.model_name in CLASSICAL_MODELS:
         log = setup_logging(os.path.join(cfg.work_dir, cfg.model_name))
         return icp_eval_main(cfg, log, device)
-    if is_registration(cfg) and cfg.model_name not in LEARNED_REGISTRATION:
-        raise NotImplementedError(
-            f"training registration model {cfg.model_name!r} is not ported "
-            "yet (ROADMAP.md Queue 1, item 12)")
+    if is_registration(cfg) and cfg.model_name not in (
+            LEARNED_REGISTRATION | AUX_MODELS):
+        raise ValueError(f"{cfg.model_name!r} does not train on the "
+                         f"registration split {cfg.dataset!r}")
     if cfg.use_native_loader and is_registration(cfg):
         raise NotImplementedError(
             "use_native_loader (the C++ prefetching loader) is not ported "

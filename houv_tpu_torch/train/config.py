@@ -1,9 +1,10 @@
 """Typed configuration read from the repository's ``cfgs/*.yaml``.
 
 Counterpart of ``houv_tpu/train/config.py`` for the keys the HOUV sweep
-(its rescored mode included), the completion and learned registration
-models, their sweeps and training read.
-Keys of other models land in ``extras``, as unknown keys do there. The
+(its rescored mode included), the completion, learned registration and
+auxiliary models (the instance embedding, the alignment classifier, the
+voxel-occupancy net), their datasets (ModelNet's too), sweeps and
+training read. Unknown keys land in ``extras``, as they do there. The
 reference's comma-separated lists ("2, 2, 2, 2", "0.01, 0.1, 0.5, 1") are
 parsed into tuples.
 """
@@ -58,6 +59,8 @@ class Config:
     batch_size: int = 32
     max_angle: float = 45.0          # registration pose synthesis (degrees)
     max_trans: float = 0.5
+    # ModelNet variant (dataset: modelnet): clean | noisy | unseen | icl_nuim
+    variant: str = "clean"
     category: int | None = None
     # size of the synthetic fallback split (None = 128 train / 64 other)
     synthetic_size: int | None = None

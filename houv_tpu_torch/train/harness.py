@@ -1,7 +1,8 @@
 """Train and eval harness (counterpart of ``houv_tpu/train/harness.py``'s
-``CompletionTrainer`` and ``RegistrationTrainer``).
+``CompletionTrainer`` and ``RegistrationTrainer``; the aux models'
+trainers are in ``train/aux.py``).
 
-Both trainers share ``_Trainer``: it builds the config's model and
+The trainers share ``_Trainer``: it builds the config's model and
 optimizer, initialises the model from a seed or from ``load_model`` (a
 checkpoint of the port, or one of the JAX package's, ``init_state``),
 trains it (``train_step``, ``fit``, ``fit_steps``: the lr from the
@@ -9,7 +10,9 @@ schedule written into the optimizer each step) and saves it, all under
 ``<work_dir>/<model>_<loss>_<flag>/``. Each trainer adds its model's train
 loss, the no-gt test step (``predict_batch``) and the validation metrics
 (``validate``, which writes ``best_<metric>_network.ckpt`` when a metric
-improves; ``fit`` writes ``network.ckpt``).
+improves; ``fit`` writes ``network.ckpt``). ``save`` refuses to write over
+the file ``load_model`` names: with the yamls' ``work_dir: log/`` that is
+where the JAX package's trained checkpoints lie.
 
 Randomness is seeded per step: the latent noise of test or val batch i comes
 from a ``torch.Generator`` seeded by (0, i), as the JAX harness folds the
@@ -37,10 +40,13 @@ from houv_tpu_torch.utils.meters import AverageValueMeter, SplitMeterGrid
 
 logger = logging.getLogger("houv_tpu_torch")
 
-# the models each trainer of the port trains; the port's other models
-# (the alignment classifier) are not trained yet
+# the models each trainer of the port trains (the aux models'
+# trainers: train/aux.py)
 COMPLETION_MODELS = {"pcn", "ecg", "vrcnet", "vrcnet_knn", "transformer"}
 LEARNED_REGISTRATION = {"dcp", "deepgmr", "idam"}
+AUX_MODELS = {"model_embedding", "alignment_spconv", "voxel_asym"}
+# the models whose compute_dtype may be bfloat16 (the rest are f32 only)
+_BF16_MODELS = {"vrcnet_knn", "alignment_spconv"}
 
 # models that draw random numbers (latent noise, dropout, sampled points)
 # and so take a generator; PCN, ECG, the transformer, DCP and DeepGMR draw
@@ -53,20 +59,26 @@ _VOXEL_MODELS = {"vrcnet_knn"}
 
 def model_from_config(cfg: Config) -> torch.nn.Module:
     """The config's completion model (pcn, ecg, vrcnet, vrcnet_knn or
-    transformer) or learned registration model (dcp, deepgmr or idam): the
-    config's keys mapped onto the model's constructor. ``compute_dtype``
-    bfloat16 is ported for vrcnet_knn only; the others are f32."""
+    transformer), learned registration model (dcp, deepgmr or idam) or aux
+    model (model_embedding, alignment_spconv or voxel_asym): the config's
+    keys mapped onto the model's constructor. ``compute_dtype`` bfloat16
+    is ported for vrcnet_knn and alignment_spconv; the others are f32."""
     name = cfg.model_name
     if name not in MODELS:
-        get_model(name)  # raises, citing the ROADMAP item that ports it
-    if name not in COMPLETION_MODELS | LEARNED_REGISTRATION:
+        get_model(name)  # raises: no such model
+    if cfg.compute_dtype not in (None, "float32") \
+            and name not in _BF16_MODELS:
         raise NotImplementedError(
-            f"training {name!r} is not ported yet (ROADMAP.md Queue 1, "
-            "item 12)")
-    if cfg.compute_dtype not in (None, "float32") and name != "vrcnet_knn":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is ported for vrcnet_knn "
-            f"only; {name!r} runs in f32 (ROADMAP.md Queue 1, item 11)")
+            f"compute_dtype={cfg.compute_dtype!r} is ported for "
+            f"{sorted(_BF16_MODELS)} only; {name!r} runs in f32 (ROADMAP.md "
+            "Queue 1, item 11)")
+    if name == "model_embedding":
+        return get_model(name)
+    if name == "alignment_spconv":
+        return get_model(name, grid_size=cfg.grid_size,
+                         compute_dtype=cfg.compute_dtype)
+    if name == "voxel_asym":
+        return get_model(name, grid_size=cfg.grid_size)
     if name == "vrcnet_knn":
         return get_model(
             name, num_native=cfg.num_native, num_coarse=cfg.num_coarse,
@@ -167,8 +179,21 @@ class _Trainer:
         return self.model
 
     def save(self, name: str) -> str:
-        return save_checkpoint(os.path.join(self.log_dir, name), self.model,
-                               self.optimizer, self.epoch)
+        """``<log_dir>/<name>``; raises ValueError where that is the file
+        ``load_model`` names (a JAX checkpoint there would become a
+        ``torch.save`` archive the JAX package cannot read)."""
+        path = os.path.join(self.log_dir, name)
+        if self.cfg.load_model and os.path.realpath(path) == \
+                os.path.realpath(self.cfg.load_model):
+            raise ValueError(
+                f"{path} is the load_model checkpoint; set work_dir or flag "
+                "to save elsewhere")
+        return save_checkpoint(path, self.model, self.optimizer, self.epoch)
+
+    def wrap_dataset(self, ds):
+        """A split as this trainer's batches need it (the aux trainers'
+        dataset views); the split itself by default."""
+        return ds
 
     def _tensor(self, batch: dict, key: str) -> torch.Tensor:
         return torch.as_tensor(batch[key], device=self.device)
@@ -205,11 +230,15 @@ class _Trainer:
         return self.model
 
     def fit(self, train_ds, val_ds=None) -> torch.nn.Module:
-        """Epochs ``start_epoch`` .. ``nepoch`` over shuffled full batches;
+        """Epochs ``start_epoch`` .. ``nepoch`` over shuffled full batches
+        of the splits as ``wrap_dataset`` gives them;
         ``network.ckpt`` after each ``epoch_interval_to_save``-th epoch,
         ``validate`` after each ``epoch_interval_to_val``-th. The per-step
         losses are kept in ``self.losses``."""
         cfg = self.cfg
+        train_ds = self.wrap_dataset(train_ds)
+        if val_ds is not None:
+            val_ds = self.wrap_dataset(val_ds)
         meter = AverageValueMeter()
         self.losses = []
         global_step = 0
@@ -236,8 +265,11 @@ class _Trainer:
         return self.model
 
     def _keep_best(self, meters: dict, epoch: int, n_batches: int) -> None:
-        """``best_<metric>_network.ckpt`` for each metric that improved."""
+        """``best_<metric>_network.ckpt`` for each tracked metric (in
+        ``best``) that improved."""
         for m, meter in meters.items():
+            if m not in self.best:
+                continue
             better = (meter.avg > self.best[m][1] if m in self._higher
                       else meter.avg < self.best[m][1])
             if better and n_batches:
@@ -262,6 +294,9 @@ class CompletionTrainer(_Trainer):
         if cfg.model_name in LEARNED_REGISTRATION:
             raise ValueError(f"{cfg.model_name!r} is a registration model: "
                              "train it with RegistrationTrainer")
+        if cfg.model_name in AUX_MODELS:
+            raise ValueError(f"{cfg.model_name!r} is an aux model: train it "
+                             "with its trainer of train/aux.py")
         self._metrics = ("cd_p", "cd_t", "f1") + (
             ("emd",) if cfg.eval_emd else ())
         super().__init__(cfg, device)

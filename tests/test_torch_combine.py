@@ -132,11 +132,11 @@ def test_classical_models_have_no_test_sweep(tmp_path):
     path = _classical_yaml(tmp_path, "icp", synthetic_size=2)
     with pytest.raises(NotImplementedError, match="train -c"):
         tcli.test_main(["-c", path, "--device", "cpu"])
-    path = _yaml(tmp_path, "fgr.yaml", model_name="model_embedding",
+    path = _yaml(tmp_path, "fgr.yaml", model_name="dcp", n_devices=2,
                  synthetic_size=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         tcli.test_main(["-c", path, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         tcli.main(["train", "-c", path, "--device", "cpu"])
 
 

@@ -205,7 +205,8 @@ def test_pcn_and_ecg_test_main_and_validate_on_cpu(tmp_path, model):
 def test_completion_branch_raises_what_is_not_ported(tmp_path):
     for extra, match in ((dict(model_name="transformer",
                                compute_dtype="bfloat16"), "item 11"),
-                         (dict(model_name="voxel_asym"), "items 8b and 12"),
+                         (dict(model_name="voxel_asym",
+                               compute_dtype="bfloat16"), "item 11"),
                          (dict(compute_dtype="bfloat16"), "f32")):
         cfg = load_config(_tiny_cfg(tmp_path, **extra))
         with pytest.raises(NotImplementedError, match=match):

@@ -153,7 +153,7 @@ def test_one_function_carries_every_model_and_keeps_its_old_name(rng):
     del state["decoder.fold3.bias"]
     with pytest.raises(RuntimeError, match="fold3.bias"):
         tm.load_state_dict(state, strict=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_model("model_embedding")
+    with pytest.raises(KeyError, match="unknown model"):
+        get_model("pointnet")
     with pytest.raises(NotImplementedError):
         get_model("pcn", train_loss="l2")

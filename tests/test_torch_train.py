@@ -537,7 +537,8 @@ def test_what_training_does_not_run_yet_raises(tmp_path):
     cfg = tmp_path / "c.yaml"
     for body, match in (("model_name: dcp\nuse_native_loader: true\n",
                          "item 14"),
-                        ("model_name: model_embedding\n", "item 12"),
+                        ("model_name: pcn\ndataset: mvp_cp\nuse_gan: true\n",
+                         "item 11"),
                         ("model_name: transformer\ndataset: mvp_cp\n"
                          "compute_dtype: bfloat16\n", "item 11")):
         cfg.write_text(body)
