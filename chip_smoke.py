@@ -129,7 +129,26 @@ failed check exits non-zero:
    (VoxAsym's voxel targets, on K4, bit for bit); cfgs/modelnet.yaml
    (DCP, 1024 points, batch 32) through ``train_main`` and the sweep over
    64 pairs, variants clean and noisy, K6 held to 2 a forward; the SHA-256
-   of every checkpoint under ``log/`` unchanged by the phase;
+   of every checkpoint under ``log/`` unchanged by the phase; then
+   torch.distributed (``phase_parallel``): NCCL over every visible card
+   (at most 4; world size 1 on a one-card machine, where the mesh still
+   holds the world group, so the collectives run through NCCL) with its
+   all_reduce, broadcast and exact row gather (``dist.all_gather``) and
+   the 100-pair houv_fast batch through ``sharded_houv_solve``; two ranks
+   sharing card 0 over gloo: houv_fast
+   at 100 pairs and houv_rescore at 8 through ``test_main``, the (data 1 x
+   restart 2) split of houv.yaml's 4 pairs, each bit for bit against the
+   one-process rows of phases 3's ``main_path`` and ``quality`` (picks,
+   ``n_override`` and ``n_retry`` equal), and DDP steps of vrcnet.yaml and
+   deepgmr.yaml (batch 32, 16 a rank, 3 steps) against one process (the
+   replicas bit-equal; the first gradient against one process on the whole
+   batch under ``DDP_GRAD_BOUND``, which a planted fault, one process on
+   rank 0's rows alone, must exceed; VRCNet's gradient against the ranks'
+   work redone in one process, DeepGMR's running statistics after a step:
+   the global batch's BatchNorm); the CLI on the visible cards, and its refusal of
+   one more; pairs/s, steps/s and each rank's peak memory beside one
+   process's (every other phase runs in this one process: the script sets
+   torchrun's ``WORLD_SIZE=1`` for them);
 6. short ``houv_solve`` runs of ``cfgs/houv.yaml`` (4 pairs, 100 steps):
    ``grad_mode='scatter'`` beside the gather mode, and ``nn_select=True``
    beside the default (with a profiled window of 5 steps of each at 16
@@ -1206,13 +1225,30 @@ def phase_chamfer_grad(gen):
              "the dense golden's)")
 
 
+def sweep_cfg(cfg_name, n_pairs, workdir, max_angle=None, name=None):
+    """A temp copy of cfgs/<cfg_name> over a synthetic structured split of
+    n_pairs (seed 7), batch = n_pairs, the classifier's path absolute;
+    ``max_angle`` widens the split's rotations. Returns (path, keys)."""
+    with open(REPO / "cfgs" / cfg_name) as f:
+        raw = yaml.safe_load(f)
+    raw.update(synthetic_size=n_pairs, synthetic_shape="structured",
+               batch_size=n_pairs,
+               work_dir=str(workdir / Path(name or cfg_name).stem))
+    if max_angle is not None:
+        raw["max_angle"] = max_angle
+    if raw.get("rescore_ckpt"):
+        raw["rescore_ckpt"] = str(REPO / raw["rescore_ckpt"])
+    cfg_path = workdir / (name or cfg_name)
+    cfg_path.write_text(yaml.safe_dump(raw))
+    return cfg_path, raw
+
+
 def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
-    """The port's test_main on a temp copy of cfgs/<cfg_name> over a
-    synthetic structured split of n_pairs (seed 7), batch = n_pairs;
-    ``max_angle`` widens the split's rotations. The record carries the
-    sweep's counts (rescored: the classifier's overrides, the pools' and
-    the scoring's seconds, the sites dropped), the launches of K1 and K2
-    and the peak device memory; the test_main result is under ``out`` (not
+    """The port's test_main on ``sweep_cfg``'s copy of cfgs/<cfg_name>.
+    The record carries the sweep's counts (rescored: the classifier's
+    overrides, the pools' and the scoring's seconds, the sites dropped),
+    the launches of K1 and K2 and the peak device memory; the test_main
+    result is under ``out`` and the transforms under ``results`` (neither
     printed)."""
     from houv_tpu_torch.data import synthesize_registration_pairs
     from houv_tpu_torch.geometry.rotations import rotation_error
@@ -1221,17 +1257,7 @@ def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
     from houv_tpu_torch.train.cli import test_main
     from houv_tpu_torch.train.submission import read_results_h5
 
-    with open(REPO / "cfgs" / cfg_name) as f:
-        raw = yaml.safe_load(f)
-    raw.update(synthetic_size=n_pairs, synthetic_shape="structured",
-               batch_size=n_pairs,
-               work_dir=str(workdir / Path(cfg_name).stem))
-    if max_angle is not None:
-        raw["max_angle"] = max_angle
-    if raw.get("rescore_ckpt"):
-        raw["rescore_ckpt"] = str(REPO / raw["rescore_ckpt"])
-    cfg_path = workdir / cfg_name
-    cfg_path.write_text(yaml.safe_dump(raw))
+    cfg_path, raw = sweep_cfg(cfg_name, n_pairs, workdir, max_angle)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     chamfer_indices.launches = 0
@@ -1274,6 +1300,7 @@ def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
                    rescore_margin=raw["rescore_margin"])
     emit(rec)
     rec["out"] = out
+    rec["results"] = results
     return rec
 
 
@@ -1296,11 +1323,17 @@ def phase_main():
             fail(f"houv_fast at 90 deg: {wide['n_retry']} retries, median "
                  f"{wide['rot_err_median_deg']:.2f} deg")
         # throughput at the configs' own batch of 100 pairs
+        refs = {"houv.yaml:4": ref}
         for name in ("houv_fast.yaml", "houv.yaml"):
             full = run_sweep(name, 100, workdir)
             if full["rot_err_median_deg"] >= 10.0:
                 fail(f"{name} at 100 pairs: median rotation error "
                      f"{full['rot_err_median_deg']:.2f} >= 10 deg")
+            refs[f"{name}:100"] = full
+    # the one-process rows the parallel phase's sharded runs are held to
+    fast["refs"] = {k: {"results": r["results"], "n_retry": r["n_retry"],
+                        "pairs_per_s": r["pairs_per_s"]}
+                    for k, r in refs.items()}
     return fast
 
 
@@ -1422,8 +1455,14 @@ def phase_quality(n_pairs=QUALITY_PAIRS):
             fail(f"houv_eval_main: meters {meters}")
         if sum(b["n"] for b in meters["buckets"].values()) != rec["pairs"]:
             fail("houv_eval_main: the buckets do not cover the pairs")
-    return {"runs": [{k: v for k, v in r.items() if k != "out"}
-                     for r in runs], "check": check, "eval": rec}
+    rescore = runs[1]
+    return {"runs": [{k: v for k, v in r.items()
+                      if k not in ("out", "results")} for r in runs],
+            "check": check, "eval": rec,
+            "rescore_ref": {"results": rescore["results"],
+                            "n_retry": rescore["n_retry"],
+                            "n_override": rescore["n_override"],
+                            "rescore": rescore["out"]["rescore"]}}
 
 
 # the classical solvers' runs: the model, the yaml it copies (icp and goicp
@@ -1697,6 +1736,502 @@ def phase_combine():
     if not bits:
         fail(f"combine differs from the unsharded sweep: {rec}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the parallel phase: torch.distributed over the card(s)
+# ---------------------------------------------------------------------------
+
+# DDP runs: the yaml, its global batch (two ranks of 16) and steps
+DDP_RUNS = (("vrcnet", 32, 3), ("deepgmr", 32, 3))
+PARALLEL_PAIRS = {"houv_fast.yaml": 100, "houv.yaml": 4,
+                  "houv_rescore.yaml": QUALITY_PAIRS}
+
+
+def _bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _peaks(mesh):
+    """Each rank's peak device memory (GiB) since the last reset, in rank
+    order."""
+    from houv_tpu_torch.parallel.mesh import all_gather_rows
+
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 2**30],
+                        dtype=torch.float64, device=mesh.device)
+    return all_gather_rows(peak, mesh).tolist()
+
+
+def _rank_launches(counters, mesh):
+    """The kernels' launches since ``_zero``, summed over the ranks."""
+    from houv_tpu_torch.parallel.mesh import sum_int
+
+    return {k: n for k in counters
+            if (n := sum_int(counters[k].launches, mesh))}
+
+
+def _nccl_rank(path, n_pairs):
+    """A rank of the NCCL job (a card each): all_reduce, broadcast and the
+    exact row gather on CUDA tensors (-0.0 and NaN rows among them), then
+    the houv_fast batch through ``sharded_houv_solve`` over every rank.
+    The mesh holds the world group even of one rank, so the gather runs
+    ``dist.all_gather`` and the solve's gathers and counts run through
+    NCCL at world size 1 too (there its one shard is the whole batch)."""
+    import torch.distributed as dist
+
+    from houv_tpu_torch.parallel.mesh import (_has_all_gather,
+                                              all_gather_rows, make_mesh,
+                                              sharded_houv_solve)
+    from houv_tpu_torch.solvers.houv import init_params
+    from houv_tpu_torch.train import cli
+    from houv_tpu_torch.train.config import load_config
+
+    mesh = make_mesh()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = mesh.device
+    if mesh.group() is None:
+        raise RuntimeError("the NCCL job's mesh holds no process group")
+    t = torch.full((4,), float(rank + 1), device=dev)
+    dist.all_reduce(t)
+    summed = bool((t == world * (world + 1) / 2).all())
+    b = torch.arange(5, dtype=torch.float32, device=dev) * (rank == 0)
+    dist.broadcast(b, src=0)
+    broadcast = bool((b == torch.arange(5, device=dev)).all())
+    row = torch.tensor([[-0.0, float("nan"), rank, 1e-38]], device=dev)
+    gather_path = ("all_gather" if _has_all_gather(mesh.group(), row)
+                   else "broadcasts")
+    gathered = all_gather_rows(row, mesh).cpu()
+    expect = torch.tensor([[-0.0, float("nan"), r, 1e-38]
+                           for r in range(world)])
+    gather = _bits_equal(gathered.numpy(), expect.numpy())
+    cfg = load_config(path)
+    batch = cli.build_dataset(cfg, "test").get_batch(np.arange(n_pairs))
+    scfg = cli.solver_config(cfg)
+    params0 = init_params(cli._pair_generator(cfg, 0), n_pairs, scfg.kernel,
+                          scfg.lattice_init, device="cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sharded_houv_solve(torch.as_tensor(batch["src"]),
+                             torch.as_tensor(batch["tgt"]), mesh, scfg,
+                             params0=params0)
+    transform = out["transform"].cpu().numpy()
+    return {"world": world, "backend": dist.get_backend(mesh.group()),
+            "all_reduce": summed, "broadcast": broadcast,
+            "gather_bits": gather, "gather_path": gather_path,
+            "results": transform,
+            "n_retry": out["n_retry"],
+            "seconds": time.perf_counter() - t0}
+
+
+def _grads(model) -> dict:
+    return {k: p.grad.detach().cpu().numpy().copy()
+            for k, p in model.named_parameters() if p.grad is not None}
+
+
+def _running(model) -> dict:
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in model.state_dict().items() if "running" in k}
+
+
+def _ddp_steps(raw, batch, n_steps, mesh):
+    """``n_steps`` train steps of config ``raw`` on the global ``batch``
+    (over ``mesh``'s ranks, or in one process for None): the losses, the
+    first step's gradients and running statistics, the final state,
+    steps/s (steps 2..n), and over ranks whether the replicas are
+    bit-equal."""
+    from houv_tpu_torch.train.cli import make_trainer
+    from houv_tpu_torch.train.config import Config
+
+    trainer = make_trainer(Config.from_dict(raw), "cuda", mesh)
+    trainer.init_state()
+    losses = [float(trainer.train_step(batch, 0, 0))]
+    grads, running = _grads(trainer.model), _running(trainer.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(1, n_steps):
+        losses.append(float(trainer.train_step(batch, 0, s)))
+    torch.cuda.synchronize()
+    rate = (n_steps - 1) / (time.perf_counter() - t0)
+    state = {k: v.detach().cpu().numpy().copy()
+             for k, v in trainer.model.state_dict().items()}
+    out = {"losses": losses, "grads": grads, "running_1": running,
+           "state": state, "steps_per_s": rate}
+    if mesh is not None:
+        from houv_tpu_torch.parallel.mesh import all_gather_rows
+
+        flat = torch.cat([v.reshape(-1).float() for v in
+                          trainer.model.state_dict().values()])
+        rows = all_gather_rows(flat[None], mesh).view(torch.int32)
+        out["replicas_equal"] = bool((rows == rows[:1]).all())
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_rank(paths, ddp):
+    """A rank of the two-rank job sharing one card over gloo: the sweeps
+    of ``paths`` (``_gloo_sweeps``; none when empty), then the DDP steps
+    of ``ddp``; each run's launches summed over the ranks, each rank's
+    peak memory."""
+    from houv_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    counters = _completion_counters()
+    out = _gloo_sweeps(paths, mesh, counters) if paths else {}
+    for model, (raw, global_batch, n_steps) in ddp.items():
+        _zero(counters)
+        torch.cuda.reset_peak_memory_stats()
+        rec = _ddp_steps(raw, global_batch, n_steps, mesh)
+        rec["launches"] = _rank_launches(counters, mesh)
+        rec["peak_gib"] = _peaks(mesh)
+        out[model] = rec
+    return out
+
+
+def _gloo_sweeps(paths, mesh, counters):
+    """The two-rank sweeps: houv_fast at 100 pairs and houv_rescore at 8
+    through ``test_main``, the (1 x 2) split of houv.yaml's 4 pairs."""
+    from houv_tpu_torch.parallel.mesh import (make_mesh_2d,
+                                              sharded_houv_solve_2d)
+    from houv_tpu_torch.solvers.houv import init_params
+    from houv_tpu_torch.train import cli
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    out = {}
+    for name in ("houv_fast.yaml", "houv_rescore.yaml"):
+        _zero(counters)
+        torch.cuda.reset_peak_memory_stats()
+        rec = cli.test_main(["-c", str(paths[name])])
+        out[name] = {"results": read_results_h5(rec["results_h5"]),
+                     "seconds": rec["seconds"], "n_retry": rec["n_retry"],
+                     "launches": _rank_launches(counters, mesh),
+                     "peak_gib": _peaks(mesh)}
+        if "rescore" in rec:
+            out[name].update(rescore=rec["rescore"],
+                             n_override=rec["n_override"])
+    cfg = load_config(str(paths["houv.yaml"]))
+    n = PARALLEL_PAIRS["houv.yaml"]
+    batch = cli.build_dataset(cfg, "test").get_batch(np.arange(n))
+    scfg = cli.solver_config(cfg)
+    params0 = init_params(cli._pair_generator(cfg, 0), n, scfg.kernel,
+                          scfg.lattice_init, device="cpu")
+    mesh_2d = make_mesh_2d(1, 2)
+    _zero(counters)
+    t0 = time.perf_counter()
+    split = sharded_houv_solve_2d(torch.as_tensor(batch["src"]),
+                                  torch.as_tensor(batch["tgt"]), mesh_2d,
+                                  scfg, params0=params0)
+    out["houv.yaml"] = {"results": split["transform"].cpu().numpy(),
+                        "n_retry": split["n_retry"],
+                        "seconds": time.perf_counter() - t0,
+                        "launches": _rank_launches(counters, mesh)}
+    return out
+
+
+def _half_batch_grads(raw, batch, ranks=2):
+    """One process's first-step gradient computed as the DDP ranks compute
+    it: each rank's rows of the global batch with its slice of the step's
+    draws, one after the other from the same weights, then their mean. For
+    a model without BatchNorm (whose ranks need nothing of each other in
+    the forward) the DDP step's averaged gradient is this, up to the order
+    of the card's atomic adds."""
+    from houv_tpu_torch.parallel.mesh import Mesh
+    from houv_tpu_torch.train.cli import make_trainer
+    from houv_tpu_torch.train.config import Config
+
+    trainer = make_trainer(Config.from_dict(raw), "cuda")
+    trainer.init_state()
+    parts = []
+    for r in range(ranks):
+        # a mesh without a process group: this rank's rows and draws
+        trainer.mesh = Mesh(("data",), (ranks,), (r,), (None,),
+                            trainer.device)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        trainer._train_loss(trainer._local(batch), 0, 0).backward()
+        parts.append({k: p.grad.detach().clone()
+                      for k, p in trainer.model.named_parameters()
+                      if p.grad is not None})
+    mean = {k: (sum(p[k] for p in parts) / ranks).cpu().numpy()
+            for k in parts[0]}
+    del trainer, parts
+    torch.cuda.empty_cache()
+    return mean
+
+
+def _ddp_inputs(workdir):
+    """The DDP runs' inputs and their one-process side: for each of
+    ``DDP_RUNS`` its yaml at the global batch, the batch and the steps
+    (``ddp``); one process's run on the whole batch with its peak memory,
+    for a model without BatchNorm the ranks' work redone in one process
+    (``halves``), and the planted fault (``fault``) (``one``)."""
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import Config
+
+    ddp, one = {}, {}
+    for model, batch_size, n_steps in DDP_RUNS:
+        with open(REPO / "cfgs" / f"{model}.yaml") as f:
+            raw = yaml.safe_load(f)
+        raw.update(batch_size=batch_size, synthetic_size=batch_size,
+                   work_dir=str(workdir / model))
+        cfg = Config.from_dict(raw)
+        batch = build_dataset(cfg, "train").get_batch(np.arange(batch_size))
+        ddp[model] = (raw, batch, n_steps)
+        torch.cuda.reset_peak_memory_stats()
+        one[model] = _ddp_steps(raw, batch, n_steps, None)
+        one[model]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if model in DDP_NO_BATCHNORM:
+            one[model]["halves"] = _half_batch_grads(raw, batch)
+        one[model]["fault"] = _fault_grads(raw, batch)
+    torch.cuda.empty_cache()
+    return ddp, one
+
+
+def _fault_grads(raw, batch, ranks=2):
+    """The planted fault the DDP gradient bound must catch: one process's
+    first-step gradient on rank 0's rows alone (the first 1/``ranks`` of
+    the global batch, drawn and normalised on its own), what a rank steps
+    on when the gradients are not averaged and BatchNorm sees only its
+    rows. Built without the sharding code."""
+    half = raw["batch_size"] // ranks
+    rows = {k: v[:half] if getattr(v, "ndim", 0) else v
+            for k, v in batch.items()}
+    return _ddp_steps(dict(raw, batch_size=half), rows, 1, None)["grads"]
+
+
+def _ddp_compare(model, raw, one, two, n_steps, halves=None):
+    """The DDP run against one process on the global batch: the first
+    loss, the first step's gradient (over the model's largest gradient
+    entry) and the planted fault's (``_fault_grads``) read the same way,
+    its running statistics, each final state tensor's largest difference
+    over its largest entry, the most any entry moved apart (Adam's
+    normalised step moves an entry by about lr); with ``halves``
+    (``_half_batch_grads``) the first step's gradient against the ranks'
+    own computation in one process."""
+    gmax = max(float(np.abs(g).max()) for g in one["grads"].values())
+
+    def grad_err(ref, got=two["grads"]):
+        return max(float(np.abs(ref[k] - got[k]).max())
+                   for k in ref) / gmax
+
+    running_1 = max((float(np.abs(v - two["running_1"][k]).max())
+                     / max(float(np.abs(v).max()), 1e-30)
+                     for k, v in one["running_1"].items()), default=0.0)
+    rel, worst, move = {}, ("", 0.0), 0.0
+    for k, a in one["state"].items():
+        d = float(np.abs(a.astype(np.float64) - two["state"][k]).max())
+        r = d / max(float(np.abs(a).max()), 1e-30)
+        rel[k] = r
+        if r > worst[1]:
+            worst = (k, r)
+        if k in one["grads"]:
+            move = max(move, d)
+    running = [r for k, r in rel.items() if "running" in k]
+    return {"phase": "parallel_ddp", "config": f"cfgs/{model}.yaml",
+            "ranks": 2, "global_batch": raw["batch_size"],
+            "steps": n_steps, "losses_one": one["losses"],
+            "losses_ddp": two["losses"],
+            "first_loss_rel": abs(two["losses"][0] - one["losses"][0])
+            / abs(one["losses"][0]),
+            "first_grad_err_over_max_grad": grad_err(one["grads"]),
+            "fault_grad_err_over_max_grad": grad_err(one["grads"],
+                                                     one["fault"]),
+            "grad_bound": DDP_GRAD_BOUND,
+            "running_stats_after_step_1_worst_rel": running_1,
+            "halves_grad_err_over_max_grad":
+                None if halves is None else grad_err(halves),
+            "halves_bit_equal": None if halves is None else all(
+                halves[k].tobytes() == two["grads"][k].tobytes()
+                for k in halves),
+            "state_worst_rel": {"tensor": worst[0], "rel": worst[1]},
+            "running_stats_final_worst_rel": max(running, default=0.0),
+            "param_move_apart_max": move, "lr": raw["lr"],
+            "replicas_equal": two["replicas_equal"],
+            "steps_per_s_one": one["steps_per_s"],
+            "steps_per_s_ddp": two["steps_per_s"],
+            "launches": two["launches"], "peak_gib_ranks": two["peak_gib"]}
+
+
+# the DDP runs whose ranks need nothing of each other in the forward
+DDP_NO_BATCHNORM = ("vrcnet",)
+# the first DDP gradient against one process on the whole batch, over the
+# model's largest gradient entry: above f32 rounding through the card's
+# atomics, kNN near-ties and the SVD heads (DeepGMR read 2.2e-3 and 5.2e-3
+# on an H100), below the planted fault (``_fault_grads``: 0.29 and 1.2),
+# which the phase checks exceeds it
+DDP_GRAD_BOUND = 5e-2
+
+
+def phase_parallel(refs, rescore_ref):
+    """torch.distributed on the card(s). ``refs``: phase ``main_path``'s
+    one-process rows (houv_fast at 100 pairs, houv.yaml at 4);
+    ``rescore_ref``: phase ``quality``'s houv_rescore run at 8 pairs.
+    1. NCCL over every visible card (at most 4; one on a one-card
+       machine): all_reduce, broadcast and the exact row gather, and the
+       100-pair houv_fast batch through ``sharded_houv_solve``, bit-equal
+       to the one-process rows;
+    2. two ranks sharing card 0 over gloo (CUDA tensors): houv_fast at 100
+       pairs through ``test_main`` (pairs/s beside one process's), the
+       (data 1 x restart 2) split of houv.yaml's 4 pairs, houv_rescore at
+       8 pairs with log/'s classifier (picks, ``n_override``, logits), all
+       bit-equal to one process; DDP steps of vrcnet.yaml and deepgmr.yaml
+       (batch 32, 16 a rank, 3 steps) against one process on the global
+       batch;
+    3. the CLI: ``n_devices`` the visible cards runs; one more raises the
+       ValueError.
+    Returns the launches of each run, for the ``kernels`` line."""
+    t_phase = time.perf_counter()
+    one_process = os.environ.pop("WORLD_SIZE", None)
+    try:
+        return _phase_parallel(refs, rescore_ref, t_phase)
+    finally:
+        if one_process is not None:
+            os.environ["WORLD_SIZE"] = one_process
+
+
+def _phase_parallel(refs, rescore_ref, t_phase):
+    from houv_tpu_torch.parallel.distributed import launch
+    from houv_tpu_torch.train.cli import test_main
+
+    cards = torch.cuda.device_count()
+    world = min(cards, 4)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        paths = {name: sweep_cfg(name, n, workdir)[0]
+                 for name, n in PARALLEL_PAIRS.items()}
+        # 1. NCCL
+        t0 = time.perf_counter()
+        nccl = launch(_nccl_rank, world, "cuda",
+                      args=(str(paths["houv_fast.yaml"]),
+                            PARALLEL_PAIRS["houv_fast.yaml"]))
+        ref = refs["houv_fast.yaml:100"]
+        rec = {"phase": "parallel_nccl", "world": nccl["world"],
+               "cards": cards, "backend": nccl["backend"],
+               "all_reduce": nccl["all_reduce"],
+               "broadcast": nccl["broadcast"],
+               "gather_bits": nccl["gather_bits"],
+               "gather_path": nccl["gather_path"],
+               "sweep_bit_equal": _bits_equal(nccl["results"],
+                                              ref["results"]),
+               "n_retry": [nccl["n_retry"], ref["n_retry"]],
+               "solve_s": nccl["seconds"],
+               "job_s": time.perf_counter() - t0}
+        emit(rec)
+        if not (rec["backend"] == "nccl" and rec["all_reduce"]
+                and rec["broadcast"] and rec["gather_bits"]
+                and rec["gather_path"] == "all_gather"
+                and rec["sweep_bit_equal"]
+                and nccl["n_retry"] == ref["n_retry"]):
+            fail(f"parallel: NCCL checks failed: {rec}")
+        checks = [rec]
+
+        # 2. two ranks on card 0 over gloo, and one process for the DDP
+        ddp, one = _ddp_inputs(workdir)
+        t0 = time.perf_counter()
+        two = launch(_gloo_rank, 2, "cuda", backend="gloo",
+                     args=(paths, ddp))
+        job_s = time.perf_counter() - t0
+        launches = {}
+        for name, key in (("houv_fast.yaml", "houv_fast.yaml:100"),
+                          ("houv.yaml", "houv.yaml:4")):
+            got, ref = two[name], refs[key]
+            rec = {"phase": "parallel_gloo", "config": f"cfgs/{name}",
+                   "ranks": 2, "layout": ("data 2" if name == "houv_fast.yaml"
+                                          else "data 1 x restart 2"),
+                   "pairs": PARALLEL_PAIRS[name],
+                   "bit_equal": _bits_equal(got["results"], ref["results"]),
+                   "n_retry": [got["n_retry"], ref["n_retry"]],
+                   "seconds": got["seconds"], "launches": got["launches"]}
+            if name == "houv_fast.yaml":
+                rec.update(pairs_per_s_two_ranks=100 / got["seconds"],
+                           pairs_per_s_one=ref["pairs_per_s"],
+                           peak_gib_ranks=got["peak_gib"])
+            if not rec["bit_equal"]:
+                diff = _agree_deg(got["results"], ref["results"])
+                rec.update(max_rot_diff_deg=float(diff.max()),
+                           rows_differing=int((got["results"]
+                                               != ref["results"]).any(
+                                                   (1, 2)).sum()))
+            emit(rec)
+            checks.append(rec)
+            launches[name] = got["launches"]
+            if not rec["bit_equal"] or got["n_retry"] != ref["n_retry"]:
+                fail(f"parallel: {name} over two ranks differs: {rec}")
+        got = two["houv_rescore.yaml"]
+        diag, ref_diag = got["rescore"], rescore_ref["rescore"]
+        logit_err = float(np.abs(diag["cand_logits"].astype(np.float64)
+                                 - ref_diag["cand_logits"]).max())
+        rec = {"phase": "parallel_gloo", "config": "cfgs/houv_rescore.yaml",
+               "ranks": 2, "layout": "data 2",
+               "pairs": PARALLEL_PAIRS["houv_rescore.yaml"],
+               "bit_equal": _bits_equal(got["results"],
+                                        rescore_ref["results"]),
+               "picks_equal": _bits_equal(diag["pick"], ref_diag["pick"]),
+               "n_override": [got["n_override"], rescore_ref["n_override"]],
+               "n_retry": [got["n_retry"], rescore_ref["n_retry"]],
+               "max_logit_diff": logit_err,
+               "logit_bound_card_vs_cpu_pr15": 9.7e-4,
+               "seconds": got["seconds"], "launches": got["launches"]}
+        emit(rec)
+        checks.append(rec)
+        launches["houv_rescore.yaml"] = got["launches"]
+        if not (rec["picks_equal"]
+                and got["n_override"] == rescore_ref["n_override"]
+                and got["n_retry"] == rescore_ref["n_retry"]
+                and logit_err <= 9.7e-4):
+            fail(f"parallel: the sharded rescored solve differs: {rec}")
+        for model, (raw, _, n_steps) in ddp.items():
+            rec = _ddp_compare(model, raw, one[model], two[model], n_steps,
+                               one[model].get("halves"))
+            rec["peak_gib_one"] = one[model]["peak_gib"]
+            emit(rec)
+            checks.append(rec)
+            launches[f"ddp:{model}"] = two[model]["launches"]
+            # the first gradient against one process on the whole batch,
+            # under the bound that the planted fault exceeds; exact where
+            # the ranks' work can be redone in one process (no BatchNorm:
+            # up to the atomics' order), the global batch's BatchNorm
+            # statistics to f32 sums' rounding; the states after 3 steps
+            # are read, not bounded: Adam's normalised step moves a
+            # near-zero gradient's entry by ~lr
+            held = (rec["halves_grad_err_over_max_grad"] <= 1e-5
+                    if model in DDP_NO_BATCHNORM
+                    else rec["running_stats_after_step_1_worst_rel"] <= 1e-4)
+            if not (held and rec["replicas_equal"]
+                    and rec["first_grad_err_over_max_grad"] <= DDP_GRAD_BOUND
+                    < rec["fault_grad_err_over_max_grad"]
+                    and rec["first_loss_rel"] <= 1e-5
+                    and np.isfinite(rec["losses_ddp"]).all()):
+                fail(f"parallel: DDP {model} outside its bounds: {rec}")
+
+        # 3. the CLI over the visible cards; one more raises
+        raw = yaml.safe_load(paths["houv_fast.yaml"].read_text())
+        raw.update(synthetic_size=16, batch_size=16 // world * world,
+                   n_devices=world)
+        cli_path = workdir / "houv_fast_cli.yaml"
+        cli_path.write_text(yaml.safe_dump(raw))
+        out = test_main(["-c", str(cli_path)])
+        raw["n_devices"] = cards + 1
+        cli_path.write_text(yaml.safe_dump(raw))
+        try:
+            test_main(["-c", str(cli_path)])
+            refused = None
+        except ValueError as err:
+            refused = str(err)
+        rec = {"phase": "parallel_cli", "n_devices": world,
+               "pairs": out["n_pairs"], "n_retry": out["n_retry"],
+               "n_devices_refused": cards + 1, "refusal": refused}
+        emit(rec)
+        checks.append(rec)
+        if refused is None or "visible cards" not in refused:
+            fail(f"parallel: n_devices {cards + 1} on {cards} cards ran")
+    rec = {"phase": "parallel_summary", "card": card_line(),
+           "checks": len(checks), "gloo_job_s": job_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    return launches
 
 
 class _Count:
@@ -4281,7 +4816,7 @@ def _time_gather_rows(gen):
 
 def phase_kernels(launches, errs, completion, train, solve, models,
                   models_train, select, classical, combine, vrcnet_knn,
-                  learned, aux, gen):
+                  learned, aux, parallel, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
@@ -4294,7 +4829,9 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     phase, whose runs' launches each row carries under
     ``vrcnet_knn_launches``; ``learned``: the learned models' phase,
     whose runs' launches each row carries under ``learned_launches``;
-    ``aux``: the aux phase, likewise under ``aux_launches``."""
+    ``aux``: the aux phase, likewise under ``aux_launches``;
+    ``parallel``: the parallel phase's runs, summed over their ranks,
+    under ``parallel_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import emd
@@ -4414,6 +4951,9 @@ def phase_kernels(launches, errs, completion, train, solve, models,
             f"{name}:{run}": rec["launches"].get(row["name"], 0)
             for name, runs in aux.items() for run, rec in runs.items()
             if "launches" in rec}
+        row["parallel_launches"] = {
+            run: counts.get(row["name"], 0)
+            for run, counts in parallel.items()}
     return out
 
 
@@ -4447,6 +4987,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
+    # every phase but ``parallel`` runs in this one process: as torchrun
+    # declares a one-process job, so that the CLI does not start a rank a
+    # card on a machine with several
+    os.environ["WORLD_SIZE"] = "1"
 
     t0 = time.perf_counter()
 
@@ -4472,7 +5016,7 @@ def main(argv=None) -> int:
     errs["gather_rows"] = timed(phase_gather_rows, gen)
     timed(phase_chamfer_grad, gen)
     fast = timed(phase_main)
-    timed(phase_quality)
+    quality = timed(phase_quality)
     classical = timed(phase_classical)
     combine = timed(phase_combine)
     timed(phase_completion_reference)
@@ -4485,6 +5029,7 @@ def main(argv=None) -> int:
     vrcnet_knn = timed(phase_vrcnet_knn)
     learned = timed(phase_learned)
     aux = timed(phase_aux)
+    parallel = timed(phase_parallel, fast["refs"], quality["rescore_ref"])
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
     profiles = {"houv_fast": timed(phase_profile)}
@@ -4497,7 +5042,7 @@ def main(argv=None) -> int:
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select,
                            classical, combine, vrcnet_knn, learned, aux,
-                           gen)})
+                           parallel, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """Batching and sharding (counterpart of ``houv_tpu/data/pipeline.py``):
 a numpy batch iterator over any dataset with ``__len__`` and ``get_batch``,
-and the reference's contiguous [l, r) dataset sharding."""
+the reference's contiguous [l, r) dataset sharding, and a rank's rows of a
+global batch (``shard_rows``)."""
 
 from __future__ import annotations
 
@@ -51,3 +52,36 @@ def batch_iterator(
         batch = dataset.get_batch(idx, rng=rng)
         batch["valid"] = np.asarray(valid, np.int32)
         yield batch
+
+
+def shard_rows(batch, index: int, count: int):
+    """Rank ``index`` of ``count``'s rows of a global batch: the
+    ``index``-th of ``count`` equal contiguous parts of each array's (or
+    tensor's) leading axis, in a dict or alone; 0-d entries pass as they
+    are, except ``valid`` (the count of real rows, the rest padding),
+    which becomes this rank's count of real rows. ValueError where a
+    leading axis is not divisible by ``count``."""
+    if not isinstance(batch, dict):
+        return _rows(batch, index, count, "batch")
+    out = {}
+    for key, value in batch.items():
+        if key == "valid":
+            continue
+        out[key] = (_rows(value, index, count, key)
+                    if getattr(value, "ndim", 0) else value)
+    if "valid" in batch:
+        rows = next((len(v) for v in batch.values()
+                     if getattr(v, "ndim", 0)), 0)
+        local = rows // count
+        out["valid"] = np.asarray(
+            min(max(int(batch["valid"]) - index * local, 0), local),
+            np.int32)
+    return out
+
+
+def _rows(value, index: int, count: int, name: str):
+    n = value.shape[0]
+    if n % count:
+        raise ValueError(f"{name}: {n} rows not divisible by {count} ranks")
+    size = n // count
+    return value[index * size:(index + 1) * size]

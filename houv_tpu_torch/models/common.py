@@ -11,7 +11,17 @@ coordinates, C == 3, on the coordinate kernel).
 flax's normalisations are not torch's defaults: ``BatchNorm`` (ε 1e-5,
 running statistics moved by 1% a train step) and ``LayerNorm`` (ε 1e-6)
 take the biased variance as E[x²] − E[x]², floored at 0, and compute
-(x − mean) · (rsqrt(var + ε) · scale) + bias. ``attention`` and
+(x − mean) · (rsqrt(var + ε) · scale) + bias.
+
+Data-parallel training (``train/harness.py`` with a mesh) sets a process
+group on the model (``set_batch_group``): a train step's ``BatchNorm`` then
+normalises by the statistics of the global batch, its sums all-reduced
+over the ranks with a differentiable all-reduce, as the JAX package's
+BatchNorm sees the global batch under jit with a sharded batch; and a
+model's batch-coupled sums (``batch_sum``) run over the global batch. The
+random draws of a step are the global batch's, sliced to the rank's rows
+(``RowShard``, ``draw_rows``), so each row gets what it gets in one
+process. ``attention`` and
 ``MultiHeadAttention`` are the JAX package's dense products (scores scaled
 by 1/√d_k, a softmax, the weighted values), not a fused attention kernel.
 """
@@ -22,6 +32,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed.nn.functional as dist_nn
 from torch import nn
 
 from houv_tpu_torch.geometry.kabsch import weighted_kabsch
@@ -125,12 +136,54 @@ def to_f32(x: torch.Tensor, compute_dtype: torch.dtype | None) -> torch.Tensor:
     return x if compute_dtype is None else x.float()
 
 
+class RowShard:
+    """A generator whose draws (``draw_rows``) are those of the global
+    batch of ``count`` ranks' equal shards, sliced to shard ``index``."""
+
+    def __init__(self, generator: torch.Generator, index: int, count: int):
+        self.generator, self.index, self.count = generator, index, count
+
+
+def draw_rows(sampler, shape, generator, groups: int = 1) -> torch.Tensor:
+    """``sampler(shape, generator=generator)`` (``torch.rand`` or
+    ``torch.randn``); from a ``RowShard``, the rank's rows of the global
+    batch's draw. ``groups``: the leading axis holds that many blocks of
+    the batch's rows (a doubled batch [x; y] has 2), each sliced."""
+    if not isinstance(generator, RowShard):
+        return sampler(shape, generator=generator)
+    rows = shape[0] // groups
+    full = sampler((groups, rows * generator.count, *shape[1:]),
+                   generator=generator.generator)
+    i = generator.index
+    return full[:, i * rows:(i + 1) * rows].reshape(shape)
+
+
+def batch_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x.sum(); with a process group, the sum over every rank's ``x``
+    (a differentiable all-reduce: each rank's backward adds every rank's
+    gradient of the sum)."""
+    total = x.sum()
+    return total if group is None else dist_nn.all_reduce(total, group=group)
+
+
+def set_batch_group(model: nn.Module, group) -> None:
+    """Set the process group of every module of ``model`` that reads one
+    (``batch_group``: BatchNorm, and models with batch-coupled sums)."""
+    for m in model.modules():
+        if hasattr(m, "batch_group"):
+            m.batch_group = group
+
+
 def flax_statistics(x: torch.Tensor, mask: torch.Tensor | None = None,
-                    dims: tuple | None = None):
+                    dims: tuple | None = None, group=None):
     """flax's (mean, variance) over ``dims`` (default every axis but the
     last): the variance biased, E[x²] − E[x]² floored at 0. ``mask``
     (broadcastable to ``x``, bool) keeps only the rows it marks; ``dims``
-    is then every axis but the last."""
+    is then every axis but the last. With a process group ``group`` the
+    statistics are those of every rank's rows: their sums, sums of squares
+    and counts all-reduced in one differentiable all-reduce."""
+    if group is not None:
+        return _global_statistics(x, mask, group)
     if mask is None:
         dims = tuple(range(x.dim() - 1)) if dims is None else dims
         mean = x.mean(dims)
@@ -141,6 +194,22 @@ def flax_statistics(x: torch.Tensor, mask: torch.Tensor | None = None,
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         mean = torch.where(mask, x, zero).sum(dims) / count
         mean2 = torch.where(mask, x * x, zero).sum(dims) / count
+    return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+
+
+def _global_statistics(x, mask, group):
+    dims = tuple(range(x.dim() - 1))
+    if mask is None:
+        count = x.new_tensor(float(x[..., 0].numel()))
+    else:
+        x = torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+        count = mask.sum().to(x.dtype)
+    c = x.shape[-1]
+    sums = dist_nn.all_reduce(
+        torch.cat([x.sum(dims), (x * x).sum(dims), count[None]]), group=group)
+    mean = sums[:c] / sums[-1]
+    mean2 = sums[c:2 * c] / sums[-1]
     return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 
@@ -162,9 +231,12 @@ class BatchNorm(nn.Module):
     twice in one step, on the source and then on the target, moves them
     twice, as flax does within one ``apply``); otherwise the running
     statistics normalise and nothing changes. ``use_bias`` and
-    ``use_scale`` drop the offset or the scale, as flax's do."""
+    ``use_scale`` drop the offset or the scale, as flax's do. With a
+    ``batch_group`` (``set_batch_group``) a train step's statistics are
+    the global batch's, and every rank moves its running ones alike."""
 
     flax_class = "BatchNorm"
+    batch_group = None
     flax_leaves = {"scale": "weight", "bias": "bias", "mean": "running_mean",
                    "var": "running_var"}
     momentum = 0.99
@@ -186,7 +258,7 @@ class BatchNorm(nn.Module):
         otherwise the running ones."""
         if not train:
             return self.running_mean, self.running_var
-        mean, var = flax_statistics(x, mask)
+        mean, var = flax_statistics(x, mask, group=self.batch_group)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -28,8 +28,9 @@ import torch
 from torch import nn
 
 from houv_tpu_torch.geometry.rotations import rt_to_transformation
-from houv_tpu_torch.models.common import (BatchNorm, FlaxNamed,
-                                          registration_outputs, svd_head)
+from houv_tpu_torch.models.common import (BatchNorm, FlaxNamed, batch_sum,
+                                          draw_rows, registration_outputs,
+                                          svd_head)
 from houv_tpu_torch.ops.gather import gather_edge_features
 from houv_tpu_torch.ops.grouping import _sqdist_diff, knn_indices
 
@@ -97,7 +98,7 @@ def _top_k(score: torch.Tensor, k: int) -> torch.Tensor:
 
 def _gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel noise, −log(−log(U)), U uniform in [tiny, 1)."""
-    u = torch.rand(shape, generator=generator)
+    u = draw_rows(torch.rand, shape, generator)
     u = torch.clamp_min(u, torch.finfo(u.dtype).tiny)
     return (-torch.log(-torch.log(u))).to(device)
 
@@ -132,7 +133,11 @@ class IDAM(FlaxNamed):
     tensors, for the positives and the negatives) or is drawn from
     ``generator``. ``train`` runs the BatchNorms on the batch: the GNN's
     and ``sig_fc``'s run on each cloud, so their running statistics move
-    twice a call, the similarity blocks' once."""
+    twice a call, the similarity blocks' once. The match loss's ratio of
+    sums runs over the global batch where a ``batch_group`` is set
+    (``common.set_batch_group``)."""
+
+    batch_group = None
 
     def __init__(self, descriptor_size: int = 64, num_iters: int = 3):
         super().__init__()
@@ -219,8 +224,9 @@ class IDAM(FlaxNamed):
             if training:
                 diag = torch.diagonal(torch.softmax(sim, -1), dim1=-2,
                                       dim2=-1)
-                loss = loss + (-torch.log(diag + 1e-12) * labels).sum() \
-                    / torch.clamp_min(labels.sum(), 1.0)
+                g = self.batch_group
+                loss = loss + batch_sum(-torch.log(diag + 1e-12) * labels, g) \
+                    / torch.clamp_min(batch_sum(labels, g), 1.0)
             corr_idx = torch.argmax(sim, -1)
             src_corr = _take(tgt, corr_idx)
             if training:

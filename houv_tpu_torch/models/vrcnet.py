@@ -37,6 +37,7 @@ from houv_tpu_torch.models.common import (
     FlaxNamed,
     compute_dtype_of,
     dense,
+    draw_rows,
     edge_preserve_sampling,
     gen_grid_up,
     get_edge_features,
@@ -213,11 +214,13 @@ class SASKNResEncoder(FlaxNamed):
         self.child("up1", nn.Linear(c1 * 2 + c1, c1))
         self.child("out", nn.Linear(c1, output_size))
 
-    def dropout_masks(self, batch: int, generator: torch.Generator | None):
+    def dropout_masks(self, batch: int, generator: torch.Generator | None,
+                      groups: int = 1):
         """The two keep masks (batch, 512) and (batch, 1024), 1 = kept with
-        probability 1 - ``dropout_rate``, drawn on the CPU."""
+        probability 1 - ``dropout_rate``, drawn on the CPU (``draw_rows``:
+        ``groups`` blocks of the batch's rows)."""
         return tuple(
-            (torch.rand((batch, w), generator=generator)
+            (draw_rows(torch.rand, (batch, w), generator, groups)
              >= self.dropout_rate).float() for w in self.dropout_widths)
 
     def forward(self, features: torch.Tensor, geo: dict | None = None,
@@ -428,7 +431,11 @@ class VRCNet(FlaxNamed):
     ``distribution_loss='MMD'``: then the N(0, 1) sample and the detached
     prior's noise); ``dropout_masks`` are the decoder's two keep masks over
     the doubled batch (``SASKNResEncoder.dropout_masks``). Whatever is not
-    passed is drawn from ``generator``, the noise first, then the masks."""
+    passed is drawn from ``generator``, the noise first, then the masks.
+    Data-parallel training sets ``batch_group``
+    (``common.set_batch_group``), which MMD refuses."""
+
+    _batch_group = None
 
     def __init__(self, num_points: int = 2048, num_coarse_raw: int = 1024,
                  num_fps: int = 2048, num_coarse: int = 2048,
@@ -458,6 +465,19 @@ class VRCNet(FlaxNamed):
             num_fps, num_coarse, num_points, layers, knn_list, pk,
             points_label, local_folding, remat))
 
+    @property
+    def batch_group(self):
+        """The process group of data-parallel training, or None."""
+        return self._batch_group
+
+    @batch_group.setter
+    def batch_group(self, group):
+        if group is not None and self.distribution_loss == "MMD":
+            raise NotImplementedError(
+                "distribution_loss MMD couples every pair of the batch's "
+                "rows; data-parallel training takes KLD")
+        self._batch_group = group
+
     def _moments(self, o: torch.Tensor):
         return o[:, :self.size_z], F.softplus(o[:, self.size_z:])
 
@@ -465,15 +485,15 @@ class VRCNet(FlaxNamed):
         b, n_input = x.shape[:2]
         n_noise = 4 if self.distribution_loss == "MMD" else 2
         if noise is None:
-            noise = [torch.randn((b, self.size_z), generator=generator)
+            noise = [draw_rows(torch.randn, (b, self.size_z), generator)
                      for _ in range(n_noise)]
         if len(noise) != n_noise:
             raise ValueError(f"'train' with {self.distribution_loss} takes "
                              f"{n_noise} noise tensors, got {len(noise)}")
         noise = [t.to(x.device) for t in noise]
         if dropout_masks is None:
-            dropout_masks = self.decoder.encoder.dropout_masks(2 * b,
-                                                               generator)
+            dropout_masks = self.decoder.encoder.dropout_masks(
+                2 * b, generator, groups=2)
         y = gather_rows(gt, furthest_point_sample(gt, n_input,
                                                   device=gt.device))
         gt2 = torch.cat([gt, gt], 0)
@@ -526,7 +546,7 @@ class VRCNet(FlaxNamed):
         feat = self.encoder(x)
         q_mu, q_std = self._moments(self.post2(self.post1(feat)))
         if noise is None:
-            noise = torch.randn(q_mu.shape, generator=generator)
+            noise = draw_rows(torch.randn, q_mu.shape, generator)
         z = q_mu + q_std * noise.to(q_mu.device)
         feat = feat + self.generator(z)
         coarse_raw, _, _, fine = self.decoder(feat, x)

@@ -269,10 +269,18 @@ def _gathered_view_min(src, tgt, src_t, r, t, view_matches, dim, fast):
                          _trunc_mean_sqrt(d2v, k, fast))
 
 
+def _replica_mean(loss: torch.Tensor, divisor: int | None) -> torch.Tensor:
+    """The mean of the replicas' losses; with ``divisor``, their sum over
+    it: a rank's share of the mean over a batch sharded across ranks (the
+    gradient of each replica is then the whole batch's, bit for bit)."""
+    return loss.mean() if divisor is None else loss.sum() / divisor
+
+
 def _objective_cached(params, matches, src, tgt, angle_base,
-                      cfg: HOUVConfig):
-    """Mean loss over all replicas and per-replica min_1 (B, K), rebuilt
-    against cached matches (``_objective_matches``)."""
+                      cfg: HOUVConfig, divisor: int | None = None):
+    """Mean loss over all replicas (``_replica_mean``) and per-replica
+    min_1 (B, K), rebuilt against cached matches
+    (``_objective_matches``)."""
     tg, s_sel, views = matches
     r, t = reparametrize(params, angle_base, cfg.tran_mode)
     bsz, kernel = r.shape[:2]
@@ -288,17 +296,20 @@ def _objective_cached(params, matches, src, tgt, angle_base,
     for dim, view_matches in enumerate(views):
         loss = loss + _gathered_view_min(src, tgt, src_t, r, t, view_matches,
                                          dim, cfg.fast_trim)
-    return loss.mean(), min_1.reshape(bsz, kernel)
+    return _replica_mean(loss, divisor), min_1.reshape(bsz, kernel)
 
 
-def _objective_gather(params, src, tgt, angle_base, cfg: HOUVConfig):
+def _objective_gather(params, src, tgt, angle_base, cfg: HOUVConfig,
+                      divisor: int | None = None):
     """The objective with matches at the current parameters (reference
     semantics: the argmin is piecewise-constant in (R, T))."""
     matches = _objective_matches(params, src, tgt, angle_base, cfg)
-    return _objective_cached(params, matches, src, tgt, angle_base, cfg)
+    return _objective_cached(params, matches, src, tgt, angle_base, cfg,
+                             divisor)
 
 
-def _objective_scatter(params, src, tgt, angle_base, cfg: HOUVConfig):
+def _objective_scatter(params, src, tgt, angle_base, cfg: HOUVConfig,
+                       divisor: int | None = None):
     """The objective through the chamfer op's own gradient: the truncated
     CD of the transformed cloud against its pair's target, per replica, and
     with ``use_view_loss`` the three projected CDs."""
@@ -315,15 +326,16 @@ def _objective_scatter(params, src, tgt, angle_base, cfg: HOUVConfig):
     if cfg.use_view_loss:
         for dim in range(3):
             loss = loss + torch.minimum(*loss_view(src_t, tgt_r, dim=dim))
-    return loss.mean(), min_1.reshape(bsz, kernel)
+    return _replica_mean(loss, divisor), min_1.reshape(bsz, kernel)
 
 
-def _objective(params, src, tgt, angle_base, cfg: HOUVConfig):
-    """Mean loss over all replicas and per-replica min_1 (B, K), matches
-    taken at the current parameters."""
+def _objective(params, src, tgt, angle_base, cfg: HOUVConfig,
+               divisor: int | None = None):
+    """Mean loss over all replicas (``_replica_mean``) and per-replica
+    min_1 (B, K), matches taken at the current parameters."""
     if cfg.grad_mode == "gather":
-        return _objective_gather(params, src, tgt, angle_base, cfg)
-    return _objective_scatter(params, src, tgt, angle_base, cfg)
+        return _objective_gather(params, src, tgt, angle_base, cfg, divisor)
+    return _objective_scatter(params, src, tgt, angle_base, cfg, divisor)
 
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
@@ -352,11 +364,11 @@ def _adam_update(params: dict, grads: dict, state: dict, lr: float):
 
 
 def _adam_loop(src, tgt, angle_base, cfg: HOUVConfig, params: dict,
-               opt_state: dict, n_steps: int):
+               opt_state: dict, n_steps: int, divisor: int | None = None):
     """``n_steps`` Adam steps over all replicas, matches recomputed once per
-    block of ``cfg.nn_refresh`` steps (every step at refresh 1). Returns
-    (params, opt_state, losses (n_steps,)), each loss taken before its
-    step's update."""
+    block of ``cfg.nn_refresh`` steps (every step at refresh 1); the loss
+    is ``_replica_mean``'s. Returns (params, opt_state, losses (n_steps,)),
+    each loss taken before its step's update."""
     refresh = max(cfg.nn_refresh, 1)
     if n_steps % refresh:
         raise ValueError(
@@ -370,7 +382,8 @@ def _adam_loop(src, tgt, angle_base, cfg: HOUVConfig, params: dict,
         for _ in range(n_steps):
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
-            loss, _ = _objective_scatter(leaves, src, tgt, angle_base, cfg)
+            loss, _ = _objective_scatter(leaves, src, tgt, angle_base, cfg,
+                                         divisor)
             grads = torch.autograd.grad(loss, list(leaves.values()))
             with torch.no_grad():
                 params = _adam_update(params, dict(zip(leaves, grads)),
@@ -383,7 +396,7 @@ def _adam_loop(src, tgt, angle_base, cfg: HOUVConfig, params: dict,
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
             loss, _ = _objective_cached(leaves, matches, src, tgt,
-                                        angle_base, cfg)
+                                        angle_base, cfg, divisor)
             grads = torch.autograd.grad(loss, list(leaves.values()))
             with torch.no_grad():
                 params = _adam_update(params, dict(zip(leaves, grads)),
@@ -451,16 +464,18 @@ def _best_restart(min_1: torch.Tensor):
     return min_1.gather(1, idx[:, None])[:, 0], idx
 
 
-def houv_pass(src, tgt, params0: dict, angle_base: float, cfg: HOUVConfig):
-    """One angle-window pass, phase by phase of the schedule. Returns
-    (min_1 (B, K), R (B, K, 3, 3), T (B, K, 3)) at the final parameters."""
+def houv_pass(src, tgt, params0: dict, angle_base: float, cfg: HOUVConfig,
+              divisor: int | None = None):
+    """One angle-window pass, phase by phase of the schedule; ``divisor``
+    as in ``_replica_mean``. Returns (min_1 (B, K), R (B, K, 3, 3),
+    T (B, K, 3)) at the final parameters."""
     params, opt_state = params0, _adam_init(params0)
     for n_steps, refresh, sub in _refresh_phases(cfg):
         cfg_r = dataclasses.replace(cfg, nn_refresh=refresh,
                                     nn_refresh_schedule=None)
         src_p, tgt_p = _phase_clouds(src, tgt, sub)
         params, opt_state, _ = _adam_loop(src_p, tgt_p, angle_base, cfg_r,
-                                          params, opt_state, n_steps)
+                                          params, opt_state, n_steps, divisor)
     with torch.no_grad():
         _, min_1 = _objective(params, src, tgt, angle_base, cfg)
         r, t = reparametrize(params, angle_base, cfg.tran_mode)
@@ -471,13 +486,17 @@ def houv_candidate_pools(src: torch.Tensor, tgt: torch.Tensor,
                          cfg: HOUVConfig = HOUVConfig(),
                          params0: dict | None = None,
                          generator: torch.Generator | None = None,
-                         device: str | torch.device = "cuda"):
+                         device: str | torch.device = "cuda",
+                         divisor: int | None = None, best_reduce=None):
     """The angle-window passes of the hybrid solve, keeping every restart:
     window 0, then for the pairs past the threshold (or every pair, with
     ``retry_mode='always'``) windows 1..passes-1. src, tgt (B, N, 3) on
     ``device``; ``params0`` (from ``init_params`` or
     ``state.params_from_jax``) fixes the restarts, else they are drawn from
-    ``generator`` (seed 0 when None).
+    ``generator`` (seed 0 when None). A sharded solve (``parallel/mesh.py``)
+    passes the whole batch's replica count as ``divisor`` and, where the
+    restarts are split, ``best_reduce``, which takes window 0's best (B,)
+    to the best over every shard before the threshold.
 
     Returns (pool_loss (B, W·K), pool_r (B, W·K, 3, 3), pool_t (B, W·K, 3),
     n_retry): a pair that never entered window w has +inf losses in that
@@ -493,8 +512,10 @@ def houv_candidate_pools(src: torch.Tensor, tgt: torch.Tensor,
         params0 = init_params(generator, src.shape[0], cfg.kernel,
                               cfg.lattice_init, device=dev)
 
-    min_1, r, t = houv_pass(src, tgt, params0, 0.0, cfg)
+    min_1, r, t = houv_pass(src, tgt, params0, 0.0, cfg, divisor)
     best, _ = _best_restart(min_1)
+    if best_reduce is not None:
+        best = best_reduce(best)
     if cfg.retry_mode == "always":
         retry_mask = torch.ones_like(best, dtype=torch.bool)
     else:
@@ -503,7 +524,8 @@ def houv_candidate_pools(src: torch.Tensor, tgt: torch.Tensor,
     pools = [(min_1, r, t)]
     if n_retry:
         for base in range(1, cfg.angle_passes):
-            m2, r2, t2 = houv_pass(src, tgt, params0, float(base), cfg)
+            m2, r2, t2 = houv_pass(src, tgt, params0, float(base), cfg,
+                                   divisor)
             pools.append((torch.where(retry_mask[:, None], m2, math.inf),
                           r2, t2))
     return (torch.cat([p[0] for p in pools], 1),
@@ -523,14 +545,18 @@ def houv_solve(src: torch.Tensor, tgt: torch.Tensor,
     n_retry, the number of pairs that entered the retry passes."""
     pool_loss, pool_r, pool_t, n_retry = houv_candidate_pools(
         src, tgt, cfg, params0, generator, device)
+    transform, rmse = pick_restart(pool_loss, pool_r, pool_t)
+    return {"transform": transform, "rmse": rmse, "n_retry": n_retry}
+
+
+def pick_restart(pool_loss: torch.Tensor, pool_r: torch.Tensor,
+                 pool_t: torch.Tensor):
+    """The restart of least loss in each pair's pool (the first on ties:
+    the earlier window, the earlier restart): (transform (B, 4, 4), its
+    loss (B,))."""
     best, idx = _best_restart(pool_loss)
     rows = torch.arange(pool_loss.shape[0], device=pool_loss.device)
-    return {
-        "transform": rt_to_transformation(pool_r[rows, idx],
-                                          pool_t[rows, idx]),
-        "rmse": best,
-        "n_retry": n_retry,
-    }
+    return rt_to_transformation(pool_r[rows, idx], pool_t[rows, idx]), best
 
 
 def combine(src: torch.Tensor, tgt: torch.Tensor,

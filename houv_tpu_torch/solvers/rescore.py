@@ -14,6 +14,11 @@ of ``houv_tpu/solvers/rescore.py`` on one device).
 4. ``rescore_pick``: candidate 0 is the loss choice (the reference's);
    another wins only when its logit beats candidate 0's by more than
    ``margin``. margin = +inf is ``houv_solve``'s selection.
+
+Over several ranks (``parallel/mesh.py``), ``sharded_houv_solve_rescored``
+runs the four steps on each rank's pairs and gathers the results, and
+``make_sharded_classifier_scorer`` scores a whole batch's candidates with
+each rank taking its pairs' rows.
 """
 
 from __future__ import annotations
@@ -21,7 +26,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from houv_tpu_torch.data.pipeline import shard_rows
 from houv_tpu_torch.geometry.rotations import rodrigues, rt_to_transformation
+from houv_tpu_torch.parallel.mesh import (all_gather_rows, rank_rows,
+                                          sharded_houv_pools, sum_int)
 from houv_tpu_torch.solvers.houv import HOUVConfig, houv_candidate_pools
 
 
@@ -159,6 +167,59 @@ def rescore_pick(cand_loss: torch.Tensor, logits: torch.Tensor,
     chal = logits.gather(1, challenger[:, None])[:, 0]
     override = chal > logits[:, 0] + margin
     return torch.where(override, challenger, 0)
+
+
+def make_sharded_classifier_scorer(model, mesh, micro_batch: int = 32,
+                                   n_aug: int = 1, use_gap: bool = False,
+                                   axis: str = "data"):
+    """``make_classifier_scorer`` over the ranks of ``mesh``: given the
+    whole batch's candidates (the same on every rank), each rank scores its
+    pairs' (pair · candidate) rows ``micro_batch`` at a time and the logits
+    are gathered, (B, C) on every rank. Its ``local`` is the host scorer
+    of one rank's rows (what ``sharded_houv_solve_rescored`` calls), with
+    ``calls`` and ``sites_dropped``. Build it once for a sweep."""
+    local = make_classifier_scorer(model, micro_batch, n_aug, use_gap)
+    width, index = mesh.shape[axis], mesh.index(axis)
+
+    def scorer(moved, tgt, cand_r=None, cand_t=None, cand_loss=None):
+        def mine(x):
+            return None if x is None else shard_rows(x, index, width)
+
+        logits = local(mine(moved), mine(tgt), mine(cand_r), mine(cand_t),
+                       cand_loss=mine(cand_loss))
+        return all_gather_rows(logits, mesh, axis)
+
+    scorer.local = local
+    return scorer
+
+
+def sharded_houv_solve_rescored(src: torch.Tensor, tgt: torch.Tensor, mesh,
+                                cfg: HOUVConfig, scorer, n_cand: int = 8,
+                                angle_deg: float = 10.0,
+                                margin: float = 0.0,
+                                params0: dict | None = None,
+                                generator: torch.Generator | None = None,
+                                axis: str = "data", pools=None) -> dict:
+    """``houv_solve_rescored`` with the batch's pairs split over the mesh:
+    each rank's pools (``parallel.mesh.sharded_houv_pools``: the whole
+    batch's restarts, the mean over its B·K replicas; or ``pools``, this
+    rank's, given), its candidates, their logits from ``scorer`` (a
+    sharded scorer's ``local``) and its picks; then every result gathered,
+    ``n_retry`` and ``n_override`` summed. Returns
+    ``houv_solve_rescored``'s dict for the whole batch."""
+    if pools is None:
+        rows, pools = sharded_houv_pools(src, tgt, mesh, cfg, params0,
+                                         generator, axis)
+    else:
+        rows = rank_rows(src.shape[0], mesh, axis)
+    dev = mesh.device
+    out = houv_solve_rescored(src[rows].to(dev), tgt[rows].to(dev), cfg,
+                              getattr(scorer, "local", scorer), n_cand,
+                              angle_deg, margin, device=dev, pools=pools)
+    for key, value in out.items():
+        out[key] = (all_gather_rows(value, mesh, axis)
+                    if torch.is_tensor(value) else sum_int(value, mesh, axis))
+    return out
 
 
 def houv_solve_rescored(src: torch.Tensor, tgt: torch.Tensor,

@@ -20,6 +20,11 @@ its batches' randomness (the triplets' partners, the candidate transforms)
 from a generator seeded by the trainer's seed, so that two validations of
 one model give the same meters (the JAX package draws them unseeded).
 
+Data-parallel over a mesh, as ``train/harness.py`` says: a view's draws
+(the triplets' partners, the candidate transforms) are made for the
+global batch, which every rank builds, and each rank takes its rows; the
+occupancy loss's and meters' ratios of sums run over the global batch.
+
 The occupancy targets (``_voxel_targets``) count and sum each voxel's
 complete-cloud points through K4 (``ops/scatter.py:scatter_add``), which
 adds each row in ascending point order: the same targets on the card and
@@ -38,6 +43,7 @@ from houv_tpu_torch.data.mvp import random_pose_np
 from houv_tpu_torch.data.pipeline import batch_iterator
 from houv_tpu_torch.models.alignment import (alignment_bce_loss,
                                              make_aligned_pairs)
+from houv_tpu_torch.models.common import batch_sum
 from houv_tpu_torch.models.embedding import triplet_loss
 from houv_tpu_torch.ops.scatter import scatter_add
 from houv_tpu_torch.train.harness import _Trainer
@@ -176,15 +182,17 @@ class _AuxTrainer(_Trainer):
         seed; a tracked meter that rose writes
         ``best_<meter>_network.ckpt``."""
         bs = self.cfg.batch_size
+        width = self.mesh.size
         meters = {m: AverageValueMeter() for m in self._meters}
         n_batches = 0
         for batch in batch_iterator(self.wrap_dataset(val_ds), bs,
                                     drop_last=True, seed=self.seed):
             with torch.inference_mode():
-                out = self._batch_metrics(batch)
+                out = self._batch_metrics(self._local(batch))
             for m, meter in meters.items():
-                meter.update(float(out[m]), bs)
+                meter.update(float(out[m]), bs // width)
             n_batches += 1
+        self._reduce_meters(meters.values())
         self._keep_best(meters, epoch, n_batches)
         return {m: v.avg for m, v in meters.items()}
 
@@ -275,8 +283,15 @@ class VoxelOccupancyTrainer(_AuxTrainer):
     def _vox_loss(self, batch: dict, train: bool):
         """(loss, meters) of one batch: the masked occupancy CE plus the
         position MSE over the occupied valid voxels; the IoU of the
-        predicted occupancy (probability > 0.5) over the valid voxels."""
+        predicted occupancy (probability > 0.5) over the valid voxels.
+        Each sum is the global batch's (``batch_sum`` over the mesh), so
+        every rank's loss and meters are the global batch's."""
         g = self.model.grid_size
+        group = self.mesh.group()
+
+        def total(x):
+            return batch_sum(x, group)
+
         probs, pos, vox_coords, mask = self.model(
             self._tensor(batch, "partial"),
             self._tensor(batch, "coords").long(), train)
@@ -289,13 +304,13 @@ class VoxelOccupancyTrainer(_AuxTrainer):
         m = mask.float()
         logp = torch.log(probs.clamp_min(1e-9))
         ce = -(occ_t * logp[..., 1] + (1 - occ_t) * logp[..., 0])
-        ce = (ce * m).sum() / m.sum().clamp_min(1.0)
+        ce = total(ce * m) / total(m).clamp_min(1.0)
         pos_m = m * occ_t
-        pos_mse = (((pos - pos_t) ** 2).sum(-1) * pos_m).sum() \
-            / pos_m.sum().clamp_min(1.0)
+        pos_mse = total(((pos - pos_t) ** 2).sum(-1) * pos_m) \
+            / total(pos_m).clamp_min(1.0)
         pred = (probs[..., 1] > 0.5).float()
-        inter = (pred * occ_t * m).sum()
-        union = (torch.maximum(pred, occ_t) * m).sum()
+        inter = total(pred * occ_t * m)
+        union = total(torch.maximum(pred, occ_t) * m)
         return ce + pos_mse, {"ce": ce, "pos_mse": pos_mse,
                               "iou": inter / union.clamp_min(1.0)}
 

@@ -8,7 +8,8 @@ A checkpoint of the port is a ``torch.save`` of ``{"model": state_dict,
 (no ``msgpack`` package); ``houv_tpu_torch.state.state_from_flax`` maps
 that tree onto a model of the port. ``load_checkpoint`` takes either, told
 apart by the file's content: ``torch.save`` writes a zip archive, flax a
-msgpack map.
+msgpack map. In a job of several ranks (a ``parallel.mesh.Mesh``), rank 0
+writes and every rank reads.
 """
 
 from __future__ import annotations
@@ -20,11 +21,20 @@ import zipfile
 
 import numpy as np
 import torch
+import torch.distributed
 
 
 def save_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None,
-                    epoch: int = 0) -> str:
+                    epoch: int = 0, mesh=None) -> str:
+    """Write ``path`` (through a temporary file). With a ``mesh`` of
+    several ranks only rank 0 writes, and every rank returns once the file
+    is there."""
+    if mesh is not None and mesh.size > 1:
+        if mesh.rank == 0:
+            save_checkpoint(path, model, optimizer, epoch)
+        torch.distributed.barrier()
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     state = {"model": model.state_dict(), "epoch": int(epoch)}
     if optimizer is not None:

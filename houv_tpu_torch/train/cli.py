@@ -1,5 +1,5 @@
-"""Command-line entries (counterpart of ``houv_tpu/train/cli.py`` on one
-device): the test sweep (HOUV or learned registration; PCN, ECG, VRCNet,
+"""Command-line entries (counterpart of ``houv_tpu/train/cli.py``): the
+test sweep (HOUV or learned registration; PCN, ECG, VRCNet,
 vrcnet_knn or transformer completion), the merge of a sharded sweep, the
 training of a completion, learned registration or aux model, the aux
 models' evaluation and the evaluation of the registration solvers.
@@ -39,6 +39,19 @@ classical solvers (``icp``, ``goicp``, ``goicp_bnb``, ``fgr``)
 ``alignment_spconv``, ``voxel_asym``) write no submission: their "test" is
 their validation meters on the val split. When the MVP or ModelNet .h5
 file is absent, a synthetic split stands in.
+
+Several ranks: ``n_devices`` in the yaml (every visible card when unset;
+one process on the CPU) starts that many ranks (``parallel.distributed.
+launch``: NCCL on CUDA, gloo with ``--device cpu``), or ``torchrun
+--nproc_per_node N -m houv_tpu_torch.train.cli ...`` starts them. The HOUV
+sweep, ``houv_eval_main`` and the rescored solve then split each batch's
+pairs over the ranks (``parallel/mesh.py``), the model sweeps and the
+aux models' meters each batch's rows, and training is data-parallel
+(``train/harness.py``); rank 0 writes results.h5, the zip and the
+checkpoints. A ``batch_size`` that ``n_devices`` does not divide, and
+``n_devices`` above the visible cards, raise ValueError (the JAX CLI
+trains on one device, or takes the first n, instead). The classical
+solvers' evaluation runs in one process, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -46,12 +59,14 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import logging
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from houv_tpu_torch._device import resolve_device
 from houv_tpu_torch.data.mvp import (
@@ -72,19 +87,21 @@ from houv_tpu_torch.models import get_model
 from houv_tpu_torch.ops.chamfer import chamfer_indices
 from houv_tpu_torch.ops.grouping import knn_indices
 from houv_tpu_torch.ops.sampling import furthest_point_sample
+from houv_tpu_torch.parallel.distributed import init_distributed, launch
+from houv_tpu_torch.parallel.mesh import (all_reduce, barrier, local_mesh,
+                                          make_mesh, sharded_houv_pools,
+                                          sharded_houv_solve, sum_int)
 from houv_tpu_torch.solvers.fgr import fgr_solve
 from houv_tpu_torch.solvers.goicp_bnb import goicp_bnb_solve
 from houv_tpu_torch.solvers.houv import (
     HOUVConfig,
     evaluate_solution,
-    houv_solve,
     init_params,
 )
 from houv_tpu_torch.solvers.icp import goicp_solve, icp_solve
 from houv_tpu_torch.solvers.rescore import (
-    houv_candidate_pools,
-    houv_solve_rescored,
-    make_classifier_scorer,
+    make_sharded_classifier_scorer,
+    sharded_houv_solve_rescored,
 )
 from houv_tpu_torch.state import state_from_flax
 from houv_tpu_torch.train.aux import AUX_TRAINERS
@@ -110,15 +127,60 @@ def is_registration(cfg: Config) -> bool:
     return cfg.model_name in REGISTRATION_MODELS or cfg.dataset.endswith("rg")
 
 
-def make_trainer(cfg: Config, device):
+def make_trainer(cfg: Config, device, mesh=None):
     """The trainer of the config's model: an aux model's of
     ``train/aux.py``, ``RegistrationTrainer`` for a learned registration
-    model, else ``CompletionTrainer``."""
+    model, else ``CompletionTrainer``; over ``mesh`` (the job's, from
+    ``job_mesh``; ``local_mesh`` when None), data-parallel where it has
+    several ranks."""
     if cfg.model_name in AUX_TRAINERS:
-        return AUX_TRAINERS[cfg.model_name](cfg, device)
+        return AUX_TRAINERS[cfg.model_name](cfg, device, mesh)
     if cfg.model_name in LEARNED_REGISTRATION:
-        return RegistrationTrainer(cfg, device)
-    return CompletionTrainer(cfg, device)
+        return RegistrationTrainer(cfg, device, mesh)
+    return CompletionTrainer(cfg, device, mesh)
+
+
+def job_mesh(cfg: Config, device):
+    """How an entry runs: ``(mesh, 0)`` to run here, on the job's mesh (a
+    process group set up, as ``launch`` does, or torchrun's ``WORLD_SIZE``
+    in the environment) or on ``local_mesh`` for one process; ``(None, n)``
+    where ``n`` > 1 ranks are still to start (``n_devices``, or every
+    visible card when unset; one process on the CPU). ValueError where
+    ``batch_size`` is not divisible by the ranks, where ``n_devices``
+    exceeds the visible cards or differs from the job's size."""
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        mesh = make_mesh(device=init_distributed(device=device))
+        n = mesh.size
+        if cfg.n_devices and cfg.n_devices != n:
+            raise ValueError(f"n_devices {cfg.n_devices} in a job of {n} "
+                             "ranks")
+    else:
+        cards = torch.cuda.device_count() if device.type == "cuda" else None
+        n = cfg.n_devices or cards or 1
+        if cards is not None and n > cards:
+            raise ValueError(f"n_devices {n} exceeds the {cards} visible "
+                             "cards")
+        mesh = local_mesh(device) if n == 1 else None
+    if cfg.batch_size % n:
+        raise ValueError(f"batch_size {cfg.batch_size} is not divisible by "
+                         f"n_devices {n}")
+    return mesh, (0 if mesh is not None else n)
+
+
+def _rank_entry(entry, argv: list):
+    """A launched rank's run of ``test_main`` or ``train_main``: its result
+    without the trainer (rank 0's goes back to the launching process)."""
+    return {k: v for k, v in entry(argv).items() if k != "trainer"}
+
+
+def _rank_logging(log_dir, mesh):
+    """``setup_logging``: rank 0 logs (to ``log_dir`` too), the other ranks
+    their warnings only."""
+    if mesh.rank == 0:
+        return setup_logging(log_dir)
+    log = setup_logging(None)
+    log.setLevel(logging.WARNING)
+    return log
 
 
 def build_dataset(cfg: Config, split: str, index_range=None):
@@ -183,12 +245,13 @@ def solver_config(cfg: Config) -> HOUVConfig:
     )
 
 
-def make_rescorer(cfg: Config, log, device):
+def make_rescorer(cfg: Config, log, device, mesh=None):
     """The classifier scorer of ``cfg.rescore_ckpt``, or None. A missing
     file logs a warning and the solve goes without rescoring, as in the JAX
     CLI; a file that is there but does not load raises. The classifier is
     built in bf16 mode, as the JAX CLI builds it; a checkpoint holding a
-    third ``Dense`` has the loss-gap head, which is then fed."""
+    third ``Dense`` has the loss-gap head, which is then fed. The scorer
+    is the sharded one over ``mesh`` (``local_mesh`` when None)."""
     if not cfg.rescore_ckpt:
         return None
     if not os.path.exists(cfg.rescore_ckpt):
@@ -204,8 +267,9 @@ def make_rescorer(cfg: Config, log, device):
     log.info("rescoring: ckpt=%s n_cand=%d angle=%.1f margin=%.2f "
              "gap_head=%s tta=%d", cfg.rescore_ckpt, cfg.rescore_cands,
              cfg.rescore_angle, cfg.rescore_margin, has_gap, cfg.rescore_tta)
-    return make_classifier_scorer(model, micro_batch=16,
-                                  n_aug=cfg.rescore_tta, use_gap=has_gap)
+    return make_sharded_classifier_scorer(
+        model, mesh or local_mesh(device), micro_batch=16,
+        n_aug=cfg.rescore_tta, use_gap=has_gap)
 
 
 def _pair_generator(cfg: Config, start: int) -> torch.Generator:
@@ -219,24 +283,23 @@ def _pair_generator(cfg: Config, start: int) -> torch.Generator:
 
 
 def _solve_batch(cfg: Config, scfg: HOUVConfig, src, tgt, start, scorer,
-                 device, timing: dict) -> dict:
-    """One batch of pairs through ``houv_solve``, or with a scorer through
-    the candidate pools and ``houv_solve_rescored`` (their seconds added to
-    ``timing``, each ending in a device sync)."""
+                 mesh, timing: dict) -> dict:
+    """One batch of pairs, split over ``mesh``'s ranks, through
+    ``sharded_houv_solve``, or with a scorer through the candidate pools
+    and ``sharded_houv_solve_rescored`` (their seconds added to
+    ``timing``, each ending in a device sync): each pair solved as
+    ``houv_solve`` or ``houv_solve_rescored`` solves it in one process."""
     params0 = init_params(_pair_generator(cfg, start), src.shape[0],
-                          scfg.kernel, scfg.lattice_init, device=device)
+                          scfg.kernel, scfg.lattice_init, device="cpu")
     if scorer is None:
-        return houv_solve(src, tgt, scfg, params0=params0, device=device)
+        return sharded_houv_solve(src, tgt, mesh, scfg, params0=params0)
     t0 = time.perf_counter()
-    pools = houv_candidate_pools(src, tgt, scfg, params0=params0,
-                                 device=device)
+    pools = sharded_houv_pools(src, tgt, mesh, scfg, params0)[1]
     pools[0].cpu()
     t1 = time.perf_counter()
-    out = houv_solve_rescored(src, tgt, scfg, scorer,
-                              n_cand=cfg.rescore_cands,
-                              angle_deg=cfg.rescore_angle,
-                              margin=cfg.rescore_margin, device=device,
-                              pools=pools)
+    out = sharded_houv_solve_rescored(
+        src, tgt, mesh, scfg, scorer, n_cand=cfg.rescore_cands,
+        angle_deg=cfg.rescore_angle, margin=cfg.rescore_margin, pools=pools)
     out["pick"].cpu()
     timing["pool_seconds"] = timing.get("pool_seconds", 0.0) + t1 - t0
     timing["score_seconds"] = (timing.get("score_seconds", 0.0)
@@ -247,13 +310,15 @@ def _solve_batch(cfg: Config, scfg: HOUVConfig, src, tgt, start, scorer,
 _DIAGNOSTICS = ("cand_loss", "cand_logits", "cand_r", "cand_t", "pick")
 
 
-def _houv_sweep(cfg: Config, ds, device, log, offset: int = 0):
+def _houv_sweep(cfg: Config, ds, log, mesh, offset: int = 0):
     """Solve the registration split batch by batch: (N, 4, 4) transforms
     and, for the log, the pairs that entered the retry passes; rescored,
     also the pairs whose pick the classifier overrode, the seconds of the
     pools and of the scoring, and the rescoring's per-pair diagnostics
     (``rescore``: candidates, their losses and logits, the picks).
-    ``offset``: the index of ``ds``'s first pair in the whole split."""
+    ``offset``: the index of ``ds``'s first pair in the whole split. Each
+    batch's pairs split over ``mesh``'s ranks, and every rank gets the
+    whole batch's results."""
     if cfg.model_name in CLASSICAL_MODELS:
         raise NotImplementedError(
             f"{cfg.model_name!r} has no test sweep, as in the JAX package: "
@@ -263,7 +328,8 @@ def _houv_sweep(cfg: Config, ds, device, log, offset: int = 0):
             f"the registration sweep runs houv, dcp, deepgmr and idam, got "
             f"{cfg.model_name!r}")
     scfg = solver_config(cfg)
-    scorer = make_rescorer(cfg, log, device)
+    device = mesh.device
+    scorer = make_rescorer(cfg, log, device, mesh)
     # Pairs go in batches of batch_size (the restart expansion makes a
     # pair kernel·N points); the tail batch is padded by repetition so
     # every batch shares one Adam scale, as in the JAX CLI.
@@ -280,7 +346,7 @@ def _houv_sweep(cfg: Config, ds, device, log, offset: int = 0):
         src = torch.as_tensor(batch["src"], device=device)
         tgt = torch.as_tensor(batch["tgt"], device=device)
         out = _solve_batch(cfg, scfg, src, tgt, offset + start, scorer,
-                           device, timing)
+                           mesh, timing)
         chunks.append(out["transform"][: len(idx)].cpu().numpy())
         n_retry += out["n_retry"]
         if scorer is not None:
@@ -293,29 +359,38 @@ def _houv_sweep(cfg: Config, ds, device, log, offset: int = 0):
     counts = {"n_pairs": n, "n_retry": n_retry, "seconds": seconds}
     if scorer is not None:
         log.info("rescoring overrode %d of %d picks", n_override, n)
+        calls = sum_int(scorer.local.calls, mesh)
+        dropped = int(all_reduce(
+            torch.tensor([scorer.local.sites_dropped], device=device), mesh,
+            op=dist.ReduceOp.MAX))
         counts.update(timing, n_override=n_override,
-                      classifier_calls=scorer.calls,
-                      sites_dropped=scorer.sites_dropped,
+                      classifier_calls=calls, sites_dropped=dropped,
                       rescore={k: np.concatenate(v, 0)
                                for k, v in diagnostics.items()})
     return np.concatenate(chunks, axis=0), counts
 
 
-def houv_eval_main(cfg: Config, log, device) -> dict:
+def houv_eval_main(cfg: Config, log, mesh) -> dict:
     """The solver's evaluation on the labelled val split (reference
     registration/train_HOUV.py:40-131): RotE, transE, MSE (the reference's
     alias of RMSE), RMSE, recall (RMSE < 0.1) and GeoE (geodesic rotation
     error plus translation error), averaged over the pairs, and under
     ``buckets`` the same per (rot_level, match_level) with each bucket's
     pair count. Whole batches only, at most ``batch_size`` pairs each;
-    with ``rescore_ckpt`` the solves are rescored."""
+    with ``rescore_ckpt`` the solves are rescored. Each batch's pairs
+    split over ``mesh``'s ranks (a batch cut to the split rounded down to
+    a multiple of the ranks, as in the JAX CLI)."""
+    device = mesh.device
     ds = build_dataset(cfg, "val")
     scfg = solver_config(cfg)
     metric_names = ("RotE", "transE", "MSE", "RMSE", "recall", "GeoE")
     meters = {m: AverageValueMeter() for m in metric_names}
     grid = SplitMeterGrid(metrics=metric_names)
-    bs = max(min(cfg.batch_size, len(ds)), 1)
-    scorer = make_rescorer(cfg, log, device)
+    width = mesh.size
+    if len(ds) < width:
+        raise ValueError(f"val split of {len(ds)} pairs < {width} ranks")
+    bs = max(min(cfg.batch_size, len(ds)) // width * width, width)
+    scorer = make_rescorer(cfg, log, device, mesh)
     timing: dict = {}
     n_done = n_retry = 0
     t0 = time.perf_counter()
@@ -323,7 +398,7 @@ def houv_eval_main(cfg: Config, log, device) -> dict:
         batch = ds.get_batch(np.arange(start, start + bs))
         src = torch.as_tensor(batch["src"], device=device)
         tgt = torch.as_tensor(batch["tgt"], device=device)
-        out = _solve_batch(cfg, scfg, src, tgt, start, scorer, device, timing)
+        out = _solve_batch(cfg, scfg, src, tgt, start, scorer, mesh, timing)
         tf = out["transform"]
         t_gt = torch.as_tensor(batch["transform"], device=device).float()
         r_err, t_err = evaluate_solution(tf, t_gt)
@@ -436,13 +511,14 @@ def icp_eval_main(cfg: Config, log, device) -> dict:
     return rec
 
 
-def _model_sweep(cfg: Config, ds, device):
+def _model_sweep(cfg: Config, ds, mesh):
     """The test split batch by batch through the config's trained model
     (``load_model``'s weights, else the seeded initialisation): its
     predictions, the seconds of all batches and of the first alone (its
     allocations and kernel set-up). The tail batch is padded by repetition
-    (``pad_last``), so every batch has one shape."""
-    trainer = make_trainer(cfg, device)
+    (``pad_last``), so every batch has one shape; each batch's rows split
+    over ``mesh``'s ranks."""
+    trainer = make_trainer(cfg, mesh.device, mesh)
     trainer.init_state()
     outs = []
     t0 = time.perf_counter()
@@ -458,21 +534,21 @@ def _model_sweep(cfg: Config, ds, device):
     return np.concatenate(outs, axis=0), seconds, first
 
 
-def _completion_sweep(cfg: Config, ds, device, log):
+def _completion_sweep(cfg: Config, ds, log, mesh):
     """Complete the test split with the config's model: (N, points, 3),
     the model's output cloud (num_points; vrcnet_knn's num_coarse +
     num_points), and the seconds of all batches and of the first alone."""
-    results, seconds, first = _model_sweep(cfg, ds, device)
+    results, seconds, first = _model_sweep(cfg, ds, mesh)
     log.info("completed %d clouds, %.2f s", len(ds), seconds)
     return results, {"n_clouds": len(ds), "seconds": seconds,
                      "first_batch_seconds": first}
 
 
-def _learned_registration_sweep(cfg: Config, ds, device, log):
+def _learned_registration_sweep(cfg: Config, ds, log, mesh):
     """Register the test split's pairs with the config's learned model
     (dcp, deepgmr or idam): the (N, 4, 4) transforms, and the seconds of
     all batches and of the first alone."""
-    results, seconds, first = _model_sweep(cfg, ds, device)
+    results, seconds, first = _model_sweep(cfg, ds, mesh)
     log.info("registered %d pairs with %s, %.2f s", len(ds), cfg.model_name,
              seconds)
     return results, {"n_pairs": len(ds), "seconds": seconds,
@@ -564,12 +640,12 @@ def _flag(value) -> bool:
     return str(value).strip().lower() not in ("", "0", "false", "no", "off")
 
 
-def aux_eval_main(cfg: Config, log, device) -> dict:
+def aux_eval_main(cfg: Config, log, mesh) -> dict:
     """An aux model's "test": its trainer's validation meters on the val
     split (the reference evaluates these models in their training loops;
     they have no submission), from ``load_model``'s weights or the seeded
     initialisation."""
-    trainer = make_trainer(cfg, device)
+    trainer = make_trainer(cfg, mesh.device, mesh)
     trainer.init_state()
     metrics = trainer.validate(build_dataset(cfg, "val"))
     log.info("aux test metrics: %s", metrics)
@@ -583,7 +659,10 @@ def test_main(argv=None) -> dict:
     ``n_pairs`` and ``first_batch_seconds`` for a learned registration
     model, ``n_clouds`` and ``first_batch_seconds`` for completion. For an
     aux model, ``aux_eval_main``'s meters. With ``--combine``,
-    ``combine_main``'s record."""
+    ``combine_main``'s record. Over several ranks (``job_mesh``) each rank
+    returns the record and rank 0 writes the files; where this call starts
+    the ranks, it returns rank 0's record."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser()
     p.add_argument("-c", "--config", required=True)
     p.add_argument("-l", type=int, default=None)
@@ -603,35 +682,37 @@ def test_main(argv=None) -> dict:
     cfg = load_config(args.config)
     if args.data_path:
         cfg.data_path = args.data_path
-    log = setup_logging(None)
 
     if args.combine:
-        return combine_main(cfg, args.config, device, log, args.data_path)
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError(
-            "multi-device sweeps are not ported yet (ROADMAP.md Queue 1, "
-            "item 13)")
+        return combine_main(cfg, args.config, device, setup_logging(None),
+                            args.data_path)
+    mesh, n_ranks = job_mesh(cfg, device)
+    if n_ranks:
+        return launch(_rank_entry, n_ranks, device, args=(test_main, argv))
+    log = _rank_logging(None, mesh)
 
     if cfg.model_name in AUX_TRAINERS:
-        return aux_eval_main(cfg, log, device)
+        return aux_eval_main(cfg, log, mesh)
 
     index_range = (args.l, args.r) if args.l is not None else None
     ds = build_dataset(cfg, "test", index_range=index_range)
     if cfg.model_name in LEARNED_REGISTRATION:
-        results, counts = _learned_registration_sweep(cfg, ds, device, log)
+        results, counts = _learned_registration_sweep(cfg, ds, log, mesh)
     elif is_registration(cfg):
-        results, counts = _houv_sweep(cfg, ds, device, log,
+        results, counts = _houv_sweep(cfg, ds, log, mesh,
                                       offset=args.l or 0)
     else:
-        results, counts = _completion_sweep(cfg, ds, device, log)
+        results, counts = _completion_sweep(cfg, ds, log, mesh)
 
     suffix = f"_{args.l}_{args.r}" if index_range else ""
     out_dir = os.path.join(cfg.work_dir, cfg.model_name)
-    h5_path = write_results_h5(
-        os.path.join(out_dir, f"results{suffix}.h5"), results)
-    zip_path = write_submission(
-        os.path.join(out_dir, f"submission{suffix}.zip"), h5_path)
-    log.info("wrote %s and %s", h5_path, zip_path)
+    h5_path = os.path.join(out_dir, f"results{suffix}.h5")
+    zip_path = os.path.join(out_dir, f"submission{suffix}.zip")
+    if mesh.rank == 0:
+        write_results_h5(h5_path, results)
+        write_submission(zip_path, h5_path)
+        log.info("wrote %s and %s", h5_path, zip_path)
+    barrier(mesh)
     return {"results_h5": h5_path, "submission": zip_path, **counts}
 
 
@@ -642,7 +723,11 @@ def train_main(argv=None) -> dict:
     Returns the trainer, its log directory, the checkpoint ``fit`` wrote
     last, the per-step losses and the wall seconds of ``fit`` (set-up
     excluded). For ``model_name: houv`` returns ``houv_eval_main``'s
-    meters, for the classical solvers ``icp_eval_main``'s."""
+    meters, for the classical solvers ``icp_eval_main``'s (in one process,
+    whatever ``n_devices`` says). Over several ranks (``job_mesh``) training
+    is data-parallel and rank 0 writes the checkpoints; where this call
+    starts the ranks, it returns rank 0's record without the trainer."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(prog="houv_tpu_torch.train.cli train")
     p.add_argument("-c", "--config", required=True)
     p.add_argument("--data-path", default=None,
@@ -656,14 +741,17 @@ def train_main(argv=None) -> dict:
     cfg = load_config(args.config)
     if args.data_path:
         cfg.data_path = args.data_path
-    if cfg.model_name == "houv":
-        # the reference's train_HOUV.py: nothing to train, the solver's
-        # evaluation on the labelled split
-        log = setup_logging(os.path.join(cfg.work_dir, "houv"))
-        return houv_eval_main(cfg, log, device)
     if cfg.model_name in CLASSICAL_MODELS:
         log = setup_logging(os.path.join(cfg.work_dir, cfg.model_name))
         return icp_eval_main(cfg, log, device)
+    mesh, n_ranks = job_mesh(cfg, device)
+    if n_ranks:
+        return launch(_rank_entry, n_ranks, device, args=(train_main, argv))
+    if cfg.model_name == "houv":
+        # the reference's train_HOUV.py: nothing to train, the solver's
+        # evaluation on the labelled split
+        log = _rank_logging(os.path.join(cfg.work_dir, "houv"), mesh)
+        return houv_eval_main(cfg, log, mesh)
     if is_registration(cfg) and cfg.model_name not in (
             LEARNED_REGISTRATION | AUX_MODELS):
         raise ValueError(f"{cfg.model_name!r} does not train on the "
@@ -672,12 +760,8 @@ def train_main(argv=None) -> dict:
         raise NotImplementedError(
             "use_native_loader (the C++ prefetching loader) is not ported "
             "yet (ROADMAP.md Queue 1, item 14)")
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP.md Queue 1, "
-            "item 13)")
-    trainer = make_trainer(cfg, device)
-    log = setup_logging(trainer.log_dir)
+    trainer = make_trainer(cfg, mesh.device, mesh)
+    log = _rank_logging(trainer.log_dir, mesh)
     log.info("config: %s", cfg)
     train_ds = build_dataset(cfg, "train")
     val_ds = build_dataset(cfg, "val")

@@ -18,6 +18,17 @@ Randomness is seeded per step: the latent noise of test or val batch i comes
 from a ``torch.Generator`` seeded by (0, i), as the JAX harness folds the
 batch index into ``PRNGKey(0)``; the noise, dropout masks and sampled
 points of train step s from one seeded by (manual_seed, s).
+
+A trainer runs over a ``mesh`` (``parallel.mesh.Mesh``; without one, over
+``local_mesh``, the process alone). Over several ranks it is
+data-parallel, as the JAX trainer is under a mesh: every rank builds the
+same seeded splits and iterators and takes its rows of each global batch;
+the step's draws are the global batch's, sliced (``models.common.RowShard``);
+BatchNorm normalises by the global batch's statistics; the gradients are
+averaged over the ranks before the optimizer's step, so the replicas stay
+equal; validation meters are reduced as sums of value·count, so every rank
+keeps the same best checkpoints; ``predict_batch`` returns the whole
+batch's predictions on every rank; rank 0 writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -32,7 +43,11 @@ import torch
 from houv_tpu_torch._device import resolve_device
 from houv_tpu_torch.data.pipeline import batch_iterator
 from houv_tpu_torch.models import MODELS, get_model
-from houv_tpu_torch.models.common import init_like_flax
+from houv_tpu_torch.models.common import (RowShard, init_like_flax,
+                                          set_batch_group)
+from houv_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce,
+                                          average_gradients, local_mesh,
+                                          replicate, shard_batch)
 from houv_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from houv_tpu_torch.train.config import Config
 from houv_tpu_torch.train.schedules import alpha_schedule, lr_schedule
@@ -146,10 +161,17 @@ class _Trainer:
     _metrics: tuple = ()
     _higher: frozenset = frozenset()
 
-    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda",
+                 mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh or local_mesh(resolve_device(device))
+        self.device = self.mesh.device
+        if cfg.batch_size % self.mesh.size:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} is not divisible by "
+                f"n_devices {self.mesh.size}")
         self.model = model_from_config(cfg)
+        set_batch_group(self.model, self.mesh.group())
         self.optimizer = _make_optimizer(cfg, self.model.parameters())
         self.seed = cfg.manual_seed or 2021
         self.epoch = 0
@@ -160,10 +182,32 @@ class _Trainer:
 
     def _rng(self, generator: torch.Generator) -> dict:
         """The model call's ``generator`` argument, for a model that draws
-        random numbers."""
-        if self.cfg.model_name in _MODEL_RNGS:
-            return {"generator": generator}
-        return {}
+        random numbers: the global batch's draws sliced to this rank's
+        rows."""
+        if self.cfg.model_name not in _MODEL_RNGS:
+            return {}
+        return {"generator": RowShard(generator, self.mesh.index(),
+                                      self.mesh.size)}
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's rows of a global batch."""
+        return shard_batch(batch, self.mesh)
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t``, in rank order."""
+        return all_gather_rows(t, self.mesh)
+
+    def _reduce_meters(self, meters) -> None:
+        """Each meter's sum and count summed over the ranks (one
+        all-reduce, in float64)."""
+        meters = list(meters)
+        if not meters:
+            return
+        t = torch.tensor([[m.sum, m.count] for m in meters],
+                         dtype=torch.float64, device=self.device)
+        t = all_reduce(t, self.mesh).tolist()
+        for m, (total, count) in zip(meters, t):
+            m.sum, m.count = total, int(count)
 
     def init_state(self) -> torch.nn.Module:
         """Seeded flax-like initialisation (``manual_seed``, default 2021),
@@ -176,6 +220,7 @@ class _Trainer:
             self.epoch = load_checkpoint(self.cfg.load_model, self.model,
                                          self.optimizer)
             logger.info("%s's previous weights loaded.", self.cfg.model_name)
+        replicate(self.model, self.mesh)
         return self.model
 
     def save(self, name: str) -> str:
@@ -188,7 +233,8 @@ class _Trainer:
             raise ValueError(
                 f"{path} is the load_model checkpoint; set work_dir or flag "
                 "to save elsewhere")
-        return save_checkpoint(path, self.model, self.optimizer, self.epoch)
+        return save_checkpoint(path, self.model, self.optimizer, self.epoch,
+                               mesh=self.mesh)
 
     def wrap_dataset(self, ds):
         """A split as this trainer's batches need it (the aux trainers'
@@ -202,15 +248,18 @@ class _Trainer:
         """One optimizer step on ``batch`` at the epoch's lr; returns the
         loss (taken before the update). The gradients stay on the
         parameters until the next step; BatchNorm's running statistics
-        move here only."""
+        move here only. ``batch`` is the global batch: the rank takes its
+        rows, the gradients (and the loss returned) are the ranks'
+        mean."""
         lr = lr_schedule(self.cfg, epoch)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._train_loss(batch, epoch, step)
+        loss = self._train_loss(self._local(batch), epoch, step)
         loss.backward()
+        average_gradients(self.model.parameters(), self.mesh)
         self.optimizer.step()
-        return loss.detach()
+        return all_reduce(loss.detach(), self.mesh) / self.mesh.size
 
     def fit_steps(self, loader, n_steps: int, epoch_len: int = 1000,
                   val_ds=None) -> torch.nn.Module:
@@ -282,11 +331,13 @@ class _Trainer:
 
 class CompletionTrainer(_Trainer):
     """Training, validation and inference of a completion model (pcn, ecg,
-    vrcnet, vrcnet_knn, transformer) on one device."""
+    vrcnet, vrcnet_knn, transformer), on one device or data-parallel over a
+    mesh."""
 
     _higher = frozenset({"f1"})
 
-    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda",
+                 mesh=None):
         if cfg.use_gan:
             raise NotImplementedError(
                 "use_gan (the cascade-GAN branch) is not ported yet "
@@ -299,7 +350,7 @@ class CompletionTrainer(_Trainer):
                              "with its trainer of train/aux.py")
         self._metrics = ("cd_p", "cd_t", "f1") + (
             ("emd",) if cfg.eval_emd else ())
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh)
 
     def _inputs(self, batch: dict, epoch: int | None = None) -> dict:
         """The model call's inputs beside the clouds: vrcnet_knn's class
@@ -322,10 +373,12 @@ class CompletionTrainer(_Trainer):
     def predict_batch(self, batch: dict, step: int = 0) -> torch.Tensor:
         """The no-gt test step on one batch: (B, num_points, 3); for
         vrcnet_knn its fine cloud, (B, num_coarse + num_points, 3)."""
+        batch = self._local(batch)
         with torch.inference_mode():
-            return self.model(self._tensor(batch, "partial"), prefix="test",
-                              **self._inputs(batch),
-                              **self._rng(latent_generator(step)))["result"]
+            return self._gather(self.model(
+                self._tensor(batch, "partial"), prefix="test",
+                **self._inputs(batch),
+                **self._rng(latent_generator(step)))["result"])
 
     def validate(self, val_ds, epoch: int = 0) -> dict:
         """Mean cd_p, cd_t, f1 (and emd with ``eval_emd``) over the full
@@ -338,6 +391,7 @@ class CompletionTrainer(_Trainer):
         n_batches = 0
         for i, batch in enumerate(batch_iterator(
                 val_ds, self.cfg.batch_size, drop_last=True)):
+            batch = self._local(batch)
             with torch.inference_mode():
                 out = self.model(self._tensor(batch, "partial"),
                                  self._tensor(batch, "gt"), prefix="val",
@@ -346,13 +400,15 @@ class CompletionTrainer(_Trainer):
             for m, meter in meters.items():
                 meter.update(float(out[m].mean()), len(batch["partial"]))
             n_batches += 1
+        self._reduce_meters(meters.values())
         self._keep_best(meters, epoch, n_batches)
         return {m: v.avg for m, v in meters.items()}
 
 
 class RegistrationTrainer(_Trainer):
     """Training, validation and inference of a learned registration model
-    (dcp, deepgmr, idam) on one device. Its train loss is the model's
+    (dcp, deepgmr, idam), on one device or data-parallel over a mesh. Its
+    train loss is the model's
     ``loss``; validation tracks RotE, transE, MSE (geodesic rotation plus
     translation error), RMSE and recall (RMSE < 0.1) over all pairs and by
     (rot_level, match_level) bucket."""
@@ -360,11 +416,12 @@ class RegistrationTrainer(_Trainer):
     _metrics = ("RotE", "transE", "MSE", "RMSE", "recall")
     _higher = frozenset({"recall"})
 
-    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda",
+                 mesh=None):
         if cfg.model_name not in LEARNED_REGISTRATION:
             raise ValueError(f"{cfg.model_name!r} is not a learned "
                              "registration model (dcp, deepgmr, idam)")
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh)
 
     def _clouds(self, batch: dict):
         return self._tensor(batch, "src"), self._tensor(batch, "tgt")
@@ -378,10 +435,11 @@ class RegistrationTrainer(_Trainer):
     def predict_batch(self, batch: dict, step: int = 0) -> torch.Tensor:
         """The no-gt test step on one batch: the (B, 4, 4) transforms
         aligning each src to its tgt."""
+        batch = self._local(batch)
         with torch.inference_mode():
-            return self.model(*self._clouds(batch), None, prefix="test",
-                              train=False,
-                              **self._rng(latent_generator(step)))
+            return self._gather(self.model(
+                *self._clouds(batch), None, prefix="test", train=False,
+                **self._rng(latent_generator(step))))
 
     def validate(self, val_ds, epoch: int = 0,
                  rmse_thresh: float = 0.1) -> dict:
@@ -394,6 +452,7 @@ class RegistrationTrainer(_Trainer):
         n_batches = 0
         for batch in batch_iterator(val_ds, self.cfg.batch_size,
                                     drop_last=True):
+            batch = self._local(batch)
             with torch.inference_mode():
                 out = self.model(*self._clouds(batch),
                                  self._tensor(batch, "transform"),
@@ -408,6 +467,9 @@ class RegistrationTrainer(_Trainer):
             if "rot_level" in batch and "match_level" in batch:
                 grid.update(batch["rot_level"], batch["match_level"], vals)
             n_batches += 1
+        self._reduce_meters(meters.values())
+        self._reduce_meters(m for row in grid.grid for cell in row
+                            for m in cell.values())
         self._keep_best(meters, epoch, n_batches)
         for line in grid.logs():
             logger.info(line)

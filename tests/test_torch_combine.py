@@ -132,11 +132,13 @@ def test_classical_models_have_no_test_sweep(tmp_path):
     path = _classical_yaml(tmp_path, "icp", synthetic_size=2)
     with pytest.raises(NotImplementedError, match="train -c"):
         tcli.test_main(["-c", path, "--device", "cpu"])
-    path = _yaml(tmp_path, "fgr.yaml", model_name="dcp", n_devices=2,
+    # several ranks run the learned models' sweep and training; a batch
+    # they do not divide is refused before any rank starts
+    path = _yaml(tmp_path, "fgr.yaml", model_name="dcp", n_devices=3,
                  synthetic_size=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="not divisible by n_devices 3"):
         tcli.test_main(["-c", path, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="not divisible by n_devices 3"):
         tcli.main(["train", "-c", path, "--device", "cpu"])
 
 

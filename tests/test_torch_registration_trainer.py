@@ -157,7 +157,6 @@ def test_learned_yamls_leave_no_extras(name):
 @pytest.mark.parametrize("body,match", [
     ("model_name: model_embedding\ncompute_dtype: bfloat16\n", "item 11"),
     ("model_name: voxel_asym\ncompute_dtype: bfloat16\n", "item 11"),
-    ("model_name: dcp\ndataset: modelnet\nn_devices: 2\n", "item 13"),
     ("model_name: dcp\ndataset: mvp_rg\nuse_native_loader: true\n",
      "item 14"),
     ("model_name: transformer\ndataset: mvp_cp\ncompute_dtype: bfloat16\n",
