@@ -130,7 +130,16 @@ failed check exits non-zero:
    (DCP, 1024 points, batch 32) through ``train_main`` and the sweep over
    64 pairs, variants clean and noisy, K6 held to 2 a forward; the SHA-256
    of every checkpoint under ``log/`` unchanged by the phase; then
-   torch.distributed (``phase_parallel``): NCCL over every visible card
+   ``compute_dtype: bfloat16`` (``phase_bf16``) for pcn, ecg, vrcnet, the
+   transformer (from its trained checkpoint), dcp, deepgmr, idam, the
+   instance embedding and VoxAsym at their yamls' full width:
+   ``train_main`` (64 train and 64 val items, two epochs), ``test_main``
+   with its checkpoint, 10 bf16 steps on one batch (the loss must fall,
+   launches as in f32) beside 10 f32 steps on the same batch (steps/s,
+   peak memory), ECG's bf16 kNN picks held to the plain version index for
+   index, and each model at the parity tests' size on the card against
+   the CPU path within 5e-3 (the CPU run's picks handed to the card's);
+   then torch.distributed (``phase_parallel``): NCCL over every visible card
    (at most 4; world size 1 on a one-card machine, where the mesh still
    holds the world group, so the collectives run through NCCL) with its
    all_reduce, broadcast and exact row gather (``dist.all_gather``) and
@@ -145,8 +154,8 @@ failed check exits non-zero:
    batch under ``DDP_GRAD_BOUND``, which a planted fault, one process on
    rank 0's rows alone, must exceed; VRCNet's gradient against the ranks'
    work redone in one process, DeepGMR's running statistics after a step:
-   the global batch's BatchNorm); the CLI on the visible cards, and its refusal of
-   one more; pairs/s, steps/s and each rank's peak memory beside one
+   the global batch's BatchNorm); the CLI on the visible cards, and on
+   one more, which takes the cards there are (rows bit-equal); pairs/s, steps/s and each rank's peak memory beside one
    process's (every other phase runs in this one process: the script sets
    torchrun's ``WORLD_SIZE=1`` for them);
 6. short ``houv_solve`` runs of ``cfgs/houv.yaml`` (4 pairs, 100 steps):
@@ -2078,8 +2087,8 @@ def phase_parallel(refs, rescore_ref):
        bit-equal to one process; DDP steps of vrcnet.yaml and deepgmr.yaml
        (batch 32, 16 a rank, 3 steps) against one process on the global
        batch;
-    3. the CLI: ``n_devices`` the visible cards runs; one more raises the
-       ValueError.
+    3. the CLI: ``n_devices`` the visible cards runs; one more takes the
+       cards there are, its rows bit-equal.
     Returns the launches of each run, for the ``kernels`` line."""
     t_phase = time.perf_counter()
     one_process = os.environ.pop("WORLD_SIZE", None)
@@ -2206,27 +2215,33 @@ def _phase_parallel(refs, rescore_ref, t_phase):
                     and np.isfinite(rec["losses_ddp"]).all()):
                 fail(f"parallel: DDP {model} outside its bounds: {rec}")
 
-        # 3. the CLI over the visible cards; one more raises
+        # 3. the CLI over the visible cards; one more takes the cards there
+        # are (as the JAX package takes the first n devices), its rows
+        # bit-equal
+        from houv_tpu_torch.train.submission import read_results_h5
+
         raw = yaml.safe_load(paths["houv_fast.yaml"].read_text())
         raw.update(synthetic_size=16, batch_size=16 // world * world,
                    n_devices=world)
         cli_path = workdir / "houv_fast_cli.yaml"
         cli_path.write_text(yaml.safe_dump(raw))
         out = test_main(["-c", str(cli_path)])
+        rows = read_results_h5(out["results_h5"])
         raw["n_devices"] = cards + 1
         cli_path.write_text(yaml.safe_dump(raw))
-        try:
-            test_main(["-c", str(cli_path)])
-            refused = None
-        except ValueError as err:
-            refused = str(err)
+        more = test_main(["-c", str(cli_path)])
         rec = {"phase": "parallel_cli", "n_devices": world,
                "pairs": out["n_pairs"], "n_retry": out["n_retry"],
-               "n_devices_refused": cards + 1, "refusal": refused}
+               "n_devices_above_the_cards": cards + 1,
+               "pairs_above": more["n_pairs"],
+               "n_retry_above": more["n_retry"],
+               "rows_bit_equal": _bits_equal(
+                   rows, read_results_h5(more["results_h5"]))}
         emit(rec)
         checks.append(rec)
-        if refused is None or "visible cards" not in refused:
-            fail(f"parallel: n_devices {cards + 1} on {cards} cards ran")
+        if not (rec["rows_bit_equal"] and more["n_pairs"] == out["n_pairs"]
+                and more["n_retry"] == out["n_retry"]):
+            fail(f"parallel: n_devices {cards + 1} on {cards} cards: {rec}")
     rec = {"phase": "parallel_summary", "card": card_line(),
            "checks": len(checks), "gloo_job_s": job_s,
            "phase_s": time.perf_counter() - t_phase}
@@ -3916,6 +3931,306 @@ def phase_aux():
     return out
 
 
+# The nine models whose bf16 mode the port gained with [11a]: (yaml, model)
+BF16_RUNS = (("pcn.yaml", "pcn"), ("ecg.yaml", "ecg"),
+             ("vrcnet.yaml", "vrcnet"), ("transformer.yaml", "transformer"),
+             ("dcp.yaml", "dcp"), ("deepgmr.yaml", "deepgmr"),
+             ("idam.yaml", "idam"), ("embedding.yaml", "model_embedding"),
+             ("spconv.yaml", "voxel_asym"))
+# launches a bf16 train step: the f32 path's (``LAUNCHES``); the embedding
+# runs no kernel, VoxAsym one K4 (its voxel targets)
+BF16_STEP_LAUNCHES = {**{m: LAUNCHES[m]["train"] for m in (
+    "pcn", "ecg", "vrcnet", "transformer", "dcp", "deepgmr", "idam")},
+    "model_embedding": {}, "voxel_asym": {"scatter_add": 1}}
+# the parity tests' sizes (tests/test_torch_bf16_*.py) and what each test
+# holds: the output, or the intermediate its docstring names
+BF16_SMALL = {
+    "pcn": dict(num_points=128, num_coarse=64),
+    "ecg": dict(num_points=128, num_coarse=64, num_input=128),
+    "vrcnet": dict(num_points=512, num_coarse_raw=128, num_fps=256,
+                   num_coarse=256, layers=(1, 1, 1, 1), knn_list=(4, 8),
+                   pk=8, n_input=256),
+    "transformer": dict(num_points=128, num_latent=64),
+    "dcp": dict(emb_dims=32), "deepgmr": dict(rri_size=8),
+    "idam": dict(descriptor_size=16),
+    "model_embedding": dict(use_attention=True),
+    "voxel_asym": dict(grid_size=12, embedding_dim=16, init_size=8)}
+BF16_BOUND = 5e-3
+
+
+def _bf16_cfg(tmp, yaml_name, compute_dtype="bfloat16", **extra):
+    """A temp copy of cfgs/<yaml_name> in ``compute_dtype``, ``extra``
+    overriding its keys."""
+    with open(REPO / "cfgs" / yaml_name) as f:
+        raw = yaml.safe_load(f)
+    raw.update(work_dir=str(Path(tmp) / "work"), compute_dtype=compute_dtype,
+               **extra)
+    path = Path(tmp) / f"{yaml_name[:-5]}_{len(os.listdir(tmp))}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
+
+
+def _timed_steps(trainer, batch, n_steps):
+    """``n_steps`` train steps on one batch (step 0's draws each time), the
+    first outside the clock: losses, steps/s, peak memory (GiB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(trainer.train_step(batch, 0, 0))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1, n_steps):
+        losses.append(float(trainer.train_step(batch, 0, 0)))
+    torch.cuda.synchronize()
+    return (losses, (n_steps - 1) / (time.perf_counter() - t0),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _profiled_step(trainer, batch):
+    """torch.profiler over one more train step: its wall and device
+    milliseconds, device busy share, device ops and five largest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, 0, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    top = _profile_top(prof, wall_ms)
+    return {k: top[k] for k in ("wall_ms", "device_ms", "device_busy_share",
+                                "device_ops")} | {"top": top["top"][:5]}
+
+
+class _KnnHeldToPlain(_Picks):
+    """A ``_Picks`` for ``knn_indices`` that, at each call on the card,
+    also runs the plain version on the same (f32) inputs and counts the
+    slots where the kernel's picks differ from it."""
+
+    def __init__(self):
+        from houv_tpu_torch.ops.grouping import knn_indices
+
+        super().__init__(knn_indices)
+        self.calls, self.differ, self.widths, self.dtypes = 0, 0, [], set()
+
+    def __call__(self, query, ref, k, device="cuda"):
+        from houv_tpu_torch.ops.grouping import _knn_plain
+
+        out = self.fn(query, ref, k, device=device)
+        plain = _knn_plain(query.detach().float().contiguous(),
+                           ref.detach().float().contiguous(), k)
+        self.calls += 1
+        self.differ += int((out != plain).sum())
+        self.widths.append(int(query.shape[-1]))
+        self.dtypes.add(str(query.dtype))
+        return out
+
+
+def _bf16_full_width(tmp, yaml_name, model):
+    """cfgs/<yaml_name> at full width in bf16: ``train_main`` (64 train and
+    64 val items, two epochs; the transformer from its trained checkpoint),
+    ``test_main`` with the checkpoint it wrote (the aux models: their val
+    meters) and 10 steps on one batch (the loss must fall, launches as
+    ``BF16_STEP_LAUNCHES``), then 10 f32 steps on the same batch in the
+    same process: steps/s and peak memory of each, and one profiled step
+    of each (device time, busy share, the largest kernels). For ECG the
+    bf16 step's K6-wide picks (its graphs on bf16 features cast to f32)
+    are held to the plain version index for index."""
+    from houv_tpu_torch.train.cli import (build_dataset, make_trainer,
+                                          test_main, train_main)
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.submission import read_results_h5
+
+    counters = _completion_counters()
+    load = dict(load_model=TRANSFORMER_CKPT) if model == "transformer" \
+        else {}
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    out = train_main(["-c", _bf16_cfg(tmp, yaml_name, nepoch=2,
+                                      synthetic_size=64, **load)])
+    torch.cuda.synchronize()
+    train_launches = _read(counters)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    trainer = out.pop("trainer")
+    bs = trainer.cfg.batch_size
+    del trainer
+    torch.cuda.empty_cache()
+    _zero(counters)
+    res = test_main(["-c", _bf16_cfg(tmp, yaml_name, synthetic_size=64,
+                                     load_model=out["checkpoint"])])
+    test_launches = _read(counters)
+    if "results_h5" in res:
+        results = read_results_h5(res["results_h5"])
+        tested = {"results": list(results.shape),
+                  "finite": bool(np.isfinite(results).all()),
+                  "items_per_s": len(results) / res["seconds"]}
+    else:
+        tested = {"meters": {k: v for k, v in res.items()
+                             if isinstance(v, float)}}
+        tested["finite"] = all(np.isfinite(v)
+                               for v in tested["meters"].values())
+    runs = {}
+    for dt in ("bfloat16", None):
+        cfg = load_config(_bf16_cfg(tmp, yaml_name, compute_dtype=dt,
+                                    synthetic_size=64))
+        trainer = make_trainer(cfg, "cuda")
+        trainer.init_state()
+        batch = trainer.wrap_dataset(build_dataset(cfg, "train")).get_batch(
+            np.arange(cfg.batch_size), rng=np.random.default_rng(0))
+        _zero(counters)
+        losses, rate, peak = _timed_steps(trainer, batch, 10)
+        runs[dt or "float32"] = {"losses": losses, "steps_per_s": rate,
+                                 "items_per_s": rate * cfg.batch_size,
+                                 "peak_memory_gib": peak,
+                                 "launches": _read(counters),
+                                 "profile": _profiled_step(trainer, batch)}
+        if dt and model == "ecg":
+            with _KnnHeldToPlain() as held:
+                trainer.train_step(batch, 0, 0)
+            runs["bfloat16"]["knn_held_to_plain"] = {
+                "calls": held.calls, "differ": held.differ,
+                "widths": held.widths, "dtypes": sorted(held.dtypes)}
+        del trainer, batch
+        torch.cuda.empty_cache()
+    bf, f32 = runs["bfloat16"], runs["float32"]
+    rec = {"phase": "bf16", "config": f"cfgs/{yaml_name}", "model": model,
+           "batch": bs, "train_main": {
+               "steps": len(out["losses"]), "losses": out["losses"],
+               "seconds": out["seconds"], "peak_memory_gib": train_peak,
+               "launches": train_launches,
+               "checkpoint_files": sorted(os.listdir(out["log_dir"]))},
+           "test_main": dict(tested, launches=test_launches),
+           "repeated_bf16": bf, "repeated_f32": f32,
+           "bf16_over_f32_steps_per_s": bf["steps_per_s"]
+           / f32["steps_per_s"],
+           "expected_step_launches": _times(BF16_STEP_LAUNCHES[model], 10)}
+    emit(rec)
+    if not (np.isfinite(out["losses"]).all() and len(out["losses"]) >= 2
+            and tested["finite"] and "network.ckpt"
+            in rec["train_main"]["checkpoint_files"]):
+        fail(f"bf16 {model}: train_main {out['losses']}, test_main "
+             f"{tested}")
+    if not (np.isfinite(bf["losses"]).all()
+            and bf["losses"][-1] < bf["losses"][0]
+            and np.isfinite(f32["losses"]).all()):
+        fail(f"bf16 {model}: 10 steps on one batch did not lower the loss: "
+             f"{bf['losses']} (f32 {f32['losses']})")
+    if bf["launches"] != rec["expected_step_launches"]:
+        fail(f"bf16 {model}: launches {bf['launches']}, expected "
+             f"{rec['expected_step_launches']}")
+    if model == "ecg":
+        held = bf["knn_held_to_plain"]
+        if held["differ"] or held["calls"] != 20 \
+                or held["dtypes"] != ["torch.float32"]:
+            fail(f"bf16 ecg: kNN picks against the plain version {held}")
+    return rec
+
+
+def _bf16_small_outputs(model_name, dev):
+    """The seeded bf16 model at the parity tests' size on ``dev``: what
+    the tests hold (the completion's cloud, DCP's transform, DeepGMR's
+    backbone logits, IDAM's GNN embedding, the embedding's logits,
+    VoxAsym's occupancy probabilities), on the CPU."""
+    from houv_tpu_torch.models import get_model
+    from houv_tpu_torch.models.common import init_like_flax
+
+    kw = BF16_SMALL[model_name]
+    model = get_model(model_name, compute_dtype="bfloat16", **kw)
+    gen = torch.Generator().manual_seed(21)
+    init_like_flax(model, gen)
+    if model_name == "transformer":        # a completion's scale, as the test
+        with torch.no_grad():
+            model.regressor.head_out.weight.mul_(0.25)
+    if model_name == "idam":
+        _closeness_scores(model, gen)
+    model.to(dev).eval()
+    seen = []
+    sub = {"deepgmr": "backbone", "idam": "emb_nn"}.get(model_name)
+    hook = sub and getattr(model, sub).register_forward_hook(
+        lambda m, i, o: seen.append(o))
+    with torch.no_grad():
+        if model_name in LEARNED:
+            src, tgt, t_gt = (a.to(dev) for a in _registration_pair(
+                5, 2, 96 if model_name == "idam" else 64))
+            out = model(src, tgt, t_gt, prefix="val", train=False)
+            out = seen[0] if sub else out["transform"]
+        elif model_name == "voxel_asym":
+            pts = torch.rand(2, 128, 3, generator=gen) - 0.5
+            coords = ((pts + 0.5) * 11).floor().long().clamp(0, 11)
+            out = model(pts.to(dev), coords.to(dev))[0]
+        else:
+            x = torch.rand(2, 256 if model_name == "vrcnet" else 128, 3,
+                           generator=gen) - 0.5
+            if model_name == "model_embedding":
+                out = model(x.to(dev))[1]
+            else:
+                extra = dict(noise=torch.randn(2, 128, generator=gen).to(
+                    dev)) if model_name == "vrcnet" else {}
+                out = model(x.to(dev), None, "test", **extra)["result"]
+    if hook:
+        hook.remove()
+    return out.float().cpu()
+
+
+def _bf16_cpu_vs_card(model_name):
+    """The card's bf16 model against the port's CPU path at the parity
+    size, within the tests' bound; the CPU run's picks (kNN, FPS, ball
+    query) handed to the card's, whose own kernels still pick and are
+    counted where they differ."""
+    from houv_tpu_torch.ops.grouping import ball_query, knn_indices
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
+
+    fns = (knn_indices, furthest_point_sample, ball_query)
+    kept = []
+    with _Picks(fns[0]) as a, _Picks(fns[1]) as b, _Picks(fns[2]) as c:
+        cpu = _bf16_small_outputs(model_name, "cpu")
+    kept = [a.kept, b.kept, c.kept]
+    with _Picks(fns[0], kept[0]) as a, _Picks(fns[1], kept[1]) as b, \
+            _Picks(fns[2], kept[2]) as c:
+        card = _bf16_small_outputs(model_name, "cuda")
+    diff = float((card - cpu).abs().max())
+    rec = {"phase": "bf16_reference", "model": model_name,
+           "small": {k: list(v) if isinstance(v, tuple) else v
+                     for k, v in BF16_SMALL[model_name].items()},
+           "shape": list(card.shape), "max_abs_diff": diff,
+           "mean_abs_diff": float((card - cpu).abs().mean()),
+           "picks_flipped": {"knn": a.flips, "fps": b.flips,
+                             "ball": c.flips},
+           "bound": BF16_BOUND}
+    emit(rec)
+    if not diff <= BF16_BOUND or card.shape != cpu.shape:
+        fail(f"bf16 {model_name} on the card differs from the CPU path: "
+             f"{diff:.3g} (bound {BF16_BOUND})")
+    return rec
+
+
+def phase_bf16():
+    """``compute_dtype: bfloat16`` for the nine models that gained it with
+    [11a] (``BF16_RUNS``): each at its yaml's full width
+    (``_bf16_full_width``: ``train_main``, ``test_main`` with its
+    checkpoint, 10 bf16 steps on one batch beside 10 f32 steps on the same
+    batch), then each at the parity size on the card against the CPU path
+    (``_bf16_cpu_vs_card``)."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for yaml_name, model in BF16_RUNS:
+            out[model] = {"full": _bf16_full_width(tmp, yaml_name, model)}
+    for _, model in BF16_RUNS:
+        out[model]["reference"] = _bf16_cpu_vs_card(model)
+    emit({"phase": "bf16_summary", "card": card_line(), "steps_per_s": {
+        m: {"bf16": r["full"]["repeated_bf16"]["steps_per_s"],
+            "f32": r["full"]["repeated_f32"]["steps_per_s"]}
+        for m, r in out.items()}, "device_ms_a_step": {
+        m: {"bf16": r["full"]["repeated_bf16"]["profile"]["device_ms"],
+            "f32": r["full"]["repeated_f32"]["profile"]["device_ms"]}
+        for m, r in out.items()}, "peak_memory_gib": {
+        m: {"bf16": r["full"]["repeated_bf16"]["peak_memory_gib"],
+            "f32": r["full"]["repeated_f32"]["peak_memory_gib"]}
+        for m, r in out.items()}})
+    return out
+
+
 def _short_solve_inputs(pairs=4):
     """cfgs/houv.yaml's solver config with the budget cut to 100 steps, and
     ``pairs`` pairs of the structured split on the card: (config, src, tgt,
@@ -4816,7 +5131,7 @@ def _time_gather_rows(gen):
 
 def phase_kernels(launches, errs, completion, train, solve, models,
                   models_train, select, classical, combine, vrcnet_knn,
-                  learned, aux, parallel, gen):
+                  learned, aux, bf16, parallel, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
@@ -4829,7 +5144,9 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     phase, whose runs' launches each row carries under
     ``vrcnet_knn_launches``; ``learned``: the learned models' phase,
     whose runs' launches each row carries under ``learned_launches``;
-    ``aux``: the aux phase, likewise under ``aux_launches``;
+    ``aux``: the aux phase, likewise under ``aux_launches``; ``bf16``:
+    the bf16 phase's full-width runs, under ``bf16_launches`` (the bf16
+    mode sends the kernels the same shapes as f32, in f32);
     ``parallel``: the parallel phase's runs, summed over their ranks,
     under ``parallel_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
@@ -4954,6 +5271,12 @@ def phase_kernels(launches, errs, completion, train, solve, models,
         row["parallel_launches"] = {
             run: counts.get(row["name"], 0)
             for run, counts in parallel.items()}
+        row["bf16_launches"] = {
+            model: {run: rec["full"][key]["launches"].get(row["name"], 0)
+                    for run, key in (("train_main", "train_main"),
+                                     ("test_main", "test_main"),
+                                     ("repeated", "repeated_bf16"))}
+            for model, rec in bf16.items()}
     return out
 
 
@@ -5029,6 +5352,7 @@ def main(argv=None) -> int:
     vrcnet_knn = timed(phase_vrcnet_knn)
     learned = timed(phase_learned)
     aux = timed(phase_aux)
+    bf16 = timed(phase_bf16)
     parallel = timed(phase_parallel, fast["refs"], quality["rescore_ref"])
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
@@ -5042,7 +5366,7 @@ def main(argv=None) -> int:
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select,
                            classical, combine, vrcnet_knn, learned, aux,
-                           parallel, gen)})
+                           bf16, parallel, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

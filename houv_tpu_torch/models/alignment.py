@@ -107,14 +107,18 @@ class AlignmentClassifier(FlaxNamed):
 class VoxAsym(FlaxNamed):
     """points (B, N, 3) and their voxel indices (B, N, 3) -> (occupancy
     probabilities (B, V, 2), positions (B, V, 3), voxel indices (B, V, 3),
-    valid rows (B, V)), V = N rows of the voxel list."""
+    valid rows (B, V)), V = N rows of the voxel list. ``compute_dtype``
+    bf16 runs the point MLP (which returns f32) and the context block's
+    convs in bf16, as the JAX model; the head and the softmax stay f32."""
 
     def __init__(self, grid_size: int = 50, embedding_dim: int = 64,
-                 init_size: int = 32):
+                 init_size: int = 32, compute_dtype: str | None = None):
         super().__init__()
         self.grid_size = grid_size
-        self.child("mlp", PointMLP((64, embedding_dim), 3, relu_last=True))
-        self.child("context", ResContextBlock(embedding_dim, init_size))
+        self.child("mlp", PointMLP((64, embedding_dim), 3, relu_last=True,
+                                   compute_dtype=compute_dtype))
+        self.child("context", ResContextBlock(embedding_dim, init_size,
+                                              compute_dtype))
         self.child("head", nn.Linear(init_size, 5))
 
     def forward(self, points: torch.Tensor, coords: torch.Tensor,

@@ -13,6 +13,13 @@ running statistics moved by 1% a train step) and ``LayerNorm`` (ε 1e-6)
 take the biased variance as E[x²] − E[x]², floored at 0, and compute
 (x − mean) · (rsqrt(var + ε) · scale) + bias.
 
+``compute_dtype`` bf16 is flax's ``dtype=bf16``, cast by cast: a ``Dense``
+rounds its input, kernel, product and bias to bf16 (``dense``), the
+normalisations take their statistics and normalise in f32 on the bf16
+input and round the result to bf16, ``PointMLP`` and ``EFExpansion``
+return f32 (``to_f32``) and ``EFExpansion`` picks its neighbours in f32,
+as the JAX modules do. Parameters and running statistics stay f32.
+
 Data-parallel training (``train/harness.py`` with a mesh) sets a process
 group on the model (``set_batch_group``): a train step's ``BatchNorm`` then
 normalises by the statistics of the global batch, its sums all-reduced
@@ -213,6 +220,12 @@ def _global_statistics(x, mask, group):
     return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32 when it is of a narrower float type (bf16), else as it is:
+    flax's normalisations reduce and normalise in at least f32."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
 def flax_normalize(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                    eps: float, weight: torch.Tensor | None,
                    bias: torch.Tensor | None) -> torch.Tensor:
@@ -233,7 +246,11 @@ class BatchNorm(nn.Module):
     statistics normalise and nothing changes. ``use_bias`` and
     ``use_scale`` drop the offset or the scale, as flax's do. With a
     ``batch_group`` (``set_batch_group``) a train step's statistics are
-    the global batch's, and every rank moves its running ones alike."""
+    the global batch's, and every rank moves its running ones alike. With
+    ``compute_dtype`` bf16 the statistics and the normalisation run in f32
+    on the (bf16) input and the result is rounded to bf16, as flax's
+    ``BatchNorm(dtype=bf16)``; without one the result is in at least
+    f32."""
 
     flax_class = "BatchNorm"
     batch_group = None
@@ -242,9 +259,11 @@ class BatchNorm(nn.Module):
     momentum = 0.99
 
     def __init__(self, channels: int, eps: float = 1e-5,
-                 use_bias: bool = True, use_scale: bool = True):
+                 use_bias: bool = True, use_scale: bool = True,
+                 compute_dtype=None):
         super().__init__()
         self.eps = eps
+        self.dt = compute_dtype_of(compute_dtype)
         self.weight = (nn.Parameter(torch.ones(channels)) if use_scale
                        else None)
         self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
@@ -258,7 +277,8 @@ class BatchNorm(nn.Module):
         otherwise the running ones."""
         if not train:
             return self.running_mean, self.running_var
-        mean, var = flax_statistics(x, mask, group=self.batch_group)
+        mean, var = flax_statistics(at_least_f32(x), mask,
+                                    group=self.batch_group)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -266,75 +286,99 @@ class BatchNorm(nn.Module):
         return mean, var
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return flax_normalize(x, *self.statistics(x, train), self.eps,
-                              self.weight, self.bias)
+        y = flax_normalize(at_least_f32(x), *self.statistics(x, train),
+                           self.eps, self.weight, self.bias)
+        return y if self.dt is None else y.to(self.dt)
 
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm`` over the last axis: ε 1e-6 (flax's default,
-    where torch's is 1e-5), the variance E[x²] − E[x]² floored at 0."""
+    where torch's is 1e-5), the variance E[x²] − E[x]² floored at 0; in
+    f32 on a bf16 input, the result rounded to ``compute_dtype`` when one
+    is given (else in at least f32), as flax's."""
 
     flax_leaves = {"scale": "weight", "bias": "bias"}
 
-    def __init__(self, channels: int, eps: float = 1e-6):
+    def __init__(self, channels: int, eps: float = 1e-6, compute_dtype=None):
         super().__init__()
         self.eps = eps
+        self.dt = compute_dtype_of(compute_dtype)
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = at_least_f32(x)
         mean, var = flax_statistics(x, dims=(-1,))
-        return flax_normalize(x, mean[..., None], var[..., None], self.eps,
-                              self.weight, self.bias)
+        y = flax_normalize(x, mean[..., None], var[..., None], self.eps,
+                           self.weight, self.bias)
+        return y if self.dt is None else y.to(self.dt)
 
 
 class PointMLP(FlaxNamed):
     """Per-point MLP over (B, N, C): ``Dense`` layers of ``features``
     widths, each (with ``use_bn``) followed by a ``BatchNorm``, with a ReLU
-    between them and, with ``relu_last``, after the last."""
+    between them and, with ``relu_last``, after the last. With
+    ``compute_dtype`` bf16 its layers run in bf16 and it returns f32, as
+    the JAX module."""
 
     def __init__(self, features, in_features: int, relu_last: bool = False,
-                 use_bn: bool = False):
+                 use_bn: bool = False, compute_dtype=None):
         super().__init__()
         self.relu_last, self.use_bn = relu_last, use_bn
+        self.dt = compute_dtype_of(compute_dtype)
         self.n = len(features)
         for i, f in enumerate(features):
             self.child(f"fc{i}", nn.Linear(in_features, f))
             if use_bn:
-                self.child(f"bn{i}", BatchNorm(f))
+                self.child(f"bn{i}", BatchNorm(f, compute_dtype=self.dt))
             in_features = f
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"fc{i}")(x)
+            x = dense(getattr(self, f"fc{i}"), x, self.dt)
             if self.use_bn:
                 x = getattr(self, f"bn{i}")(x, train)
             if i < self.n - 1 or self.relu_last:
                 x = torch.relu(x)
-        return x
+        return to_f32(x, self.dt)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jax.nn.softmax`` over ``dim``. Below f32 (bf16) it rounds where
+    JAX's does: exp(x − max) is rounded to the dtype before the sum
+    divides it (``torch.softmax`` rounds once, at the end, and then
+    differs from JAX's in most entries by a bf16 step)."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return torch.softmax(x, dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True).detach())
+    return e / e.sum(dim, keepdim=True)
 
 
 def attention(query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
               mask: torch.Tensor | None = None):
     """Scaled dot-product attention over (..., L, D): scores q·kᵀ / √d_k
     (−1e9 where ``mask`` is 0), a softmax over the keys, the weighted
-    values. Returns (output, probabilities)."""
+    values, each in the inputs' dtype (bf16 inputs: a bf16 softmax, as
+    the JAX package's). Returns (output, probabilities)."""
     scores = torch.matmul(query, key.transpose(-1, -2)) / math.sqrt(
         query.shape[-1])
     if mask is not None:
         scores = scores.masked_fill(mask == 0, -1e9)
-    p = torch.softmax(scores, -1)
+    p = softmax(scores, -1)
     return torch.matmul(p, value), p
 
 
 class MultiHeadAttention(FlaxNamed):
     """Multi-head attention over inputs of width ``d_model``: ``Dense``
     projections of the query, key and value split into ``n_heads`` heads,
-    ``attention`` per head, and an output ``Dense``."""
+    ``attention`` per head, and an output ``Dense``. With ``compute_dtype``
+    bf16 all of it runs in bf16 and the result is bf16, as the JAX
+    module's."""
 
-    def __init__(self, n_heads: int, d_model: int):
+    def __init__(self, n_heads: int, d_model: int, compute_dtype=None):
         super().__init__()
         self.n_heads, self.d_model = n_heads, d_model
+        self.dt = compute_dtype_of(compute_dtype)
         for name in ("q", "k", "v", "out"):
             self.child(name, nn.Linear(d_model, d_model))
 
@@ -343,11 +387,14 @@ class MultiHeadAttention(FlaxNamed):
         b, d_k = query.shape[0], self.d_model // self.n_heads
 
         def split(x, layer):
-            return layer(x).reshape(b, -1, self.n_heads, d_k).transpose(1, 2)
+            return dense(layer, x, self.dt).reshape(
+                b, -1, self.n_heads, d_k).transpose(1, 2)
 
         out, _ = attention(split(query, self.q), split(key, self.k),
                            split(value, self.v), mask)
-        return self.out(out.transpose(1, 2).reshape(b, -1, self.d_model))
+        return dense(self.out, out.transpose(1, 2).reshape(b, -1,
+                                                           self.d_model),
+                     self.dt)
 
 
 def svd_head(src: torch.Tensor, tgt_corr: torch.Tensor,
@@ -460,12 +507,15 @@ class EFExpansion(FlaxNamed):
     nearest neighbours in the feature space give k edge features; two Dense
     layers widen them to ``step_ratio`` groups of ``output_size`` channels,
     each group becomes a new point, and the new point keeps the maximum
-    over its k edges."""
+    over its k edges. With ``compute_dtype`` bf16 the neighbours are picked
+    on the input in f32, the edges and layers run in bf16 and the result
+    is f32, as in the JAX module."""
 
     def __init__(self, input_size: int, output_size: int = 64,
-                 step_ratio: int = 2, k: int = 4):
+                 step_ratio: int = 2, k: int = 4, compute_dtype=None):
         super().__init__()
         self.output_size, self.step_ratio, self.k = output_size, step_ratio, k
+        self.dt = compute_dtype_of(compute_dtype)
         self.child("fc1", nn.Linear(2 * input_size, output_size))
         self.child("fc2", nn.Linear(2 * input_size + output_size,
                                     output_size * step_ratio))
@@ -473,14 +523,17 @@ class EFExpansion(FlaxNamed):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, _ = x.shape
-        edge = get_graph_feature(x, self.k, minus_center=False)
-        ef = torch.relu(torch.cat([self.fc1(edge), edge], -1))
-        ef = torch.relu(self.fc2(ef))
+        dt = self.dt
+        edge = get_graph_feature(to_f32(x, dt), self.k, minus_center=False)
+        if dt is not None:
+            edge = edge.to(dt)
+        ef = torch.relu(torch.cat([dense(self.fc1, edge, dt), edge], -1))
+        ef = torch.relu(dense(self.fc2, ef, dt))
         # (B, N, k, C_out·r) -> (B, N·r, k, C_out)
         ef = ef.reshape(b, n, self.k, self.step_ratio, self.output_size)
         ef = ef.transpose(2, 3).reshape(b, n * self.step_ratio, self.k,
                                         self.output_size)
-        return self.fc3(ef).amax(2)
+        return to_f32(dense(self.fc3, ef, dt).amax(2), dt)
 
 
 def symmetric_sample(points: torch.Tensor, num: int) -> torch.Tensor:

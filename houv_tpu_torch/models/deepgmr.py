@@ -9,7 +9,9 @@ mixture components; the closed-form mixture parameters of both clouds
 (``gmm_params``) are aligned by a weighted Procrustes SVD
 (``gmm_register``). The loss is the forward and backward transforms'
 mean((T · T_gt^∓1 − I)²). The RRI features, the mixtures and the SVD run
-in the input's dtype (f32), whatever the backbone runs in.
+in the input's dtype (f32), whatever the backbone runs in: with
+``compute_dtype`` bf16 only the backbone's PointNets (their BatchNorms
+included) run in bf16, and they return f32, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -96,12 +98,14 @@ class GMRBackbone(FlaxNamed):
     per-point logits over ``num_groups`` components."""
 
     def __init__(self, in_features: int, num_groups: int = 16,
-                 use_bn: bool = True):
+                 use_bn: bool = True, compute_dtype=None):
         super().__init__()
         self.child("enc", PointMLP((64, 128, 256, 1024), in_features,
-                                   relu_last=True, use_bn=use_bn))
+                                   relu_last=True, use_bn=use_bn,
+                                   compute_dtype=compute_dtype))
         self.child("dec", PointMLP((512, 256, 128), 2048, relu_last=True,
-                                   use_bn=use_bn))
+                                   use_bn=use_bn,
+                                   compute_dtype=compute_dtype))
         self.child("head", nn.Linear(128, num_groups))
 
     def forward(self, feats: torch.Tensor, train: bool = False):
@@ -119,11 +123,12 @@ class DeepGMR(FlaxNamed):
     cloud). The model draws no random numbers."""
 
     def __init__(self, num_groups: int = 16, use_rri: bool = True,
-                 rri_size: int = 20):
+                 rri_size: int = 20, compute_dtype=None):
         super().__init__()
         self.use_rri, self.rri_size = use_rri, rri_size
         in_features = 4 * rri_size if use_rri else 3
-        self.child("backbone", GMRBackbone(in_features, num_groups))
+        self.child("backbone", GMRBackbone(in_features, num_groups,
+                                           compute_dtype=compute_dtype))
 
     def _features(self, pts: torch.Tensor) -> torch.Tensor:
         if self.use_rri:

@@ -18,6 +18,12 @@ repeated ``ratio`` times, tagged with a 1-D offset in [-0.05, 0.05], and an
 MLP regresses the output coordinates. The train loss is cd_p + 0.02 · cd_t
 on K1 (its backward on K4); validation gives cd_p, cd_t, f1 (and EMD with
 ``eval_emd``, on K7).
+
+``compute_dtype`` bf16 is the JAX models': in ``InstanceEmbedding`` the
+point MLP, the attention and the hidden Dense layers run in bf16 while the
+embedding and logits heads stay f32; in the transformer the point MLP, the
+LayerNorms, the attention, the feed-forward and the head run in bf16, each
+block's residual is added in f32 and the coordinates come back in f32.
 """
 
 from __future__ import annotations
@@ -30,22 +36,25 @@ from houv_tpu_torch.metrics.cd import calc_cd
 from houv_tpu_torch.metrics.emd import calc_emd
 from houv_tpu_torch.models.common import (FlaxNamed, LayerNorm,
                                           MultiHeadAttention, PointMLP,
-                                          max_pool_points)
+                                          compute_dtype_of, dense,
+                                          max_pool_points, to_f32)
 from houv_tpu_torch.ops.gather import gather_rows
 from houv_tpu_torch.ops.sampling import furthest_point_sample
 
 
 class InstanceEmbedding(FlaxNamed):
     """(B, N, 3) cloud -> (unit embedding (B, embedding_size), class
-    logits (B, nclasses)), f32 throughout."""
+    logits (B, nclasses)), both f32."""
 
     def __init__(self, embedding_size: int = 32, nclasses: int = 16,
-                 use_attention: bool = False):
+                 use_attention: bool = False, compute_dtype=None):
         super().__init__()
         self.use_attention = use_attention
-        self.child("mlp", PointMLP((64, 128, 256), 3, relu_last=True))
+        self.dt = dt = compute_dtype_of(compute_dtype)
+        self.child("mlp", PointMLP((64, 128, 256), 3, relu_last=True,
+                                   compute_dtype=dt))
         if use_attention:
-            self.child("attn", MultiHeadAttention(8, 256))
+            self.child("attn", MultiHeadAttention(8, 256, dt))
         self.child("fc", nn.Linear(256, 256))
         self.child("embed", nn.Linear(256, embedding_size))
         # flax constructs the logits' Dense before the hidden one it is
@@ -54,14 +63,17 @@ class InstanceEmbedding(FlaxNamed):
         self.child("hidden", nn.Linear(256, 512))
 
     def forward(self, x: torch.Tensor):
+        dt = self.dt
         h = self.mlp(x)
         if self.use_attention:
-            h = h + self.attn(h, h, h)
-        g = torch.relu(self.fc(max_pool_points(h)))
-        emb = self.embed(g)
+            h = h + self.attn(h, h, h).to(h.dtype)
+        g = torch.relu(dense(self.fc, max_pool_points(h), dt))
+        # the embedding head in f32, as the JAX model's
+        emb = self.embed(to_f32(g, dt))
         emb = emb / torch.linalg.vector_norm(emb, dim=-1,
                                              keepdim=True).clamp_min(1e-9)
-        return emb, self.logits(torch.relu(self.hidden(g)))
+        return emb, self.logits(to_f32(torch.relu(dense(self.hidden, g, dt)),
+                                       dt))
 
 
 def triplet_loss(anchor: torch.Tensor, positive: torch.Tensor,
@@ -76,18 +88,22 @@ class TransformerRegressor(FlaxNamed):
     """(B, N, 3) partial cloud -> (B, num_out, 3)."""
 
     def __init__(self, num_latent: int = 256, num_out: int = 2048,
-                 d_model: int = 256, n_heads: int = 4, n_layers: int = 2):
+                 d_model: int = 256, n_heads: int = 4, n_layers: int = 2,
+                 compute_dtype=None):
         super().__init__()
         self.num_latent, self.num_out, self.n_layers = (num_latent, num_out,
                                                         n_layers)
-        self.child("mlp", PointMLP((64, d_model), 3, relu_last=True))
+        self.dt = dt = compute_dtype_of(compute_dtype)
+        self.child("mlp", PointMLP((64, d_model), 3, relu_last=True,
+                                   compute_dtype=dt))
         for i in range(n_layers):
-            self.child(f"self_norm{i}", LayerNorm(d_model))
-            self.child(f"self_attn{i}", MultiHeadAttention(n_heads, d_model))
-            self.child(f"cross_norm{i}", LayerNorm(d_model))
-            self.child(f"cross_attn{i}", MultiHeadAttention(n_heads,
-                                                            d_model))
-            self.child(f"ff_norm{i}", LayerNorm(d_model))
+            self.child(f"self_norm{i}", LayerNorm(d_model, compute_dtype=dt))
+            self.child(f"self_attn{i}", MultiHeadAttention(n_heads, d_model,
+                                                           dt))
+            self.child(f"cross_norm{i}", LayerNorm(d_model, compute_dtype=dt))
+            self.child(f"cross_attn{i}", MultiHeadAttention(n_heads, d_model,
+                                                            dt))
+            self.child(f"ff_norm{i}", LayerNorm(d_model, compute_dtype=dt))
             # flax names the outer Dense first: it is built before the
             # inner one it is applied to
             self.child(f"ff_out{i}", nn.Linear(2 * d_model, d_model))
@@ -101,23 +117,26 @@ class TransformerRegressor(FlaxNamed):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = x.shape[0]
+        b, dt = x.shape[0], self.dt
         feats = self.mlp(x)
         idx = furthest_point_sample(x, self.num_latent, device=x.device)
         latent = gather_rows(feats, idx)
         for i in range(self.n_layers):
             h = getattr(self, f"self_norm{i}")(latent)
-            latent = latent + getattr(self, f"self_attn{i}")(h, h, h)
+            latent = latent + getattr(self, f"self_attn{i}")(
+                h, h, h).to(latent.dtype)
             h = getattr(self, f"cross_norm{i}")(latent)
-            latent = latent + getattr(self, f"cross_attn{i}")(h, feats,
-                                                              feats)
+            latent = latent + getattr(self, f"cross_attn{i}")(
+                h, feats, feats).to(latent.dtype)
             h = getattr(self, f"ff_norm{i}")(latent)
-            latent = latent + getattr(self, f"ff_out{i}")(
-                torch.relu(getattr(self, f"ff_in{i}")(h)))
+            latent = latent + dense(getattr(self, f"ff_out{i}"), torch.relu(
+                dense(getattr(self, f"ff_in{i}"), h, dt)), dt).to(
+                    latent.dtype)
         up = latent.repeat_interleave(self.ratio, 1)[:, :self.num_out]
         grid = self.grid.to(up.dtype).expand(b, -1, -1)
         h = torch.cat([up, grid], -1)
-        return self.head_out(torch.relu(self.head_in(h)))
+        return to_f32(dense(self.head_out, torch.relu(
+            dense(self.head_in, h, dt)), dt), dt)
 
 
 class TransformerCompletion(FlaxNamed):
@@ -128,11 +147,12 @@ class TransformerCompletion(FlaxNamed):
     is accepted and not used, as in the JAX model."""
 
     def __init__(self, num_points: int = 2048, num_latent: int = 256,
-                 eval_emd: bool = False):
+                 eval_emd: bool = False, compute_dtype=None):
         super().__init__()
         self.eval_emd = eval_emd
         self.child("regressor", TransformerRegressor(
-            num_latent=num_latent, num_out=num_points))
+            num_latent=num_latent, num_out=num_points,
+            compute_dtype=compute_dtype))
 
     def forward(self, x: torch.Tensor, gt: torch.Tensor | None = None,
                 prefix: str = "test", alpha: float | None = None) -> dict:
@@ -156,20 +176,23 @@ class TransformerCompletion(FlaxNamed):
 class PCNTransformer(FlaxNamed):
     """PCN's encoder with an attention refinement head (reference
     registration/models/pcn.py PCN_Transformer :31-52): (B, N, 3) ->
-    (B, output_size) global feature."""
+    (B, output_size) global feature, f32 (its layers in ``compute_dtype``,
+    as the JAX module's)."""
 
-    def __init__(self, output_size: int = 1024):
+    def __init__(self, output_size: int = 1024, compute_dtype=None):
         super().__init__()
+        self.dt = dt = compute_dtype_of(compute_dtype)
         self.child("fc1", nn.Linear(3, 128))
         self.child("fc2", nn.Linear(128, 256))
         self.child("fc3", nn.Linear(512, 512))
-        self.child("attn", MultiHeadAttention(4, 512))
+        self.child("attn", MultiHeadAttention(4, 512, dt))
         self.child("out", nn.Linear(512, output_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc2(torch.relu(self.fc1(x)))
+        dt = self.dt
+        h = dense(self.fc2, torch.relu(dense(self.fc1, x, dt)), dt)
         g = max_pool_points(h)
         h = torch.cat([h, g[:, None].expand_as(h)], -1)
-        h = torch.relu(self.fc3(h))
-        h = h + self.attn(h, h, h)
-        return max_pool_points(self.out(h))
+        h = torch.relu(dense(self.fc3, h, dt))
+        h = h + self.attn(h, h, h).to(h.dtype)
+        return to_f32(max_pool_points(dense(self.out, h, dt)), dt)

@@ -20,6 +20,11 @@ Top-k picks go through a stable sort (the lower index first on ties, as
 ``lax.top_k``), the train-time nearest neighbour is a dense diff-form
 argmin (the first index on ties) and the median of an even count is the
 mean of the two middle values, as ``jnp.median``'s.
+
+``compute_dtype`` bf16 runs every ``_ConvBlock`` (the GNN's, the
+significance score's and the similarity stacks', their BatchNorms
+included) in bf16 and returns its result in f32, as the JAX model does:
+the selection, the matching, the weights and the SVD stay f32.
 """
 
 from __future__ import annotations
@@ -29,30 +34,32 @@ from torch import nn
 
 from houv_tpu_torch.geometry.rotations import rt_to_transformation
 from houv_tpu_torch.models.common import (BatchNorm, FlaxNamed, batch_sum,
-                                          draw_rows, registration_outputs,
-                                          svd_head)
+                                          compute_dtype_of, dense, draw_rows,
+                                          registration_outputs, svd_head,
+                                          to_f32)
 from houv_tpu_torch.ops.gather import gather_edge_features
 from houv_tpu_torch.ops.grouping import _sqdist_diff, knn_indices
 
 
 class _ConvBlock(FlaxNamed):
     """Dense (no bias) + BatchNorm + ReLU for each of ``channels`` but the
-    last, then a plain Dense to the last."""
+    last, then a plain Dense to the last; in ``dt`` (None: as the input
+    is), the result in f32."""
 
-    def __init__(self, channels, in_features: int):
+    def __init__(self, channels, in_features: int, dt=None):
         super().__init__()
-        self.n = len(channels) - 1
+        self.n, self.dt = len(channels) - 1, dt
         for i, f in enumerate(channels[:-1]):
             self.child(f"fc{i}", nn.Linear(in_features, f, bias=False))
-            self.child(f"bn{i}", BatchNorm(f))
+            self.child(f"bn{i}", BatchNorm(f, compute_dtype=dt))
             in_features = f
         self.child("out", nn.Linear(in_features, channels[-1]))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(self.n):
             x = torch.relu(getattr(self, f"bn{i}")(
-                getattr(self, f"fc{i}")(x), train))
-        return self.out(x)
+                dense(getattr(self, f"fc{i}"), x, self.dt), train))
+        return to_f32(dense(self.out, x, self.dt), self.dt)
 
 
 class Propagate(FlaxNamed):
@@ -60,10 +67,10 @@ class Propagate(FlaxNamed):
     edge's feature difference through a two-layer block, the maximum over
     the edges, then one Dense."""
 
-    def __init__(self, in_features: int, emb_dims: int):
+    def __init__(self, in_features: int, emb_dims: int, dt=None):
         super().__init__()
-        self.child("edge", _ConvBlock((emb_dims, emb_dims), in_features))
-        self.child("node", _ConvBlock((emb_dims,), emb_dims))
+        self.child("edge", _ConvBlock((emb_dims, emb_dims), in_features, dt))
+        self.child("node", _ConvBlock((emb_dims,), emb_dims, dt))
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
@@ -75,11 +82,12 @@ class GNN(FlaxNamed):
     """Four Propagate layers of width 64 and one of ``emb_dims`` over the
     kNN(12) graph of the points."""
 
-    def __init__(self, emb_dims: int = 64):
+    def __init__(self, emb_dims: int = 64, dt=None):
         super().__init__()
         widths = (3, 64, 64, 64, 64)
         for i, c in enumerate(widths):
-            self.child(f"prop{i}", Propagate(c, 64 if i < 4 else emb_dims))
+            self.child(f"prop{i}", Propagate(c, 64 if i < 4 else emb_dims,
+                                             dt))
 
     def forward(self, pts: torch.Tensor, train: bool = False):
         idx = knn_indices(pts, pts, 12, device=pts.device)
@@ -139,18 +147,19 @@ class IDAM(FlaxNamed):
 
     batch_group = None
 
-    def __init__(self, descriptor_size: int = 64, num_iters: int = 3):
+    def __init__(self, descriptor_size: int = 64, num_iters: int = 3,
+                 compute_dtype=None):
         super().__init__()
         self.emb, self.num_iters = descriptor_size, num_iters
-        e = descriptor_size
-        self.child("emb_nn", GNN(e))
-        self.child("sig_fc", _ConvBlock((64, 32, 1), e))
+        e, dt = descriptor_size, compute_dtype_of(compute_dtype)
+        self.child("emb_nn", GNN(e, dt))
+        self.child("sig_fc", _ConvBlock((64, 32, 1), e, dt))
         for i in range(num_iters):
-            self.child(f"sim1_{i}", _ConvBlock((32, 32), 2 * e + 4))
+            self.child(f"sim1_{i}", _ConvBlock((32, 32), 2 * e + 4, dt))
         for i in range(num_iters):
-            self.child(f"sim2_{i}", _ConvBlock((32, 1), 32))
+            self.child(f"sim2_{i}", _ConvBlock((32, 1), 32, dt))
         for i in range(num_iters):
-            self.child(f"weight_fc{i}", _ConvBlock((32, 1), 32))
+            self.child(f"weight_fc{i}", _ConvBlock((32, 1), 32, dt))
 
     def _sample(self, src, tgt, t_gt, num_keep, gumbel, generator):
         """The kept source points' indices, their ground-truth nearest

@@ -1,7 +1,11 @@
 """PCN, the Point Completion Network (counterpart of
 ``houv_tpu/models/pcn.py``): a two-stage PointNet encoder, an FC coarse
 decoder and a folding-grid fine decoder, with its in-model losses (CD or
-EMD, coarse + alpha·fine). Features last, (B, N, C)."""
+EMD, coarse + alpha·fine). Features last, (B, N, C). With
+``compute_dtype`` bf16 the Dense layers run in bf16 (flax
+``Dense(dtype=bf16)``, ``models/common.py:dense``) and the encoder's
+feature and the decoder's clouds come back in f32 where the JAX modules
+cast them."""
 
 from __future__ import annotations
 
@@ -23,21 +27,25 @@ from houv_tpu_torch.models.common import (
 
 
 class PCNEncoder(FlaxNamed):
-    """(B, N, 3) -> (B, output_size) global feature: a two-stage PointNet
-    with the first stage's global feature concatenated to every point."""
+    """(B, N, 3) -> (B, output_size) global feature (f32): a two-stage
+    PointNet with the first stage's global feature concatenated to every
+    point."""
 
-    def __init__(self, output_size: int = 1024):
+    def __init__(self, output_size: int = 1024, compute_dtype=None):
         super().__init__()
+        self.dt = compute_dtype_of(compute_dtype)
         self.child("fc1", nn.Linear(3, 128))
         self.child("fc2", nn.Linear(128, 256))
         self.child("fc3", nn.Linear(512, 512))
         self.child("fc4", nn.Linear(512, output_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc2(torch.relu(self.fc1(x)))
+        dt = self.dt
+        h = dense(self.fc2, torch.relu(dense(self.fc1, x, dt)), dt)
         g = max_pool_points(h)
         h = torch.cat([h, g[:, None, :].expand_as(h)], -1)
-        return max_pool_points(self.fc4(torch.relu(self.fc3(h))))
+        h = dense(self.fc4, torch.relu(dense(self.fc3, h, dt)), dt)
+        return to_f32(max_pool_points(h), dt)
 
 
 class PCNEncoderLabel(FlaxNamed):
@@ -76,11 +84,14 @@ def fc_coarse(module: FlaxNamed, feat_size: int, num_coarse: int) -> None:
     module.child("fc3", nn.Linear(1024, num_coarse * 3))
 
 
-def run_fc_coarse(module: nn.Module, feat: torch.Tensor,
-                  num_coarse: int) -> torch.Tensor:
-    """(B, feat_size) -> the coarse cloud (B, num_coarse, 3)."""
-    h = torch.relu(module.fc2(torch.relu(module.fc1(feat))))
-    return module.fc3(h).reshape(feat.shape[0], num_coarse, 3)
+def run_fc_coarse(module: nn.Module, feat: torch.Tensor, num_coarse: int,
+                  dt: torch.dtype | None = None) -> torch.Tensor:
+    """(B, feat_size) -> the coarse cloud (B, num_coarse, 3), f32; its
+    layers in ``dt`` (None: as they are)."""
+    h = torch.relu(dense(module.fc2, torch.relu(dense(module.fc1, feat, dt)),
+                         dt))
+    return to_f32(dense(module.fc3, h, dt), dt).reshape(feat.shape[0],
+                                                        num_coarse, 3)
 
 
 class PCNDecoder(FlaxNamed):
@@ -90,17 +101,18 @@ class PCNDecoder(FlaxNamed):
     fine (B, num_fine, 3))."""
 
     def __init__(self, num_coarse: int, num_fine: int, scale: int,
-                 feat_size: int = 1024):
+                 feat_size: int = 1024, compute_dtype=None):
         super().__init__()
         self.num_coarse, self.num_fine, self.scale = num_coarse, num_fine, scale
+        self.dt = compute_dtype_of(compute_dtype)
         fc_coarse(self, feat_size, num_coarse)
         self.child("fold1", nn.Linear(2 + 3 + feat_size, 512))
         self.child("fold2", nn.Linear(512, 512))
         self.child("fold3", nn.Linear(512, 3))
 
     def forward(self, feat: torch.Tensor):
-        b = feat.shape[0]
-        coarse = run_fc_coarse(self, feat, self.num_coarse)
+        b, dt = feat.shape[0], self.dt
+        coarse = run_fc_coarse(self, feat, self.num_coarse, dt)
         grid = gen_grid_up(2 ** int(math.log2(self.scale)), 0.05).to(
             feat.device)                                      # (scale, 2)
         grid_feat = grid[None, None].expand(
@@ -108,8 +120,9 @@ class PCNDecoder(FlaxNamed):
         point_feat = coarse.repeat_interleave(self.scale, dim=1)
         global_feat = feat[:, None, :].expand(-1, self.num_fine, -1)
         h = torch.cat([grid_feat, point_feat, global_feat], -1)
-        h = torch.relu(self.fold2(torch.relu(self.fold1(h))))
-        return coarse, self.fold3(h) + point_feat
+        h = torch.relu(dense(self.fold2, torch.relu(dense(self.fold1, h, dt)),
+                             dt))
+        return coarse, to_f32(dense(self.fold3, h, dt), dt) + point_feat
 
 
 def completion_outputs(coarse, fine, gt, prefix, eval_emd):
@@ -139,17 +152,20 @@ class PCN(FlaxNamed):
     """PCN with its in-model losses: x (B, N, 3) -> {'result': fine}
     ('test'); with gt the metrics per cloud ('val'); or {'out2', 'loss2',
     'total_loss'} ('train': mean coarse loss + alpha · mean fine loss). The
-    model draws no random numbers."""
+    model draws no random numbers. ``compute_dtype`` bf16 runs the encoder
+    and the decoder in bf16; clouds and losses are f32."""
 
     def __init__(self, num_points: int = 2048, num_coarse: int = 1024,
-                 train_loss: str = "cd", eval_emd: bool = False):
+                 train_loss: str = "cd", eval_emd: bool = False,
+                 compute_dtype=None):
         super().__init__()
         if train_loss not in ("cd", "emd"):
             raise NotImplementedError("train loss is either cd or emd")
         self.train_loss, self.eval_emd = train_loss, eval_emd
-        self.child("encoder", PCNEncoder())
+        self.child("encoder", PCNEncoder(compute_dtype=compute_dtype))
         self.child("decoder", PCNDecoder(num_coarse, num_points,
-                                         num_points // num_coarse))
+                                         num_points // num_coarse,
+                                         compute_dtype=compute_dtype))
 
     def forward(self, x: torch.Tensor, gt: torch.Tensor | None = None,
                 prefix: str = "test", alpha: float | None = None) -> dict:

@@ -18,7 +18,10 @@ differentiated through the ``scatter`` kernel. All randomness (latent noise,
 dropout masks) is drawn from a ``torch.Generator`` handed in, or passed in
 as tensors. ``EFExpansion`` (when the fine cloud has at least twice the
 decoder's points, and as the fine stage without ``local_folding``) builds
-its graph in the feature space, on the wide kNN kernel.
+its graph in the feature space, on the wide kNN kernel. ``compute_dtype``
+bf16 runs the ``SASKNResEncoder`` and both ``EFExpansion``s in bf16, as
+the JAX model does; the PCN encoder, the latent blocks, the decoder's
+other layers, the geometry and the losses stay f32.
 """
 
 from __future__ import annotations
@@ -314,7 +317,8 @@ class MSAPSKNDecoder(FlaxNamed):
                  num_fps: int, num_coarse: int, num_fine: int,
                  layers: tuple = (2, 2, 2, 2), knn_list: tuple = (10, 20),
                  pk: int = 10, points_label: bool = False,
-                 local_folding: bool = False, remat: bool = False):
+                 local_folding: bool = False, remat: bool = False,
+                 compute_dtype=None):
         super().__init__()
         self.n_input = n_input
         self.num_coarse_raw, self.num_fps = num_coarse_raw, num_fps
@@ -328,11 +332,13 @@ class MSAPSKNDecoder(FlaxNamed):
         self.child("fc2", nn.Linear(1024, 1024))
         self.child("fc_raw", nn.Linear(1024, num_coarse_raw * 3))
         self.child("encoder", SASKNResEncoder(
-            3 + int(points_label), knn_list, pk, 256, layers, remat))
+            3 + int(points_label), knn_list, pk, 256, layers, remat,
+            compute_dtype))
         self.expand = None
         if up_scale >= 2:
             self.expand = self.child("expand", EFExpansion(
-                256, 64, step_ratio=up_scale, k=4))
+                256, 64, step_ratio=up_scale, k=4,
+                compute_dtype=compute_dtype))
         self.child("feat", nn.Linear(64 if up_scale >= 2 else 256, 64))
         self.child("high", nn.Linear(64, 3))
         self.score = n_fps > num_coarse
@@ -349,7 +355,8 @@ class MSAPSKNDecoder(FlaxNamed):
                                               self.ratio))
             else:
                 self.child("folding", EFExpansion(
-                    64, 256, step_ratio=self.ratio, k=4))
+                    64, 256, step_ratio=self.ratio, k=4,
+                    compute_dtype=compute_dtype))
             # flax builds the outer Dense(3) before the inner Dense(64)
             self.child("fine_out", nn.Linear(64, 3))
             self.child("fine_hidden", nn.Linear(256, 64))
@@ -444,7 +451,8 @@ class VRCNet(FlaxNamed):
                  pk: int = 10, points_label: bool = False,
                  local_folding: bool = False, eval_emd: bool = False,
                  n_input: int | None = None, remat: bool = False,
-                 distribution_loss: str = "KLD", train_loss: str = "cd"):
+                 distribution_loss: str = "KLD", train_loss: str = "cd",
+                 compute_dtype=None):
         super().__init__()
         if distribution_loss not in ("KLD", "MMD"):
             raise NotImplementedError("distribution loss is either MMD or KLD")
@@ -463,7 +471,7 @@ class VRCNet(FlaxNamed):
         self.child("decoder", MSAPSKNDecoder(
             g, num_points if n_input is None else n_input, num_coarse_raw,
             num_fps, num_coarse, num_points, layers, knn_list, pk,
-            points_label, local_folding, remat))
+            points_label, local_folding, remat, compute_dtype))
 
     @property
     def batch_group(self):

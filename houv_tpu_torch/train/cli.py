@@ -48,10 +48,12 @@ sweep, ``houv_eval_main`` and the rescored solve then split each batch's
 pairs over the ranks (``parallel/mesh.py``), the model sweeps and the
 aux models' meters each batch's rows, and training is data-parallel
 (``train/harness.py``); rank 0 writes results.h5, the zip and the
-checkpoints. A ``batch_size`` that ``n_devices`` does not divide, and
-``n_devices`` above the visible cards, raise ValueError (the JAX CLI
-trains on one device, or takes the first n, instead). The classical
-solvers' evaluation runs in one process, as in the JAX CLI.
+checkpoints. As in the JAX CLI, ``n_devices`` above the visible cards
+takes the cards there are; the HOUV sweeps round their batch down to a
+multiple of the ranks (at least one pair a rank), and training, the model
+sweeps and the aux meters run in one process where the ranks do not divide
+``batch_size`` (``job_mesh``). The classical solvers' evaluation runs in
+one process, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -144,27 +146,38 @@ def job_mesh(cfg: Config, device):
     """How an entry runs: ``(mesh, 0)`` to run here, on the job's mesh (a
     process group set up, as ``launch`` does, or torchrun's ``WORLD_SIZE``
     in the environment) or on ``local_mesh`` for one process; ``(None, n)``
-    where ``n`` > 1 ranks are still to start (``n_devices``, or every
-    visible card when unset; one process on the CPU). ValueError where
-    ``batch_size`` is not divisible by the ranks, where ``n_devices``
-    exceeds the visible cards or differs from the job's size."""
+    where ``n`` > 1 ranks are still to start: ``n_devices``, or every
+    visible card when unset (one process on the CPU), at most the visible
+    cards (as the JAX package's ``make_mesh`` takes the first n devices).
+    Training, the model sweeps and the aux meters split each batch's rows
+    over the ranks, so a ``batch_size`` the ranks do not divide runs in one
+    process, as the JAX CLI's ``make_trainer`` trains on one device; the
+    HOUV sweeps (``model_name: houv``) round their batch to a multiple of
+    the ranks instead. ValueError inside a job whose size differs from
+    ``n_devices`` (capped at the cards), or whose ranks do not divide a
+    trainer's batch."""
+    rows = cfg.model_name != "houv"
+    cards = torch.cuda.device_count() if device.type == "cuda" else None
+    want = cfg.n_devices
+    if want and cards is not None:
+        want = min(want, cards)
     if dist.is_initialized() or "WORLD_SIZE" in os.environ:
         mesh = make_mesh(device=init_distributed(device=device))
         n = mesh.size
-        if cfg.n_devices and cfg.n_devices != n:
+        if want and want != n:
             raise ValueError(f"n_devices {cfg.n_devices} in a job of {n} "
                              "ranks")
-    else:
-        cards = torch.cuda.device_count() if device.type == "cuda" else None
-        n = cfg.n_devices or cards or 1
-        if cards is not None and n > cards:
-            raise ValueError(f"n_devices {n} exceeds the {cards} visible "
-                             "cards")
-        mesh = local_mesh(device) if n == 1 else None
-    if cfg.batch_size % n:
-        raise ValueError(f"batch_size {cfg.batch_size} is not divisible by "
-                         f"n_devices {n}")
-    return mesh, (0 if mesh is not None else n)
+        if rows and cfg.batch_size % n:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} is not divisible by the job's "
+                f"{n} ranks: training and the model sweeps split a batch "
+                "into equal rows a rank (started by the CLI, such a batch "
+                "runs in one process, as the JAX CLI runs it on one device)")
+        return mesh, 0
+    n = want or cards or 1
+    if rows and cfg.batch_size % n:
+        n = 1
+    return (local_mesh(device), 0) if n == 1 else (None, n)
 
 
 def _rank_entry(entry, argv: list):
@@ -331,9 +344,10 @@ def _houv_sweep(cfg: Config, ds, log, mesh, offset: int = 0):
     device = mesh.device
     scorer = make_rescorer(cfg, log, device, mesh)
     # Pairs go in batches of batch_size (the restart expansion makes a
-    # pair kernel·N points); the tail batch is padded by repetition so
+    # pair kernel·N points), rounded down to a multiple of the ranks (at
+    # least one pair a rank); the tail batch is padded by repetition so
     # every batch shares one Adam scale, as in the JAX CLI.
-    bs = max(cfg.batch_size, 1)
+    bs = max(cfg.batch_size // mesh.size * mesh.size, mesh.size)
     n = len(ds)
     chunks = []
     diagnostics = {k: [] for k in _DIAGNOSTICS}

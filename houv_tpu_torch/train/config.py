@@ -68,8 +68,9 @@ class Config:
     # with MVP-like chamfer statistics, what the quality gates use)
     synthetic_shape: str = "blobs"
     scale_aug: bool = True           # completion train split only
-    # 'bfloat16' runs vrcnet_knn's layers with bf16 operands (the JAX
-    # package's AMP); every other model of the port is f32 only
+    # 'bfloat16' runs a model's layers in bf16 where the JAX model does
+    # (flax dtype=bf16, cast by cast); parameters, optimizer state and
+    # running statistics stay f32
     compute_dtype: str | None = None
 
     # optimization

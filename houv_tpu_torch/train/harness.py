@@ -60,9 +60,6 @@ logger = logging.getLogger("houv_tpu_torch")
 COMPLETION_MODELS = {"pcn", "ecg", "vrcnet", "vrcnet_knn", "transformer"}
 LEARNED_REGISTRATION = {"dcp", "deepgmr", "idam"}
 AUX_MODELS = {"model_embedding", "alignment_spconv", "voxel_asym"}
-# the models whose compute_dtype may be bfloat16 (the rest are f32 only)
-_BF16_MODELS = {"vrcnet_knn", "alignment_spconv"}
-
 # models that draw random numbers (latent noise, dropout, sampled points)
 # and so take a generator; PCN, ECG, the transformer, DCP and DeepGMR draw
 # none, vrcnet_knn only its dropout masks, IDAM its train-time sampling
@@ -76,24 +73,15 @@ def model_from_config(cfg: Config) -> torch.nn.Module:
     """The config's completion model (pcn, ecg, vrcnet, vrcnet_knn or
     transformer), learned registration model (dcp, deepgmr or idam) or aux
     model (model_embedding, alignment_spconv or voxel_asym): the config's
-    keys mapped onto the model's constructor. ``compute_dtype`` bfloat16
-    is ported for vrcnet_knn and alignment_spconv; the others are f32."""
-    name = cfg.model_name
+    keys mapped onto the model's constructor, ``compute_dtype`` to every
+    one of them, as the JAX factory does."""
+    name, dt = cfg.model_name, cfg.compute_dtype
     if name not in MODELS:
         get_model(name)  # raises: no such model
-    if cfg.compute_dtype not in (None, "float32") \
-            and name not in _BF16_MODELS:
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is ported for "
-            f"{sorted(_BF16_MODELS)} only; {name!r} runs in f32 (ROADMAP.md "
-            "Queue 1, item 11)")
     if name == "model_embedding":
-        return get_model(name)
-    if name == "alignment_spconv":
-        return get_model(name, grid_size=cfg.grid_size,
-                         compute_dtype=cfg.compute_dtype)
-    if name == "voxel_asym":
-        return get_model(name, grid_size=cfg.grid_size)
+        return get_model(name, compute_dtype=dt)
+    if name in ("alignment_spconv", "voxel_asym"):
+        return get_model(name, grid_size=cfg.grid_size, compute_dtype=dt)
     if name == "vrcnet_knn":
         return get_model(
             name, num_native=cfg.num_native, num_coarse=cfg.num_coarse,
@@ -101,21 +89,21 @@ def model_from_config(cfg: Config) -> torch.nn.Module:
             layers=tuple(cfg.layers), knn_list=tuple(cfg.knn_list),
             pk=cfg.pk, voxel_grid_size=cfg.grid_size,
             voxel_init_size=cfg.voxel_init_size, remat=cfg.use_remat,
-            compute_dtype=cfg.compute_dtype,
-            voxel_conv_remat=cfg.voxel_conv_remat, fused_cd=cfg.fused_cd)
+            compute_dtype=dt, voxel_conv_remat=cfg.voxel_conv_remat,
+            fused_cd=cfg.fused_cd)
     if name == "dcp":
-        return get_model(name, cycle=cfg.cycle)
+        return get_model(name, cycle=cfg.cycle, compute_dtype=dt)
     if name == "deepgmr":
         return get_model(name, use_rri=cfg.use_rri, rri_size=cfg.rri_size,
-                         num_groups=cfg.num_groups)
+                         num_groups=cfg.num_groups, compute_dtype=dt)
     if name == "idam":
         return get_model(name, descriptor_size=cfg.descriptor_size,
-                         num_iters=cfg.num_iters)
+                         num_iters=cfg.num_iters, compute_dtype=dt)
     if name == "transformer":
         return get_model(name, num_points=cfg.num_points,
-                         eval_emd=cfg.eval_emd)
+                         eval_emd=cfg.eval_emd, compute_dtype=dt)
     kw = dict(num_points=cfg.num_points, num_coarse=cfg.num_coarse,
-              train_loss=cfg.loss, eval_emd=cfg.eval_emd)
+              train_loss=cfg.loss, eval_emd=cfg.eval_emd, compute_dtype=dt)
     if name == "ecg":
         kw.update(num_input=cfg.num_input or cfg.num_points)
     elif name == "vrcnet":

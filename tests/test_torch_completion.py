@@ -6,6 +6,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from houv_tpu.data import MVPCompletionDataset as JDataset
@@ -17,7 +18,7 @@ from houv_tpu_torch.data import MVPCompletionDataset as TDataset
 from houv_tpu_torch.data import batch_iterator as tbatches
 from houv_tpu_torch.data import shard_ranges as tshards
 from houv_tpu_torch.data import synthesize_completion_set as tsynth
-from houv_tpu_torch.train.cli import build_dataset
+from houv_tpu_torch.train.cli import build_dataset, make_trainer
 from houv_tpu_torch.train.cli import test_main as torch_test_main
 from houv_tpu_torch.train.config import load_config
 from houv_tpu_torch.train.harness import CompletionTrainer, model_from_config
@@ -202,15 +203,35 @@ def test_pcn_and_ecg_test_main_and_validate_on_cpu(tmp_path, model):
     assert with_emd.best["emd"] == (0, more["emd"])
 
 
+def one_bf16_step(path):
+    """The config's trainer builds its model with ``compute_dtype:
+    bfloat16`` and takes one step on the CPU: a finite loss, the
+    parameters f32 and moved."""
+    cfg = load_config(path)
+    assert cfg.compute_dtype == "bfloat16"
+    trainer = make_trainer(cfg, "cpu")
+    trainer.init_state()
+    ds = trainer.wrap_dataset(build_dataset(cfg, "train"))
+    batch = ds.get_batch(np.arange(cfg.batch_size),
+                         rng=np.random.default_rng(0))
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    loss = float(trainer.train_step(batch, 0, 0))
+    assert np.isfinite(loss)
+    after = list(trainer.model.parameters())
+    assert all(p.dtype == torch.float32 for p in after)
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
+
+
 def test_completion_branch_raises_what_is_not_ported(tmp_path):
-    for extra, match in ((dict(model_name="transformer",
-                               compute_dtype="bfloat16"), "item 11"),
-                         (dict(model_name="voxel_asym",
-                               compute_dtype="bfloat16"), "item 11"),
-                         (dict(compute_dtype="bfloat16"), "f32")):
-        cfg = load_config(_tiny_cfg(tmp_path, **extra))
-        with pytest.raises(NotImplementedError, match=match):
-            model_from_config(cfg)
+    # bf16 is ported for every model: the models that refused it (item 11)
+    # build and take a step in it
+    for extra in (dict(model_name="transformer"),
+                  dict(model_name="voxel_asym", grid_size=12),
+                  dict()):
+        one_bf16_step(_tiny_cfg(tmp_path, compute_dtype="bfloat16",
+                                **extra))
+    assert type(model_from_config(load_config(_tiny_cfg(
+        tmp_path, compute_dtype="bfloat16")))).__name__ == "VRCNet"
     cfg = load_config(_tiny_cfg(tmp_path, use_gan=True))
     with pytest.raises(NotImplementedError, match="use_gan"):
         CompletionTrainer(cfg, "cpu")

@@ -13,6 +13,7 @@ written once, the refusals. The rank functions are in
 
 import os
 
+import h5py
 import jax
 import numpy as np
 import pytest
@@ -158,10 +159,10 @@ def _houv_yaml(tmp_path, name, **extra):
     8 restarts, 128 points, a 10-step cadence, rotations to 90°."""
     with open(os.path.join(_REPO, "cfgs", "houv_fast.yaml")) as f:
         raw = yaml.safe_load(f)
-    raw.update(num_points=128, kernel=8, num_epochs=10, batch_size=8,
-               synthetic_size=12, synthetic_shape="structured",
-               nn_refresh_schedule="4:2:4,4:2:2,2:2", max_angle=90.0,
-               work_dir=str(tmp_path / name), **extra)
+    raw.update(dict(num_points=128, kernel=8, num_epochs=10, batch_size=8,
+                    synthetic_size=12, synthetic_shape="structured",
+                    nn_refresh_schedule="4:2:4,4:2:2,2:2", max_angle=90.0,
+                    work_dir=str(tmp_path / name)), **extra)
     path = tmp_path / f"{name}.yaml"
     path.write_text(yaml.safe_dump(raw))
     return str(path)
@@ -199,20 +200,54 @@ def test_cli_trains_over_two_ranks_and_rank_0_writes_on_the_port(tmp_path):
 
 def test_cli_refuses_what_does_not_divide_on_the_port(tmp_path,
                                                      monkeypatch):
-    """The departures from the JAX CLI, which trains on one device when
-    the batch does not divide and takes the first n devices: both raise,
-    before any rank starts."""
-    path = _houv_yaml(tmp_path, "three", n_devices=3)
-    with pytest.raises(ValueError, match="batch_size 8 is not divisible by "
-                                         "n_devices 3"):
-        tcli.test_main(["-c", path, "--device", "cpu"])
-    with pytest.raises(ValueError, match="not divisible"):
-        tcli.main(["train", "-c", path, "--device", "cpu"])
+    """The JAX CLI's rule for ranks that do not divide the batch: the HOUV
+    sweep rounds its batch down to a multiple of the ranks (3 ranks at
+    batch 8 solve batches of 6, bit-equal to one process at batch 6, as
+    the JAX CLI at ``n_devices: 3`` does, with its row count), and
+    training runs in one process (the checkpoint equal to ``n_devices:
+    1``'s). What still refuses: a job whose size is not ``n_devices``."""
+    from houv_tpu.train import cli as jcli
+
+    three = tcli.test_main(["-c", _houv_yaml(tmp_path, "three",
+                                             n_devices=3),
+                            "--device", "cpu"])
+    six = tcli.test_main(["-c", _houv_yaml(tmp_path, "six", batch_size=6),
+                          "--device", "cpu"])
+    assert three["n_pairs"] == six["n_pairs"] == 12
+    assert three["n_retry"] == six["n_retry"] > 0
+    rows = read_results_h5(three["results_h5"])
+    assert rows.tobytes() == read_results_h5(six["results_h5"]).tobytes()
+    with h5py.File(jcli.test_main(
+            ["-c", _houv_yaml(tmp_path, "jax", n_devices=3)]), "r") as f:
+        assert f["results"].shape == rows.shape == (12, 4, 4)
+
+    ckpts = []
+    for n in (3, 1):
+        out = tcli.main(["train", "-c", _pcn_yaml(tmp_path, f"pcn{n}",
+                                                  n_devices=n),
+                         "--device", "cpu"])
+        assert "trainer" in out                  # ran in this process
+        ckpts.append(torch.load(out["checkpoint"], weights_only=False))
+    for name, p in ckpts[1]["model"].items():
+        assert torch.equal(ckpts[0]["model"][name], p), name
+
     # a job of one rank (torchrun's WORLD_SIZE 1) with n_devices 2
     monkeypatch.setenv("WORLD_SIZE", "1")
     with pytest.raises(ValueError, match="job of 1"):
         tcli.test_main(["-c", _houv_yaml(tmp_path, "two", n_devices=2),
                         "--device", "cpu"])
+
+
+def _pcn_yaml(tmp_path, name, **extra):
+    """A CPU-sized pcn.yaml: batch 8 over 16 clouds, one epoch."""
+    with open(os.path.join(_REPO, "cfgs", "pcn.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw.update(num_points=128, num_coarse=64, batch_size=8, synthetic_size=16,
+               scale_aug=False, nepoch=1, work_dir=str(tmp_path / name),
+               **extra)
+    path = tmp_path / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return str(path)
 
 
 @pytest.mark.parametrize("groups", [1, 2])
