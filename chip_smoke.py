@@ -139,6 +139,13 @@ failed check exits non-zero:
    peak memory), ECG's bf16 kNN picks held to the plain version index for
    index, and each model at the parity tests' size on the card against
    the CPU path within 5e-3 (the CPU run's picks handed to the card's);
+   then the cascade-GAN trainer (``phase_gan``): cfgs/vrcnet.yaml with
+   ``use_gan`` at full width through ``train_main`` (8 GAN steps, the
+   critic in the checkpoint, the reloads bit-equal), 10 GAN steps on one
+   batch (the recon loss must fall, the critic's stay finite; launches a
+   step those of a plain step) and one GAN step at the parity size on the
+   card against the CPU path in f64 (the generator's and the critic's
+   gradients to 1e-3 of each tensor's largest entry);
    then torch.distributed (``phase_parallel``): NCCL over every visible card
    (at most 4; world size 1 on a one-card machine, where the mesh still
    holds the world group, so the collectives run through NCCL) with its
@@ -162,7 +169,12 @@ failed check exits non-zero:
    ``grad_mode='scatter'`` beside the gather mode, and ``nn_select=True``
    beside the default (with a profiled window of 5 steps of each at 16
    pairs: K3 one kernel a step, no memset, no unpack pass), then the
-   exported row gather on that solve's matches;
+   exported row gather on that solve's matches; then the solver's
+   ablations (``phase_ablations``, ``ABLATIONS``: each reparam,
+   ``two_bracket``, ``euler``, ``multi_percent``, ``select_percent=1.0``,
+   ``consensus``, ``voxel_downsample: 50`` and scripts/quality_gate.py's
+   ``v3`` bundle), one solve each, K1 and K4 launches held to the code's,
+   ``voxel_downsample``'s K4 sums bit for bit against the plain version;
 7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
    one houv_rescore window (8 pairs: the pool solve, then the scoring by
    the trained classifier; both windows the device's activity only), of
@@ -2618,6 +2630,23 @@ class _Census(_Picks):
         return self.fn(points, k, *args, **kwargs)
 
 
+def _replay_geometry(model, picks):
+    """A hook on VRCNet's U-Net encoder that keeps the geometry (kNN
+    graphs, pooling and unpooling picks) it is given in ``seen``; with
+    ``picks`` (another run's) it counts the entries that differ and hands
+    the encoder ``picks['geometry']`` instead. Returns (seen, handle)."""
+    seen = {}
+
+    def hook(_, args):
+        seen["geometry"] = args[1]
+        if picks is None:
+            return None
+        seen["flips"] = _flips(args[1], picks["geometry"])
+        return (args[0], _share_picks(args[1], picks["geometry"]), *args[2:])
+
+    return seen, model.decoder.encoder.register_forward_pre_hook(hook)
+
+
 def _small_train_step(cfg, batch, noise, dev, dtype, picks=None):
     """One forward and backward of the seeded small model on ``dev`` in
     ``dtype``: total_loss, the gradients by name (f64, on the CPU) and the
@@ -2634,16 +2663,7 @@ def _small_train_step(cfg, batch, noise, dev, dtype, picks=None):
         16, torch.Generator().manual_seed(12))
     model = model.to(dtype)
     given = picks or {"fps": None, "matches": None, "geometry": None}
-    seen = {}
-
-    def hook(_, args):
-        seen["geometry"] = args[1]
-        if picks is None:
-            return None
-        seen["flips"] = _flips(args[1], given["geometry"])
-        return (args[0], _share_picks(args[1], given["geometry"]), *args[2:])
-
-    handle = model.decoder.encoder.register_forward_pre_hook(hook)
+    seen, handle = _replay_geometry(model, picks)
     with _Picks(furthest_point_sample, given["fps"]) as fps, \
             _Picks(chamfer_indices, given["matches"]) as matches:
         out = model(torch.as_tensor(batch["partial"], device=dev).to(dtype),
@@ -2753,16 +2773,25 @@ def _repeated_batch(tmp, n_steps, use_remat, model="vrcnet", **extra):
     _zero(counters)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    losses = [float(trainer.train_step(batch, 0, 0))]
+    critic = []
+
+    def step(i):
+        loss = float(trainer.train_step(batch, 0, i))
+        if trainer.critic is not None:
+            critic.append(float(trainer.critic_loss))
+        return loss
+
+    losses = [step(0)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for step in range(1, n_steps):
-        losses.append(float(trainer.train_step(batch, 0, step)))
+    for i in range(1, n_steps):
+        losses.append(step(i))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     rec = {"phase": "train_repeated_batch", "config": f"cfgs/{model}.yaml",
            "batch": bs, "use_remat": use_remat, "loss": cfg.loss,
            "steps": n_steps, "losses": losses,
+           **({"critic_losses": critic} if critic else {}),
            "launches": _read(counters),
            "steps_per_s": (n_steps - 1) / seconds,
            "clouds_per_s": bs * (n_steps - 1) / seconds,
@@ -2843,6 +2872,8 @@ def run_train_main(tmp, model, **extra):
            "parameters_constant_by_construction": constant,
            "parameters_with_finite_grad": finite_grads,
            "checkpoint": os.path.basename(out["checkpoint"]),
+           "checkpoint_entries": sorted(torch.load(
+               out["checkpoint"], map_location="cpu", weights_only=True)),
            "checkpoint_files": sorted(os.listdir(out["log_dir"])),
            "reload_bit_equal": same_trainer,
            "test_main_load_model_bit_equal": same_sweep,
@@ -4231,6 +4262,217 @@ def phase_bf16():
     return out
 
 
+def _small_gan_step(cfg, batch, noise, dev, dtype, picks=None):
+    """One GAN step of ``CompletionTrainer`` (``use_gan``) on the seeded
+    small VRCNet and critic on ``dev`` in ``dtype``, its latent noise and
+    dropout masks given: (recon loss, critic loss, the generator's and the
+    critic's gradients by name (f64, on the CPU), the picks, their flips),
+    picks as ``_small_train_step`` keeps and replays them."""
+    from houv_tpu_torch.ops.chamfer import chamfer_indices
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    trainer = CompletionTrainer(cfg, dev)
+    model = trainer.init_state()
+    masks = model.decoder.encoder.dropout_masks(
+        16, torch.Generator().manual_seed(12))
+    model.to(dtype)
+    trainer.critic.to(dtype)
+    forward = model.forward
+    model.forward = lambda *a, generator=None, **kw: forward(
+        *a, noise=[n.to(dev, dtype) for n in noise],
+        dropout_masks=[m.to(dtype) for m in masks], **kw)
+    given = picks or {"fps": None, "matches": None, "geometry": None}
+    seen, handle = _replay_geometry(model, picks)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    batch = {k: v.astype(np_dtype) if v.dtype.kind == "f" else v
+             for k, v in batch.items()}
+    with _Picks(furthest_point_sample, given["fps"]) as fps, \
+            _Picks(chamfer_indices, given["matches"]) as matches:
+        loss = float(trainer.train_step(batch, 0, 0))
+    handle.remove()
+    return (loss, float(trainer.critic_loss),
+            {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+            {n: p.grad.double().cpu()
+             for n, p in trainer.critic.named_parameters()},
+            {"fps": fps.kept, "matches": matches.kept,
+             "geometry": seen["geometry"]},
+            {"fps": fps.flips, "matches": matches.flips,
+             "geometry": seen.get("flips", 0)})
+
+
+def _worst_grads(grads, ref):
+    """(error over the tensor's largest f64 entry, name, that entry), the
+    worst first."""
+    return sorted(((float((grads[n] - r).abs().max() / r.abs().max()), n,
+                    float(r.abs().max())) for n, r in ref.items()),
+                  reverse=True)
+
+
+def _gan_reference():
+    """One GAN step at the parity tests' size (``phase_train_reference``'s
+    VRCNet, batch 8, ``use_gan``) on the card against the port's CPU path
+    in f64: the same seeded weights and critic, batch, latent noise,
+    dropout masks and picks. Held at that phase's tolerances: the recon
+    and critic losses to 1e-4 relative, every gradient of the generator
+    and of the critic to 1e-3 of that tensor's largest f64 entry."""
+    from houv_tpu_torch.train.cli import build_dataset
+
+    cfg = _small_train_cfg(use_gan=True)
+    batch = build_dataset(cfg, "train").get_batch(
+        np.arange(8), rng=np.random.default_rng(0))
+    g = torch.Generator().manual_seed(11)
+    noise = [torch.randn((8, 128), generator=g) for _ in range(2)]
+    ref = _small_gan_step(cfg, batch, noise, "cpu", torch.float64)
+    card = _small_gan_step(cfg, batch, noise, "cuda", torch.float32, ref[4])
+    rec = {"phase": "gan_reference", "clouds": 8, "points": 256,
+           "loss_tolerance_rel": 1e-4,
+           "grad_tolerance_over_tensor_max": 1e-3,
+           "recon_loss_cpu_f64": ref[0], "critic_loss_cpu_f64": ref[1],
+           "recon_loss_rel_diff": abs(card[0] - ref[0]) / abs(ref[0]),
+           "critic_loss_rel_diff": abs(card[1] - ref[1]) / abs(ref[1]),
+           "picks_differing_from_f64": card[5]}
+    for part, i in (("generator", 2), ("critic", 3)):
+        rows = _worst_grads(card[i], ref[i])
+        rec[part] = {"parameters": len(rows), "worst_grads": [
+            {"name": n, "err_over_tensor_max": e, "tensor_max": m}
+            for e, n, m in rows[:3]]}
+    emit(rec)
+    worst = max(rec[p]["worst_grads"][0]["err_over_tensor_max"]
+                for p in ("generator", "critic"))
+    if not (rec["recon_loss_rel_diff"] <= 1e-4
+            and rec["critic_loss_rel_diff"] <= 1e-4 and worst <= 1e-3):
+        fail(f"GAN step on the card differs from the f64 CPU path: losses "
+             f"{rec['recon_loss_rel_diff']:.3g}, "
+             f"{rec['critic_loss_rel_diff']:.3g} relative, a gradient "
+             f"{worst:.3g} of its tensor's largest entry")
+    return rec
+
+
+def phase_gan():
+    """The cascade-GAN trainer (``use_gan``) on cfgs/vrcnet.yaml at full
+    width (batch 32, 2048 points, KLD, the critic on the first 2048 points
+    of the fine cloud): ``train_main`` (``run_train_main``: two epochs of
+    four GAN steps, launches held, the checkpoint holding the critic and
+    reloading to bit-equal predictions through a trainer and through
+    ``test_main``), 10 GAN steps on one repeated batch (the recon loss
+    must fall, the critic's loss stay finite), and one GAN step at the
+    parity size against the CPU path in f64 (``_gan_reference``). The
+    critic runs no kernel: a GAN step launches what a plain step launches,
+    ``LAUNCHES['vrcnet']['train']``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = run_train_main(tmp, "vrcnet", use_gan=True)
+        if not {"critic", "critic_optimizer"} <= set(
+                rec["checkpoint_entries"]):
+            fail(f"GAN checkpoint holds {rec['checkpoint_entries']}")
+        rep = _repeated_batch(tmp, 10, False, use_gan=True)
+        _falling(rep, "vrcnet")
+        if not np.isfinite(rep["critic_losses"]).all():
+            fail(f"GAN critic losses {rep['critic_losses']}")
+    ref = _gan_reference()
+    emit({"phase": "gan", "card": card_line(),
+          "train_main_steps_per_s": rec["steps_per_s_with_validate_and_save"],
+          "steps_per_s": rep["steps_per_s"],
+          "peak_memory_gib": rep["peak_memory_gib"],
+          "launches_per_step": LAUNCHES["vrcnet"]["train"]})
+    return {"train": rec, "repeated": rep, "reference": ref}
+
+
+# The solver ablations run by ``phase_ablations``, each over the canonical
+# cfgs/houv.yaml solve; 'v3' is scripts/quality_gate.py's bundle.
+ABLATIONS = {
+    "sigmoid": dict(reparam="sigmoid"),
+    "v3_reparam": dict(reparam="v3"),
+    "unconstrained": dict(reparam="unconstrained"),
+    "two_bracket": dict(two_bracket=True),
+    "euler": dict(rotation_mode="euler"),
+    "multi_percent": dict(objective="multi_percent"),
+    "select_percent": dict(select_percent=1.0),
+    "consensus": dict(window_select="consensus"),
+    "voxel_downsample": dict(voxel_downsample=50),
+    "v3": dict(reparam="v3", objective="multi_percent", two_bracket=True,
+               lr=0.01, angle_passes=2),
+}
+
+
+def _voxel_inputs(cloud, g):
+    """K4's inputs in ``ops/voxel.py:voxelize_mean`` on [-1, 1]³: the flat
+    voxel ids and [1, x, y, z]."""
+    from houv_tpu_torch.ops.voxel import voxel_grid_indices
+
+    ind = voxel_grid_indices(cloud, g, -1.0, 1.0)
+    flat = (ind[..., 0] * g + ind[..., 1]) * g + ind[..., 2]
+    return flat, torch.cat([torch.ones_like(cloud[..., :1]), cloud], -1)
+
+
+def phase_ablations():
+    """The HOUV solver's ablations (``ABLATIONS``) at cfgs/houv.yaml's
+    width (2048 points, 64 restarts), 4 pairs of the structured split,
+    the budget cut to 100 steps (``_short_solve_inputs``): one
+    ``houv_solve`` each, its transform finite, its K1 and K4 launches held
+    to the code's: K1 one search an Adam step and one at each window's
+    end (four with 'multi_percent': the three view searches), over the
+    windows that ran; K4 two (the two clouds' voxel means) with
+    ``voxel_downsample``; every other kernel of ``_completion_counters``
+    none. Seconds and rotation errors printed.
+    ``voxel_downsample``'s K4 sums on the card bit for bit against the
+    plain version, and its voxel means against the CPU path's."""
+    import dataclasses
+
+    from houv_tpu_torch.ops.voxel import voxelize_mean
+    from houv_tpu_torch.solvers.houv import (evaluate_solution, houv_solve,
+                                             init_params)
+
+    counters = _completion_counters()
+    base, src, tgt, gt = _short_solve_inputs()
+    rec = {"phase": "ablations", "config": "cfgs/houv.yaml", "pairs": 4,
+           "restarts": base.kernel, "steps": 100, "card": card_line()}
+    for name, extra in ABLATIONS.items():
+        scfg = dataclasses.replace(base, **extra)
+        params0 = init_params(torch.Generator().manual_seed(0), 4,
+                              scfg.kernel, two_bracket=scfg.two_bracket,
+                              device="cuda")
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = houv_solve(src, tgt, scfg, params0=params0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        r_err, t_err = evaluate_solution(out["transform"], gt)
+        windows = 1 + (scfg.angle_passes - 1) * int(out["n_retry"] > 0)
+        searches = 4 if scfg.objective == "multi_percent" else 1
+        want = dict.fromkeys(counters, 0)
+        want["nn_both"] = windows * (scfg.steps + 1) * searches
+        want["scatter_add"] = 2 if scfg.voxel_downsample else 0
+        rec[name] = {"options": extra, "seconds": seconds,
+                     "n_retry": out["n_retry"], "windows": windows,
+                     "rot_err_deg": r_err.tolist(),
+                     "trans_err": t_err.tolist(),
+                     "rmse": out["rmse"].tolist(), "launches": got,
+                     "expected_launches": want}
+        if got != want or not torch.isfinite(out["transform"]).all():
+            emit(rec)
+            fail(f"ablation {name}: launches {got}, expected {want}; "
+                 f"transform finite: "
+                 f"{bool(torch.isfinite(out['transform']).all())}")
+    g = ABLATIONS["voxel_downsample"]["voxel_downsample"]
+    for cloud_name, cloud in (("src", src), ("tgt", tgt)):
+        check_scatter(*_voxel_inputs(cloud, g), g ** 3,
+                      f"voxel_downsample {cloud_name}")
+        vp, cnt = voxelize_mean(cloud, g, -1.0, 1.0)
+        cvp, ccnt = voxelize_mean(cloud.cpu(), g, -1.0, 1.0)
+        rec[f"voxels_{cloud_name}"] = cnt.tolist()
+        if not (torch.equal(vp.cpu().view(torch.int32),
+                            cvp.view(torch.int32))
+                and torch.equal(cnt.cpu(), ccnt)):
+            emit(rec)
+            fail(f"voxelize_mean on the card differs from the CPU path "
+                 f"({cloud_name})")
+    emit(rec)
+    return rec
+
+
 def _short_solve_inputs(pairs=4):
     """cfgs/houv.yaml's solver config with the budget cut to 100 steps, and
     ``pairs`` pairs of the structured split on the card: (config, src, tgt,
@@ -5131,7 +5373,7 @@ def _time_gather_rows(gen):
 
 def phase_kernels(launches, errs, completion, train, solve, models,
                   models_train, select, classical, combine, vrcnet_knn,
-                  learned, aux, bf16, parallel, gen):
+                  learned, aux, bf16, parallel, gan, ablations, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
@@ -5148,7 +5390,9 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     the bf16 phase's full-width runs, under ``bf16_launches`` (the bf16
     mode sends the kernels the same shapes as f32, in f32);
     ``parallel``: the parallel phase's runs, summed over their ranks,
-    under ``parallel_launches``."""
+    under ``parallel_launches``; ``gan``: the GAN phase's ``train_main``
+    and repeated-batch runs, under ``gan_launches``; ``ablations``: the
+    ablation solves, under ``ablation_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import emd
@@ -5277,6 +5521,12 @@ def phase_kernels(launches, errs, completion, train, solve, models,
                                      ("test_main", "test_main"),
                                      ("repeated", "repeated_bf16"))}
             for model, rec in bf16.items()}
+        row["gan_launches"] = {
+            run: gan[run]["launches"].get(row["name"], 0)
+            for run in ("train", "repeated")}
+        row["ablation_launches"] = {
+            name: ablations[name]["launches"].get(row["name"], 0)
+            for name in ABLATIONS}
     return out
 
 
@@ -5353,9 +5603,11 @@ def main(argv=None) -> int:
     learned = timed(phase_learned)
     aux = timed(phase_aux)
     bf16 = timed(phase_bf16)
+    gan = timed(phase_gan)
     parallel = timed(phase_parallel, fast["refs"], quality["rescore_ref"])
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
+    ablations = timed(phase_ablations)
     profiles = {"houv_fast": timed(phase_profile)}
     timed(phase_profile_rescore)
     timed(phase_profile_vrcnet)
@@ -5366,7 +5618,7 @@ def main(argv=None) -> int:
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select,
                            classical, combine, vrcnet_knn, learned, aux,
-                           bf16, parallel, gen)})
+                           bf16, parallel, gan, ablations, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -41,6 +41,16 @@ def rodrigues(angle: torch.Tensor, axis: torch.Tensor,
     return eye + sin * a + cos1 * (a @ a)
 
 
+def rotation_xyz(angles_xyz: torch.Tensor) -> torch.Tensor:
+    """R = Rx(ax) @ Ry(ay) @ Rz(az) from (..., 3) Euler-style angles, each
+    factor a ``rodrigues`` about its unit axis."""
+    eye = torch.eye(3, dtype=angles_xyz.dtype, device=angles_xyz.device)
+    rx, ry, rz = (rodrigues(angles_xyz[..., i],
+                            eye[i].expand(angles_xyz.shape))
+                  for i in range(3))
+    return (rx @ ry) @ rz
+
+
 def rt_to_transformation(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3) or (..., 3, 1) -> (..., 4, 4)."""
     if t.shape[-1] != 1:

@@ -1,7 +1,9 @@
 """Models of the port, by config name (counterpart of
 ``houv_tpu/models/__init__.py:get_model``): the completion models, the
 learned registration models and the auxiliary models (the alignment
-classifier, the voxel-occupancy net, the instance embedding)."""
+classifier, the voxel-occupancy net, the instance embedding); and, as the
+JAX package exports them, PointNet++'s set-abstraction and
+feature-propagation modules and the points sampler."""
 
 from houv_tpu_torch.models.alignment import (AlignmentClassifier, VoxAsym,
                                              alignment_bce_loss,
@@ -15,6 +17,8 @@ from houv_tpu_torch.models.embedding import (InstanceEmbedding,
                                              triplet_loss)
 from houv_tpu_torch.models.idam import IDAM
 from houv_tpu_torch.models.pcn import PCN, PCNEncoder
+from houv_tpu_torch.models.pointnet2 import (PointFPModule, PointSAModule,
+                                             points_sampler)
 from houv_tpu_torch.models.vrcnet import VRCNet
 from houv_tpu_torch.models.vrcnet_knn import VRCNetKNN
 
@@ -37,6 +41,7 @@ def get_model(name: str, **kwargs):
 
 __all__ = ["AlignmentClassifier", "DCP", "DeepGMR", "ECG", "IDAM",
            "InstanceEmbedding", "MODELS", "PCN", "PCNEncoder",
-           "PCNTransformer", "TransformerCompletion", "VRCNet", "VRCNetKNN",
-           "VoxAsym", "alignment_bce_loss", "get_model", "make_aligned_pairs",
-           "triplet_loss"]
+           "PCNTransformer", "PointFPModule", "PointSAModule",
+           "TransformerCompletion", "VRCNet", "VRCNetKNN", "VoxAsym",
+           "alignment_bce_loss", "get_model", "make_aligned_pairs",
+           "points_sampler", "triplet_loss"]

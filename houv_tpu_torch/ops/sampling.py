@@ -5,7 +5,9 @@ launches the hand-written CUDA kernel ``csrc/fps.cu`` (replacing the TPU
 kernel ``_fps_kernel``) on CUDA tensors and runs its plain PyTorch version
 ``_fps_plain`` (the loop of ``_fps_xla``) on CPU tensors. Contract: indices
 (B, K) int64, the first is 0, then the point furthest from the selected set,
-ties to the first occurrence.
+ties to the first occurrence. ``furthest_point_sample_with_dist`` runs the
+same selection over a precomputed distance matrix (plain PyTorch, as its
+JAX counterpart is plain JAX).
 """
 
 from __future__ import annotations
@@ -106,3 +108,20 @@ def furthest_point_sample(points: torch.Tensor, k: int,
 
 
 furthest_point_sample.launches = 0
+
+
+def furthest_point_sample_with_dist(dist: torch.Tensor, k: int) -> torch.Tensor:
+    """FPS over a precomputed (B, N, N) squared-distance matrix -> (B, k)
+    int64 indices: the first is 0, each next one the point furthest from
+    those taken (its least distance to them, from rows of ``dist``), ties
+    to the lowest index."""
+    bsz, n, _ = dist.shape
+    rows = torch.arange(bsz, device=dist.device)
+    min_d = torch.full((bsz, n), 1e10, dtype=dist.dtype, device=dist.device)
+    idxs = torch.zeros((bsz, k), dtype=torch.int64, device=dist.device)
+    last = torch.zeros(bsz, dtype=torch.int64, device=dist.device)
+    for i in range(1, k):
+        min_d = torch.minimum(min_d, dist[rows, last])
+        last = min_d.argmax(-1)
+        idxs[:, i] = last
+    return idxs

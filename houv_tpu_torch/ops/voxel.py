@@ -1,5 +1,5 @@
-"""Voxel indices of points (counterpart of ``houv_tpu/ops/voxel.py``'s
-``voxel_grid_indices``).
+"""Voxel indices of points and voxel means (counterpart of
+``houv_tpu/ops/voxel.py``'s ``voxel_grid_indices`` and ``voxelize_mean``).
 
 Grid convention of the reference: with volume [min_b, max_b] and grid size
 G, interval = (max_b - min_b) / (G - 1) and index = floor((clip(x) - min_b)
@@ -8,11 +8,18 @@ f32-rounded interval, as in the JAX package: a point on a cell boundary
 lands in the same voxel there and here. (PyTorch turns a division by a
 Python number on the card into a multiplication by its reciprocal, which
 moves boundary points; so the interval goes in as a tensor.)
+
+``voxelize_mean`` sums each voxel's points and counts them with one K4
+scatter (``ops/scatter.py:scatter_add``, the CUDA kernel on the card) of
+[1, x, y, z]: each sum starts from +0.0 and adds in point order, as the
+JAX package's ``.at[].add`` does on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
+
+from houv_tpu_torch.ops.scatter import scatter_add
 
 
 def voxel_grid_indices(xyz: torch.Tensor, grid_size: int = 50,
@@ -25,3 +32,28 @@ def voxel_grid_indices(xyz: torch.Tensor, grid_size: int = 50,
     clipped = torch.clamp(xyz.float(), min_bound, max_bound)
     idx = torch.floor((clipped - min_bound) / interval).long()
     return torch.clamp(idx, 0, grid_size - 1)
+
+
+def voxelize_mean(xyz: torch.Tensor, grid_size: int = 50,
+                  min_bound: float = -0.5, max_bound: float = 0.5):
+    """Mean point per occupied voxel: (B, N, 3) -> (voxel_points (B, N, 3),
+    counts (B,) int64). The occupied voxels' means fill the first
+    ``counts[b]`` rows in flat voxel order (as ``np.unique`` orders them);
+    the other rows are zero."""
+    bsz, n, _ = xyz.shape
+    g = grid_size
+    ind = voxel_grid_indices(xyz, g, min_bound, max_bound)
+    flat = (ind[..., 0] * g + ind[..., 1]) * g + ind[..., 2]
+    xyz = xyz.float()
+    sums = scatter_add(flat, torch.cat([torch.ones_like(xyz[..., :1]), xyz],
+                                       -1), g ** 3, device=xyz.device)
+    cnt = sums[..., 0]
+    occupied = cnt > 0
+    means = sums[..., 1:] / torch.clamp_min(cnt, 1.0)[..., None]
+    # occupied voxel j goes to row (#occupied before it); the rest to row n,
+    # dropped (each occupied voxel holds a point, so fewer than n of them)
+    dest = torch.where(occupied, torch.cumsum(occupied, 1) - 1, n)
+    out = torch.zeros((bsz, n + 1, 3), dtype=torch.float32,
+                      device=xyz.device)
+    out.scatter_(1, dest[..., None].expand(-1, -1, 3), means)
+    return out[:, :n], occupied.sum(1)

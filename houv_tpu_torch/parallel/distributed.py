@@ -6,14 +6,21 @@ own, gloo on the CPU, or the backend the caller names: gloo on CUDA tensors
 is how two ranks share one card, which NCCL refuses. ``init_distributed``
 joins a job that ``torchrun`` (or the caller) describes and is a no-op for a
 job of one process, as ``initialize_multihost`` is. ``launch`` starts the
-ranks of a job from one process.
+ranks of a job from one process; they meet through a file in a temporary
+directory of their own (a ``file://`` rendezvous), not a TCP port. A port
+picked free and released before rank 0 binds it can be taken in between
+by any socket bound to port 0, such as another job's gloo listener, and a
+rank that then connects to it as its store breaks that other job's
+collectives.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-import socket
+import shutil
+import sys
+import tempfile
 
 import torch
 import torch.distributed as dist
@@ -100,40 +107,48 @@ def global_mesh(axis: str = "data", device: str | torch.device = "cuda"):
     return make_mesh(axis=axis, device=device)
 
 
-def free_port() -> int:
-    """A free TCP port on localhost for the job's rendezvous."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank, fn, args, nprocs, port, device, backend, threads,
+def _rank_main(rank, fn, args, nprocs, init_method, device, backend, threads,
                timeout, results):
-    """One spawned rank: torchrun's environment, the process group (of
-    one rank too), ``fn``, and rank 0's result on ``results``."""
+    """One spawned rank: torchrun's environment (no ``MASTER_ADDR``: the
+    ranks meet at ``init_method``), the process group (of one rank too),
+    a barrier, ``fn``, rank 0's result on ``results``, and an exit that
+    skips the interpreter's shutdown. The barrier keeps a rank whose ``fn``
+    raises at once from closing its connections while a peer still makes
+    its own, which would fail the peer first and report its connection
+    error in place of the rank's. The exit: a rank whose work is done and
+    whose process group is destroyed still died now and then in the
+    interpreter's shutdown ("terminate called without an active
+    exception", no Python frame: a C++ thread still joinable when its
+    owner was destroyed), and the launch failed on that exit code. A
+    rank that raises leaves its process group to its exit, after the
+    launcher's error file is written."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
-                      WORLD_SIZE=str(nprocs), LOCAL_WORLD_SIZE=str(nprocs),
-                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                      WORLD_SIZE=str(nprocs), LOCAL_WORLD_SIZE=str(nprocs))
     if device.type == "cpu":
         torch.set_num_threads(threads)
-    _join(device, rank, nprocs, rank, nprocs, backend, "env://", timeout)
-    try:
-        out = fn(*args)
-        if rank == 0:
-            results.put(out)
-    finally:
-        dist.destroy_process_group()
+    dev = _join(device, rank, nprocs, rank, nprocs, backend, init_method,
+                timeout)
+    dist.barrier(device_ids=[dev.index] if dev.type == "cuda"
+                 and dist.get_backend() == "nccl" else None)
+    out = fn(*args)
+    if rank == 0:
+        results.put(out)
+    dist.destroy_process_group()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def launch(fn, nprocs: int, device: str | torch.device = "cuda",
            backend: str | None = None, args: tuple = (),
            timeout: float | None = None):
     """Run ``fn(*args)`` on ``nprocs`` ranks, each a process started with
-    the ``spawn`` method (CUDA forbids fork), joined over a free port on
-    localhost; returns rank 0's result (which must pickle). A rank that
-    raises makes this raise (the other ranks are ended). With ``timeout``
-    (seconds) the ranks are killed and TimeoutError raised when the job
-    outlives it, and the process group's collectives time out after it.
+    the ``spawn`` method (CUDA forbids fork), joined through a rendezvous
+    file in a new temporary directory (removed when the job ends); returns
+    rank 0's result (which must pickle, and hold no CUDA tensor: the rank
+    is gone when it is read). A rank that raises makes this raise (the
+    other ranks are ended). With ``timeout`` (seconds) the ranks are killed
+    and TimeoutError raised when the job outlives it, and the process group's collectives time out after it.
     CPU ranks share the caller's threads. On CUDA the kernels are built
     here first, so that the ranks do not all run nvcc at once."""
     dev = resolve_device(device)
@@ -144,11 +159,21 @@ def launch(fn, nprocs: int, device: str | torch.device = "cuda",
         from houv_tpu_torch import kernels
 
         kernels.load()
-    ctx = mp.get_context("spawn")
-    results = ctx.SimpleQueue()
+    results = mp.get_context("spawn").SimpleQueue()
     threads = max(1, torch.get_num_threads() // nprocs)
+    rendezvous = tempfile.mkdtemp(prefix="houv_rendezvous_")
+    try:
+        return _run_job(fn, args, nprocs, dev, backend, threads, timeout,
+                        results, f"file://{os.path.join(rendezvous, 'store')}")
+    finally:
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def _run_job(fn, args, nprocs, dev, backend, threads, timeout, results,
+             init_method):
+    """``launch``'s ranks, from their start to rank 0's result."""
     job = mp.start_processes(
-        _rank_main, args=(fn, args, nprocs, free_port(), dev, backend,
+        _rank_main, args=(fn, args, nprocs, init_method, dev, backend,
                           threads, timeout, results),
         nprocs=nprocs, join=False, start_method="spawn")
     deadline = None if timeout is None else (

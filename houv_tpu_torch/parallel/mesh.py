@@ -249,7 +249,8 @@ def _batch_params(src, cfg: HOUVConfig, params0, generator):
     if params0 is None:
         generator = generator or torch.Generator().manual_seed(0)
         params0 = init_params(generator, src.shape[0], cfg.kernel,
-                              cfg.lattice_init, device="cpu")
+                              cfg.lattice_init, cfg.two_bracket,
+                              device="cpu")
     return params0
 
 
@@ -298,7 +299,7 @@ def sharded_houv_solve(src: torch.Tensor, tgt: torch.Tensor, mesh: Mesh,
     the whole batch with the same restarts."""
     _, pools = sharded_houv_pools(src, tgt, mesh, cfg, params0, generator,
                                   axis)
-    transform, rmse = pick_restart(*pools[:3])
+    transform, rmse = pick_restart(*pools[:3], cfg)
     return {"transform": all_gather_rows(transform, mesh, axis),
             "rmse": all_gather_rows(rmse, mesh, axis),
             "n_retry": sum_int(pools[3], mesh, axis)}
@@ -316,7 +317,19 @@ def sharded_houv_solve_2d(src: torch.Tensor, tgt: torch.Tensor, mesh: Mesh,
     whether the retry windows run, and n_retry is counted over 'data'
     only. The pick gathers the restart shards' pools and takes
     ``houv_solve``'s rule: the least loss, ties to the earlier window, then
-    to the lower restart. Returns what ``sharded_houv_solve`` returns."""
+    to the lower restart. ``two_bracket`` and ``window_select='consensus'``
+    read a pair's whole restart axis, so a split one refuses them, as the
+    JAX package's does. Returns what ``sharded_houv_solve`` returns."""
+    if mesh.shape["restart"] > 1:
+        if cfg.two_bracket:
+            raise NotImplementedError(
+                "two_bracket splits the restart axis itself — use the 1-D "
+                "mesh")
+        if cfg.window_select != "loss":
+            raise NotImplementedError(
+                "window_select='consensus' counts agreement across the "
+                "FULL restart axis — use the 1-D mesh (pairs-only "
+                "sharding)")
     bsz = src.shape[0]
     rows = rank_rows(bsz, mesh, "data")
     cols = rank_rows(cfg.kernel, mesh, "restart")
@@ -333,7 +346,7 @@ def sharded_houv_solve_2d(src: torch.Tensor, tgt: torch.Tensor, mesh: Mesh,
         dataclasses.replace(cfg, kernel=lk), params0=local, device=dev,
         divisor=bsz * cfg.kernel, best_reduce=cross_shard_best)
     transform, rmse = pick_across_restarts(pool_loss, pool_r, pool_t, lk,
-                                           mesh)
+                                           mesh, cfg)
     return {"transform": all_gather_rows(transform, mesh, "data"),
             "rmse": all_gather_rows(rmse, mesh, "data"),
             "n_retry": sum_int(n_retry, mesh, "data")}
@@ -353,12 +366,14 @@ def _gather_restarts(pool: torch.Tensor, lk: int, mesh: Mesh):
     return parts.movedim(0, 2).reshape(bl, wk * n_restart, *tail)
 
 
-def pick_across_restarts(pool_loss, pool_r, pool_t, lk: int, mesh: Mesh):
+def pick_across_restarts(pool_loss, pool_r, pool_t, lk: int, mesh: Mesh,
+                         cfg: HOUVConfig):
     """``houv_solve``'s pick over the pools of every restart shard, each
     (Bl, W·lk, ...): gathered into the unsharded layout, the least loss,
     ties to the earlier window, then to the lower restart (within a window
     that is the JAX package's rule, mesh.py:221-229: the least over the
-    shards, then the lowest shard). Returns (transform (Bl, 4, 4), rmse
-    (Bl,)), the same on every restart shard."""
+    shards, then the lowest shard); ``cfg`` as ``pick_restart`` reads it.
+    Returns (transform (Bl, 4, 4), rmse (Bl,)), the same on every restart
+    shard."""
     return pick_restart(*(_gather_restarts(p, lk, mesh)
-                          for p in (pool_loss, pool_r, pool_t)))
+                          for p in (pool_loss, pool_r, pool_t)), cfg)

@@ -1,7 +1,8 @@
 """HOUV — Hybrid Optimization with Unconstrained Variables, in PyTorch.
 
-Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective (and its
-``grad_mode='scatter'`` formulation):
+Counterpart of ``houv_tpu/solvers/houv.py``: the canonical objective (and
+its ``grad_mode='scatter'`` formulation) and the JAX solver's ablations
+(below the list):
 
 - Each source/target pair is expanded to ``kernel`` random restarts, each
   with four unconstrained parameters: rotation axis ``v_c`` (3,), angle
@@ -30,6 +31,23 @@ Counterpart of ``houv_tpu/solvers/houv.py``, canonical objective (and its
   threshold are solved again at angle bases 1..passes-1, and the restart of
   least loss over the windows wins (``houv_candidate_pools`` keeps every
   restart of every window, for the rescored selection).
+
+The ablations, each as the JAX solver runs it: ``reparam`` 'sigmoid',
+'v3' and 'unconstrained' windows; ``rotation_mode='euler'`` (Rx·Ry·Rz of
+the ``angle_xyz`` parameters, which every restart carries and Adam steps
+in every mode: unused, they keep a zero gradient and stay put);
+``two_bracket`` (the restart axis halved, the second half one window up,
+both halves lattice-seeded, bracket 0 kept unless bracket 1 is better by
+``bracket_preference``); ``objective='multi_percent'`` (min-CDs at 100%,
+30% and 10% and the three view CDs, each extra term weighted by a
+detached ratio to the full one, restarts ranked by the 10% one: three
+view searches a step beside the main one); ``select_percent`` (restarts
+and windows ranked by the CD at another keep fraction);
+``window_select='consensus'`` (each window's best restart carries the
+count of restarts that agree with it, and the best-agreed window within
+``consensus_window_ratio`` of the best loss wins); ``voxel_downsample``
+(each cloud replaced by its voxel means, ``ops/voxel.py:voxelize_mean``
+on the K4 scatter, repeated to the cloud's size).
 """
 
 from __future__ import annotations
@@ -44,6 +62,7 @@ from houv_tpu_torch.geometry.rotations import (
     normalize_translation,
     rodrigues,
     rotation_error,
+    rotation_xyz,
     rt_to_transformation,
     translation_error,
 )
@@ -57,20 +76,11 @@ from houv_tpu_torch.metrics.cd import (
 from houv_tpu_torch.ops.chamfer import chamfer_indices, nn_select
 from houv_tpu_torch.ops.gather import gather_rows
 from houv_tpu_torch.ops.sampling import furthest_point_sample
+from houv_tpu_torch.ops.voxel import voxelize_mean
 
 _PI = math.pi
-_PARAM_NAMES = ("v_c", "angle_c", "tran_c", "tran_s")
-
-# Options of the JAX solver that this port does not run yet, with the one
-# value it accepts (ROADMAP.md, Queue 1: the solver ablations).
-UNPORTED_DEFAULTS = {
-    "objective": "trunc",
-    "two_bracket": False,
-    "voxel_downsample": None,
-    "window_select": "loss",
-    "rotation_mode": "axis_angle",
-    "reparam": "sine",
-}
+_PARAM_NAMES = ("v_c", "angle_c", "tran_c", "tran_s", "angle_xyz")
+_REPARAMS = ("sine", "sigmoid", "unconstrained", "v3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,22 +114,30 @@ class HOUVConfig:
     # (ops/chamfer.py:nn_select) instead of indices for two row gathers; the
     # matched raw src rows are recovered as R0^T (c1 - t0)
     nn_select: bool = False
-    # Options that raise NotImplementedError unless left at their default
-    # (UNPORTED_DEFAULTS).
+    # The ablations (see the module's note). 'sine' | 'sigmoid' |
+    # 'unconstrained' | 'v3'; 'axis_angle' | 'euler'
+    reparam: str = "sine"
+    rotation_mode: str = "axis_angle"
+    # voxel grid size of the input reduction (None: the clouds as given)
+    voxel_downsample: int | None = None
+    # 'trunc' (canonical) | 'multi_percent'; the latter and select_percent
+    # need grad_mode='gather'
     objective: str = "trunc"
     two_bracket: bool = False
-    voxel_downsample: int | None = None
+    bracket_preference: float = 1.3  # rmse1 < 1.3·rmse2 keeps bracket 0
+    select_percent: float | None = None
+    # 'loss' (keep the window of least loss) | 'consensus'
     window_select: str = "loss"
-    rotation_mode: str = "axis_angle"
-    reparam: str = "sine"
+    consensus_angle: float = 15.0
+    consensus_loss_ratio: float = 1.3
+    consensus_window_ratio: float = 1.5
 
     def __post_init__(self):
-        for name, default in UNPORTED_DEFAULTS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"HOUVConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"yet (only {default!r}); see ROADMAP.md Queue 1, "
-                    "item 7c")
+        if self.reparam not in _REPARAMS:
+            raise ValueError(f"unknown reparam {self.reparam!r}")
+        if self.window_select not in ("loss", "consensus"):
+            raise ValueError(
+                f"unknown window_select {self.window_select!r}")
         if self.grad_mode not in ("gather", "scatter"):
             raise ValueError(f"unknown grad_mode {self.grad_mode!r}")
         if self.nn_select and self.grad_mode != "gather":
@@ -131,11 +149,14 @@ class HOUVConfig:
 
 
 def init_params(generator: torch.Generator, batch: int, kernel: int,
-                lattice_init: bool = True,
+                lattice_init: bool = True, two_bracket: bool = False,
                 device: str | torch.device = "cuda") -> dict:
     """Unconstrained parameters for (batch, kernel) replicas, drawn on the
     CPU from ``generator`` (so a seed gives the same restarts on every
-    device) and moved to ``device``."""
+    device) and moved to ``device``. With ``two_bracket`` each half of the
+    restart axis gets the lattice axes. ``angle_xyz``, the Euler angles,
+    is drawn last, so the other parameters of a seed do not depend on
+    it."""
     def normal(*shape):
         return torch.randn(shape, generator=generator, dtype=torch.float32)
 
@@ -146,27 +167,66 @@ def init_params(generator: torch.Generator, batch: int, kernel: int,
              for z in (-1, 0, 1) if (x, y, z) != (0, 0, 0)],
             dtype=torch.float32,
         )
-        n_lat = min(26, kernel)
-        v_c[:, :n_lat] = lattice[:n_lat]
+        starts = (0, kernel // 2) if two_bracket else (0,)
+        n_lat = min(26, kernel // len(starts))
+        for start in starts:
+            v_c[:, start:start + n_lat] = lattice[:n_lat]
     params = {
         "v_c": v_c,
         "angle_c": normal(batch, kernel, 1),
         "tran_c": normal(batch, kernel, 3),
         "tran_s": normal(batch, kernel, 1),
+        "angle_xyz": normal(batch, kernel, 3),
     }
     return {k: v.to(device) for k, v in params.items()}
 
 
-def reparametrize(params: dict, angle_base: float, tran_mode: str = "mvp"):
-    """Unconstrained params -> (R (B, K, 3, 3), T (B, K, 3)), sine windows."""
-    angle = (torch.sin(params["angle_c"] * _PI) * (_PI / 8) + _PI / 8
-             + angle_base * (_PI / 4))
-    tran_s = torch.sin(params["tran_s"] * _PI)
-    if tran_mode == "bounded":
-        tran_s = tran_s * 0.125 + 0.125
-    r = rodrigues(angle[..., 0], params["v_c"])
+def reparametrize(params: dict, angle_base: float, tran_mode: str = "mvp",
+                  reparam: str = "sine", rotation_mode: str = "axis_angle",
+                  two_bracket: bool = False):
+    """Unconstrained params -> (R (B, K, 3, 3), T (B, K, 3)).
+
+    reparam 'sine': angle = sin(angle_c·π)·π/8 + π/8 + base·π/4, tran_s =
+    sin(tran_s·π) (·0.125 + 0.125 with tran_mode 'bounded'); 'sigmoid':
+    angle = sigmoid·2π, tran_s = tanh·0.25; 'v3': angle = sigmoid·π/4 +
+    base·π/4, tran_s = sigmoid·0.20; 'unconstrained': both raw. R is the
+    rotation of ``angle`` about ``v_c``, or with rotation_mode 'euler'
+    Rx·Ry·Rz of ``angle_xyz``. two_bracket puts the second half of the
+    restart axis one window up."""
+    if two_bracket:
+        kernel = params["angle_c"].shape[1]
+        bracket = (torch.arange(kernel, device=params["angle_c"].device)
+                   >= kernel // 2).to(torch.float32)[None, :, None]
+        angle_base = angle_base + bracket
+    angle_c, scale_c = params["angle_c"], params["tran_s"]
+    if reparam == "sine":
+        angle = (torch.sin(angle_c * _PI) * (_PI / 8) + _PI / 8
+                 + angle_base * (_PI / 4))
+        tran_s = torch.sin(scale_c * _PI)
+        if tran_mode == "bounded":
+            tran_s = tran_s * 0.125 + 0.125
+    elif reparam == "sigmoid":
+        angle = torch.sigmoid(angle_c) * 2 * _PI
+        tran_s = torch.tanh(scale_c) * 0.25
+    elif reparam == "v3":
+        angle = torch.sigmoid(angle_c) * (_PI / 4) + angle_base * (_PI / 4)
+        tran_s = torch.sigmoid(scale_c) * 0.20
+    elif reparam == "unconstrained":
+        angle, tran_s = angle_c, scale_c
+    else:
+        raise ValueError(f"unknown reparam {reparam!r}")
+    if rotation_mode == "euler":
+        r = rotation_xyz(params["angle_xyz"])
+    else:
+        r = rodrigues(angle[..., 0], params["v_c"])
     t = normalize_translation(params["tran_c"], tran_s)
     return r, t
+
+
+def _transform(params: dict, angle_base: float, cfg: "HOUVConfig"):
+    """``reparametrize`` as ``cfg`` sets it."""
+    return reparametrize(params, angle_base, cfg.tran_mode, cfg.reparam,
+                         cfg.rotation_mode, cfg.two_bracket)
 
 
 def _apply(src: torch.Tensor, r: torch.Tensor, t: torch.Tensor):
@@ -241,14 +301,15 @@ def _view_mask(dim: int, like: torch.Tensor) -> torch.Tensor:
 
 def _objective_matches(params, src, tgt, angle_base, cfg: HOUVConfig):
     """The match half of the objective at the current (R, T): the matched
-    rows (tg, s_sel) of one search, and with ``use_view_loss`` those of the
-    three projected searches (else an empty tuple)."""
+    rows (tg, s_sel) of one search, and with ``use_view_loss`` or the
+    'multi_percent' objective those of the three projected searches (else
+    an empty tuple)."""
     with torch.no_grad():
-        r, t = reparametrize(params, angle_base, cfg.tran_mode)
+        r, t = _transform(params, angle_base, cfg)
         src_t = _apply(src, r, t)
         tg, s_sel = _pair_matches(src, tgt, src_t, r, t, select=cfg.nn_select)
         views = ()
-        if cfg.use_view_loss:
+        if cfg.use_view_loss or cfg.objective == "multi_percent":
             views = tuple(
                 _pair_matches(src, tgt, src_t, dim_mask=_view_mask(d, src))
                 for d in range(3))
@@ -278,25 +339,45 @@ def _replica_mean(loss: torch.Tensor, divisor: int | None) -> torch.Tensor:
 
 def _objective_cached(params, matches, src, tgt, angle_base,
                       cfg: HOUVConfig, divisor: int | None = None):
-    """Mean loss over all replicas (``_replica_mean``) and per-replica
-    min_1 (B, K), rebuilt against cached matches
-    (``_objective_matches``)."""
+    """Mean loss over all replicas (``_replica_mean``) and the per-replica
+    selection metric (B, K), rebuilt against cached matches
+    (``_objective_matches``): min_1, or the min-CD at ``select_percent``,
+    or for 'multi_percent' the 10% min-CD."""
     tg, s_sel, views = matches
-    r, t = reparametrize(params, angle_base, cfg.tran_mode)
+    r, t = _transform(params, angle_base, cfg)
     bsz, kernel = r.shape[:2]
     n = src.shape[1]
     src_t = _apply(src, r, t)
     d1, d2 = _dists_from_matches(tgt, src_t, tg, s_sel, r, t)
-    # k from the OUTPUT (src) count for both sides, like calc_cd_percent
-    k = int(n * cfg.percent)
-    cd_p = _trunc_mean_sqrt(d1, k, cfg.fast_trim)
-    cd_t = _trunc_mean_sqrt(d2, k, cfg.fast_trim)
-    min_1 = torch.minimum(cd_p, cd_t)
+
+    def min_cd(pct):
+        # k from the OUTPUT (src) count for both sides, like calc_cd_percent
+        k = int(n * pct)
+        return torch.minimum(_trunc_mean_sqrt(d1, k, cfg.fast_trim),
+                             _trunc_mean_sqrt(d2, k, cfg.fast_trim))
+
+    def view_mins():
+        return (_gathered_view_min(src, tgt, src_t, r, t, view_matches, dim,
+                                   cfg.fast_trim)
+                for dim, view_matches in enumerate(views))
+
+    if cfg.objective == "multi_percent":
+        # each extra term contributes a fixed multiple of the full CD's
+        # magnitude (a detached ratio) with its own gradient direction
+        mins = {pct: min_cd(pct) for pct in (1.0, 0.3, 0.1)}
+        min1 = loss = mins[1.0]
+        terms = [(mins[0.3], 8.0), (mins[0.1], 24.0)]
+        terms += [(mv, 2.0) for mv in view_mins()]
+        for term, w in terms:
+            ratio = (min1 / torch.clamp_min(term, 1e-12)).detach()
+            loss = loss + ratio * w * term
+        return _replica_mean(loss, divisor), mins[0.1].reshape(bsz, kernel)
+    min_1 = min_cd(cfg.percent)
     loss = cfg.loss_weight * min_1
-    for dim, view_matches in enumerate(views):
-        loss = loss + _gathered_view_min(src, tgt, src_t, r, t, view_matches,
-                                         dim, cfg.fast_trim)
-    return _replica_mean(loss, divisor), min_1.reshape(bsz, kernel)
+    for mv in view_mins():
+        loss = loss + mv
+    sel = min_1 if cfg.select_percent is None else min_cd(cfg.select_percent)
+    return _replica_mean(loss, divisor), sel.reshape(bsz, kernel)
 
 
 def _objective_gather(params, src, tgt, angle_base, cfg: HOUVConfig,
@@ -312,8 +393,16 @@ def _objective_scatter(params, src, tgt, angle_base, cfg: HOUVConfig,
                        divisor: int | None = None):
     """The objective through the chamfer op's own gradient: the truncated
     CD of the transformed cloud against its pair's target, per replica, and
-    with ``use_view_loss`` the three projected CDs."""
-    r, t = reparametrize(params, angle_base, cfg.tran_mode)
+    with ``use_view_loss`` the three projected CDs. 'multi_percent' and
+    ``select_percent`` are refused, as in the JAX package."""
+    if cfg.objective == "multi_percent":
+        raise NotImplementedError(
+            "objective='multi_percent' requires grad_mode='gather'")
+    if cfg.select_percent is not None:
+        raise NotImplementedError(
+            "select_percent requires grad_mode='gather' (the scatter path "
+            "has no spare NN pass to rank with)")
+    r, t = _transform(params, angle_base, cfg)
     bsz, kernel = r.shape[:2]
     n = src.shape[1]
     src_t = _apply(src, r, t).reshape(bsz * kernel, n, 3)
@@ -349,13 +438,18 @@ def _adam_init(params: dict) -> dict:
 
 def _adam_update(params: dict, grads: dict, state: dict, lr: float):
     """One ``optax.adam(lr)`` step: bias-corrected moments, eps outside the
-    sqrt. Returns the new params; updates ``state`` in place."""
+    sqrt. Returns the new params; updates ``state`` in place. A parameter
+    whose gradient is None (the objective does not read it) keeps its
+    value and moments, which is optax's step on a zero gradient."""
     state["count"] += 1
     bc1 = 1.0 - _B1 ** state["count"]
     bc2 = 1.0 - _B2 ** state["count"]
     out = {}
     for name, p in params.items():
         g = grads[name]
+        if g is None:
+            out[name] = p
+            continue
         mu = (1 - _B1) * g + _B1 * state["mu"][name]
         nu = (1 - _B2) * (g * g) + _B2 * state["nu"][name]
         state["mu"][name], state["nu"][name] = mu, nu
@@ -374,17 +468,21 @@ def _adam_loop(src, tgt, angle_base, cfg: HOUVConfig, params: dict,
         raise ValueError(
             f"step count {n_steps} not divisible by nn_refresh {refresh}")
     losses = []
-    if refresh > 1 and (cfg.grad_mode != "gather" or cfg.use_view_loss):
+    if refresh > 1 and (cfg.grad_mode != "gather" or cfg.use_view_loss
+                        or cfg.objective != "trunc"
+                        or cfg.select_percent is not None):
         raise NotImplementedError(
             "nn_refresh > 1 supports the canonical objective only "
-            "(grad_mode='gather', use_view_loss=False)")
+            "(grad_mode='gather', objective='trunc', use_view_loss=False, "
+            "select_percent=None)")
     if cfg.grad_mode != "gather":
         for _ in range(n_steps):
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in params.items()}
             loss, _ = _objective_scatter(leaves, src, tgt, angle_base, cfg,
                                          divisor)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
             with torch.no_grad():
                 params = _adam_update(params, dict(zip(leaves, grads)),
                                       opt_state, cfg.lr)
@@ -397,7 +495,8 @@ def _adam_loop(src, tgt, angle_base, cfg: HOUVConfig, params: dict,
                       for k, v in params.items()}
             loss, _ = _objective_cached(leaves, matches, src, tgt,
                                         angle_base, cfg, divisor)
-            grads = torch.autograd.grad(loss, list(leaves.values()))
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        allow_unused=True)
             with torch.no_grad():
                 params = _adam_update(params, dict(zip(leaves, grads)),
                                       opt_state, cfg.lr)
@@ -458,10 +557,73 @@ def _phase_clouds(src: torch.Tensor, tgt: torch.Tensor, sub: int):
     return reduce(src), reduce(tgt)
 
 
-def _best_restart(min_1: torch.Tensor):
-    """(best value (B,), best index (B,)) over the restart axis."""
-    idx = min_1.argmin(1)
-    return min_1.gather(1, idx[:, None])[:, 0], idx
+def _best_restart(min_1: torch.Tensor, cfg: HOUVConfig | None = None):
+    """(best value (B,), best index (B,)) over the restart axis, the first
+    on ties. With ``cfg.two_bracket`` the halves are brackets: bracket 0's
+    best wins unless bracket 1's is below it by ``bracket_preference``."""
+    if cfg is None or not cfg.two_bracket:
+        idx = min_1.argmin(1)
+        return min_1.gather(1, idx[:, None])[:, 0], idx
+    h = min_1.shape[1] // 2
+    v0, i0 = _best_restart(min_1[:, :h])
+    v1, i1 = _best_restart(min_1[:, h:])
+    use0 = v0 < v1 * cfg.bracket_preference
+    return torch.where(use0, v0, v1), torch.where(use0, i0, i1 + h)
+
+
+def _restart_agreement(min_1: torch.Tensor, r: torch.Tensor,
+                       best: torch.Tensor, idx: torch.Tensor,
+                       cfg: HOUVConfig) -> torch.Tensor:
+    """(B,) f32 counts of the restarts that converged onto the window's
+    best: loss within ``consensus_loss_ratio`` of the best (+1e-4) and
+    rotation within ``consensus_angle`` degrees (geodesic) of the best
+    restart's. min_1 (B, K), r (B, K, 3, 3), best/idx (B,)."""
+    rows = torch.arange(r.shape[0], device=r.device)
+    tr = torch.einsum("bkij,bij->bk", r, r[rows, idx])
+    ang = torch.rad2deg(torch.arccos(torch.clamp((tr - 1.0) * 0.5,
+                                                 -1.0, 1.0)))
+    near_opt = min_1 <= best[:, None] * cfg.consensus_loss_ratio + 1e-4
+    return ((ang < cfg.consensus_angle) & near_opt).sum(1).float()
+
+
+def _consensus_merge(cand_loss: torch.Tensor, cand_agree: torch.Tensor,
+                     cfg: HOUVConfig) -> torch.Tensor:
+    """(B,) window indices: among the windows whose best loss is within
+    ``consensus_window_ratio`` of the pair's best (+1e-4), the most agreed
+    upon; the loss breaks ties of agreement (a term in (-0.5, 0]).
+    cand_loss, cand_agree (B, P)."""
+    gbest = cand_loss.amin(1, keepdim=True)
+    valid = cand_loss <= gbest * cfg.consensus_window_ratio + 1e-4
+    tie = torch.clamp(1.0 - cand_loss / (gbest + 1e-9), -1.0, 0.0) * 0.49
+    score = torch.where(valid, cand_agree + tie, -math.inf)
+    return score.argmax(1)
+
+
+def _window_candidate(min_1: torch.Tensor, r: torch.Tensor,
+                      t: torch.Tensor, cfg: HOUVConfig):
+    """One angle window's candidate for the consensus merge: (loss (B,),
+    agreement (B,), R (B, 3, 3), T (B, 3)) of its best restart."""
+    best, idx = _best_restart(min_1, cfg)
+    agree = _restart_agreement(min_1, r, best, idx, cfg)
+    rows = torch.arange(r.shape[0], device=r.device)
+    return best, agree, r[rows, idx], t[rows, idx]
+
+
+def voxel_downsample_clouds(src: torch.Tensor, tgt: torch.Tensor,
+                            cfg: HOUVConfig):
+    """With ``cfg.voxel_downsample`` (a grid size G), each cloud becomes
+    its voxel means over [-1, 1]³ (``ops/voxel.py:voxelize_mean``, packed
+    in flat-voxel order), repeated cyclically to the cloud's N rows. One
+    K4 scatter a cloud."""
+    if not cfg.voxel_downsample:
+        return src, tgt
+
+    def reduce(cloud):
+        vp, cnt = voxelize_mean(cloud, cfg.voxel_downsample, -1.0, 1.0)
+        rows = torch.arange(vp.shape[1], device=vp.device)[None, :]
+        return gather_rows(vp, rows % torch.clamp_min(cnt[:, None], 1))
+
+    return reduce(src), reduce(tgt)
 
 
 def houv_pass(src, tgt, params0: dict, angle_base: float, cfg: HOUVConfig,
@@ -478,7 +640,7 @@ def houv_pass(src, tgt, params0: dict, angle_base: float, cfg: HOUVConfig,
                                           params, opt_state, n_steps, divisor)
     with torch.no_grad():
         _, min_1 = _objective(params, src, tgt, angle_base, cfg)
-        r, t = reparametrize(params, angle_base, cfg.tran_mode)
+        r, t = _transform(params, angle_base, cfg)
     return min_1, r, t
 
 
@@ -496,7 +658,9 @@ def houv_candidate_pools(src: torch.Tensor, tgt: torch.Tensor,
     ``generator`` (seed 0 when None). A sharded solve (``parallel/mesh.py``)
     passes the whole batch's replica count as ``divisor`` and, where the
     restarts are split, ``best_reduce``, which takes window 0's best (B,)
-    to the best over every shard before the threshold.
+    to the best over every shard before the threshold. With
+    ``cfg.voxel_downsample`` the passes run on the voxel-reduced clouds
+    (``voxel_downsample_clouds``).
 
     Returns (pool_loss (B, W·K), pool_r (B, W·K, 3, 3), pool_t (B, W·K, 3),
     n_retry): a pair that never entered window w has +inf losses in that
@@ -505,15 +669,14 @@ def houv_candidate_pools(src: torch.Tensor, tgt: torch.Tensor,
     check_on(dev, src, tgt)
     # the small rigid-transform einsums must run in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    src = src.float()
-    tgt = tgt.float()
+    src, tgt = voxel_downsample_clouds(src.float(), tgt.float(), cfg)
     if params0 is None:
         generator = generator or torch.Generator().manual_seed(0)
         params0 = init_params(generator, src.shape[0], cfg.kernel,
-                              cfg.lattice_init, device=dev)
+                              cfg.lattice_init, cfg.two_bracket, device=dev)
 
     min_1, r, t = houv_pass(src, tgt, params0, 0.0, cfg, divisor)
-    best, _ = _best_restart(min_1)
+    best, _ = _best_restart(min_1, cfg)
     if best_reduce is not None:
         best = best_reduce(best)
     if cfg.retry_mode == "always":
@@ -537,26 +700,42 @@ def houv_solve(src: torch.Tensor, tgt: torch.Tensor,
                cfg: HOUVConfig = HOUVConfig(), params0: dict | None = None,
                generator: torch.Generator | None = None,
                device: str | torch.device = "cuda") -> dict:
-    """Full hybrid solve: the restart of least loss over the windows of
-    ``houv_candidate_pools`` (its first on ties: the earlier window, the
-    earlier restart). Arguments as there.
+    """Full hybrid solve: ``pick_restart`` over the windows of
+    ``houv_candidate_pools``. Arguments as there.
 
     Returns transform (B, 4, 4), rmse (B,) the best-restart loss, and
     n_retry, the number of pairs that entered the retry passes."""
     pool_loss, pool_r, pool_t, n_retry = houv_candidate_pools(
         src, tgt, cfg, params0, generator, device)
-    transform, rmse = pick_restart(pool_loss, pool_r, pool_t)
+    transform, rmse = pick_restart(pool_loss, pool_r, pool_t, cfg)
     return {"transform": transform, "rmse": rmse, "n_retry": n_retry}
 
 
 def pick_restart(pool_loss: torch.Tensor, pool_r: torch.Tensor,
-                 pool_t: torch.Tensor):
-    """The restart of least loss in each pair's pool (the first on ties:
-    the earlier window, the earlier restart): (transform (B, 4, 4), its
-    loss (B,))."""
-    best, idx = _best_restart(pool_loss)
+                 pool_t: torch.Tensor, cfg: HOUVConfig):
+    """Each pair's restart from its pool (B, W·K, ...), window-major, K =
+    ``cfg.kernel``: (transform (B, 4, 4), its loss (B,)). Each window's best restart
+    (``_best_restart``: the first of least loss, or the bracket pick with
+    ``two_bracket``), then the first window of least best, which is the
+    JAX solver's keep-if-better merge of the windows; with
+    ``window_select='consensus'`` the window ``_consensus_merge`` picks."""
+    k = cfg.kernel
+    windows = range(pool_loss.shape[1] // k)
+    bests, idxs = zip(*(_best_restart(pool_loss[:, w * k:(w + 1) * k], cfg)
+                        for w in windows))
+    best = torch.stack(bests, 1)                      # (B, W)
+    idx = torch.stack(idxs, 1)
     rows = torch.arange(pool_loss.shape[0], device=pool_loss.device)
-    return rt_to_transformation(pool_r[rows, idx], pool_t[rows, idx]), best
+    if cfg.window_select == "consensus":
+        agree = torch.stack([_restart_agreement(
+            pool_loss[:, w * k:(w + 1) * k], pool_r[:, w * k:(w + 1) * k],
+            best[:, w], idx[:, w], cfg) for w in windows], 1)
+        win = _consensus_merge(best, agree, cfg)
+    else:
+        win = best.argmin(1)
+    pick = win * k + idx[rows, win]
+    return (rt_to_transformation(pool_r[rows, pick], pool_t[rows, pick]),
+            best[rows, win])
 
 
 def combine(src: torch.Tensor, tgt: torch.Tensor,

@@ -30,7 +30,8 @@ from houv_tpu_torch.data.pipeline import shard_rows
 from houv_tpu_torch.geometry.rotations import rodrigues, rt_to_transformation
 from houv_tpu_torch.parallel.mesh import (all_gather_rows, rank_rows,
                                           sharded_houv_pools, sum_int)
-from houv_tpu_torch.solvers.houv import HOUVConfig, houv_candidate_pools
+from houv_tpu_torch.solvers.houv import (HOUVConfig, houv_candidate_pools,
+                                         voxel_downsample_clouds)
 
 
 def extract_candidates(pool_loss: torch.Tensor, pool_r: torch.Tensor,
@@ -207,6 +208,7 @@ def sharded_houv_solve_rescored(src: torch.Tensor, tgt: torch.Tensor, mesh,
     sharded scorer's ``local``) and its picks; then every result gathered,
     ``n_retry`` and ``n_override`` summed. Returns
     ``houv_solve_rescored``'s dict for the whole batch."""
+    _check_rescored(cfg)
     if pools is None:
         rows, pools = sharded_houv_pools(src, tgt, mesh, cfg, params0,
                                          generator, axis)
@@ -222,6 +224,19 @@ def sharded_houv_solve_rescored(src: torch.Tensor, tgt: torch.Tensor, mesh,
     return out
 
 
+def _check_rescored(cfg: HOUVConfig) -> None:
+    """The rescored pick replaces the window merge: the JAX package's
+    refusals of two_bracket and window_select='consensus'."""
+    if cfg.two_bracket:
+        raise NotImplementedError(
+            "rescored selection assumes the plain restart axis "
+            "(two_bracket folds its own preference rule)")
+    if cfg.window_select != "loss":
+        raise ValueError(
+            "rescoring replaces the window merge itself — "
+            "use window_select='loss'")
+
+
 def houv_solve_rescored(src: torch.Tensor, tgt: torch.Tensor,
                         cfg: HOUVConfig, scorer, n_cand: int = 8,
                         angle_deg: float = 10.0, margin: float = 0.0,
@@ -234,12 +249,15 @@ def houv_solve_rescored(src: torch.Tensor, tgt: torch.Tensor,
     cand_r, cand_t, cand_loss=...) -> logits (B, C), higher = better
     aligned. Returns ``houv_solve``'s dict plus ``n_override`` (pairs
     whose pick is not the loss choice) and the ``cand_loss``,
-    ``cand_logits``, ``cand_r``, ``cand_t`` and ``pick`` diagnostics."""
+    ``cand_logits``, ``cand_r``, ``cand_t`` and ``pick`` diagnostics. The
+    candidates move the clouds the passes solved, voxel-reduced with
+    ``voxel_downsample``."""
+    _check_rescored(cfg)
     if pools is None:
         pools = houv_candidate_pools(src, tgt, cfg, params0, generator,
                                      device)
     pool_loss, pool_r, pool_t, n_retry = pools
-    src, tgt = src.float(), tgt.float()
+    src, tgt = voxel_downsample_clouds(src.float(), tgt.float(), cfg)
     cand_loss, cand_r, cand_t = extract_candidates(
         pool_loss, pool_r, pool_t, n_cand, angle_deg)
     moved = apply_candidates(src, cand_r, cand_t)

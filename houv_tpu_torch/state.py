@@ -6,8 +6,9 @@ packages can be fed the same restarts. ``config_from_jax`` converts a JAX
 ``HOUVConfig`` field by field. ``state_from_flax`` turns the flax variables
 of a JAX model (any model of the factory, ``PCNTransformer``, or one of
 their modules: ``params``, and ``batch_stats`` where the model has
-BatchNorm) into the port's ``state_dict``. None imports anything of the JAX
-package.
+BatchNorm) into the port's ``state_dict``; a cascade-GAN critic
+(``train/gan.py:PointDiscriminator``) takes a JAX trainer state's
+``d_params`` so. None imports anything of the JAX package.
 """
 
 from __future__ import annotations
@@ -21,37 +22,24 @@ from torch import nn
 from houv_tpu_torch.solvers.houv import _PARAM_NAMES, HOUVConfig
 
 # JAX HOUVConfig fields with no meaning in the port: the Pallas dispatch
-# switch, the scatter path's score precision, and tuning knobs of the
-# two-bracket and consensus modes, which are not ported.
-_JAX_ONLY = {"use_pallas", "exact_scores", "bracket_preference",
-             "consensus_angle", "consensus_loss_ratio",
-             "consensus_window_ratio"}
+# switch and the scatter path's score precision.
+_JAX_ONLY = {"use_pallas", "exact_scores"}
 
 
 def params_from_jax(params: dict[str, np.ndarray],
                     device: str | torch.device) -> dict:
-    """JAX ``init_params`` output (as numpy) -> the port's parameter dict.
-    ``angle_xyz`` drives only the unported Euler rotation mode and is
-    dropped."""
+    """JAX ``init_params`` output (as numpy) -> the port's parameter dict,
+    ``angle_xyz`` (the Euler angles) included."""
     return {k: torch.tensor(np.asarray(params[k], np.float32), device=device)
             for k in _PARAM_NAMES}
 
 
 def config_from_jax(jax_cfg) -> HOUVConfig:
-    """A JAX ``HOUVConfig`` -> the port's, field by field. Raises
-    NotImplementedError for a field the port lacks that is set away from
-    its default (the port's own check covers the fields it keeps)."""
-    ours = {f.name for f in dataclasses.fields(HOUVConfig)}
-    kwargs = {}
-    for f in dataclasses.fields(jax_cfg):
-        value = getattr(jax_cfg, f.name)
-        if f.name in ours:
-            kwargs[f.name] = value
-        elif f.name not in _JAX_ONLY and value != f.default:
-            raise NotImplementedError(
-                f"HOUVConfig.{f.name}={value!r} is not ported yet "
-                "(ROADMAP.md Queue 1, item 7c)")
-    return HOUVConfig(**kwargs)
+    """A JAX ``HOUVConfig`` -> the port's, field by field (the ``_JAX_ONLY``
+    fields left out)."""
+    return HOUVConfig(**{f.name: getattr(jax_cfg, f.name)
+                         for f in dataclasses.fields(jax_cfg)
+                         if f.name not in _JAX_ONLY})
 
 
 def _flax_to_torch(module: nn.Module, tree: dict, prefix: str,

@@ -1,7 +1,9 @@
 """Checkpoints of the port (counterpart of ``houv_tpu/train/checkpoint.py``).
 
 A checkpoint of the port is a ``torch.save`` of ``{"model": state_dict,
-"optimizer": state_dict, "epoch": int}``; a file holding a bare model
+"optimizer": state_dict, "epoch": int}`` (under ``use_gan`` also
+``"critic"`` and ``"critic_optimizer"``, as the JAX package's state holds
+``d_params`` and ``d_opt_state``); a file holding a bare model
 ``state_dict`` loads too. The JAX package's checkpoints (flax msgpack, as
 ``flax.serialization.msgpack_serialize`` writes them) are read by
 ``read_flax_msgpack`` into a tree of numpy arrays, with a decoder of its own
@@ -26,19 +28,22 @@ import torch.distributed
 
 def save_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer | None = None,
-                    epoch: int = 0, mesh=None) -> str:
-    """Write ``path`` (through a temporary file). With a ``mesh`` of
-    several ranks only rank 0 writes, and every rank returns once the file
-    is there."""
+                    epoch: int = 0, mesh=None,
+                    extra: dict | None = None) -> str:
+    """Write ``path`` (through a temporary file). ``extra`` adds entries
+    beside the model's (a GAN's critic and its optimizer state), which
+    ``load_checkpoint`` does not read. With a ``mesh`` of several ranks
+    only rank 0 writes, and every rank returns once the file is there."""
     if mesh is not None and mesh.size > 1:
         if mesh.rank == 0:
-            save_checkpoint(path, model, optimizer, epoch)
+            save_checkpoint(path, model, optimizer, epoch, extra=extra)
         torch.distributed.barrier()
         return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     state = {"model": model.state_dict(), "epoch": int(epoch)}
     if optimizer is not None:
         state["optimizer"] = optimizer.state_dict()
+    state.update(extra or {})
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)

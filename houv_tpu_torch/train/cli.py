@@ -303,7 +303,8 @@ def _solve_batch(cfg: Config, scfg: HOUVConfig, src, tgt, start, scorer,
     ``timing``, each ending in a device sync): each pair solved as
     ``houv_solve`` or ``houv_solve_rescored`` solves it in one process."""
     params0 = init_params(_pair_generator(cfg, start), src.shape[0],
-                          scfg.kernel, scfg.lattice_init, device="cpu")
+                          scfg.kernel, scfg.lattice_init, scfg.two_bracket,
+                          device="cpu")
     if scorer is None:
         return sharded_houv_solve(src, tgt, mesh, scfg, params0=params0)
     t0 = time.perf_counter()

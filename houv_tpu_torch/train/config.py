@@ -95,7 +95,10 @@ class Config:
     # completion loss / eval
     loss: str = "cd"
     eval_emd: bool = False
-    use_gan: bool = False            # the cascade-GAN branch: not ported
+    # the cascade-GAN branch (train/gan.py): an LSGAN critic on the fine
+    # output; generator loss = adversarial + gan_weight * completion loss
+    use_gan: bool = False
+    gan_weight: float = 200.0
 
     # completion model hyperparameters (VRCNet)
     layers: tuple = (2, 2, 2, 2)
@@ -167,7 +170,8 @@ class Config:
     rescore_angle: float = 10.0
     rescore_margin: float = 0.0
     rescore_tta: int = 1
-    # multi-device sweeps: not ported
+    # ranks of a sweep or of training (parallel/; unset: every visible card,
+    # one process on the CPU)
     n_devices: int | None = None
 
     extras: dict = dataclasses.field(default_factory=dict)

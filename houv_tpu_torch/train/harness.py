@@ -29,6 +29,14 @@ averaged over the ranks before the optimizer's step, so the replicas stay
 equal; validation meters are reduced as sums of value·count, so every rank
 keeps the same best checkpoints; ``predict_batch`` returns the whole
 batch's predictions on every rank; rank 0 writes the checkpoints.
+
+``use_gan`` trains a completion model as the cascade-GAN's generator
+(``train/gan.py``): each step takes a generator step against an LSGAN
+critic, then a critic step (Adam at the constant ``lr``, never
+scheduled); the critic's gradients are averaged over the ranks like the
+model's. Its checkpoints hold the critic and its optimizer state beside
+the model's; ``load_model`` restores the model, and the critic starts from
+its initialisation, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from houv_tpu_torch.parallel.mesh import (all_gather_rows, all_reduce,
                                           replicate, shard_batch)
 from houv_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from houv_tpu_torch.train.config import Config
+from houv_tpu_torch.train.gan import PointDiscriminator, gan_crop, lsgan_losses
 from houv_tpu_torch.train.schedules import alpha_schedule, lr_schedule
 from houv_tpu_torch.utils.meters import AverageValueMeter, SplitMeterGrid
 
@@ -222,7 +231,11 @@ class _Trainer:
                 f"{path} is the load_model checkpoint; set work_dir or flag "
                 "to save elsewhere")
         return save_checkpoint(path, self.model, self.optimizer, self.epoch,
-                               mesh=self.mesh)
+                               mesh=self.mesh, extra=self._extra_state())
+
+    def _extra_state(self) -> dict:
+        """What a checkpoint holds beside the model and its optimizer."""
+        return {}
 
     def wrap_dataset(self, ds):
         """A split as this trainer's batches need it (the aux trainers'
@@ -233,8 +246,9 @@ class _Trainer:
         return torch.as_tensor(batch[key], device=self.device)
 
     def train_step(self, batch: dict, epoch: int, step: int) -> torch.Tensor:
-        """One optimizer step on ``batch`` at the epoch's lr; returns the
-        loss (taken before the update). The gradients stay on the
+        """One optimizer step on ``batch`` at the epoch's lr on
+        ``_step_losses``, then ``_after_step``; returns the loss (taken
+        before the update). The gradients stay on the
         parameters until the next step; BatchNorm's running statistics
         move here only. ``batch`` is the global batch: the rank takes its
         rows, the gradients (and the loss returned) are the ranks'
@@ -243,11 +257,23 @@ class _Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._train_loss(self._local(batch), epoch, step)
+        local = self._local(batch)
+        loss, reported = self._step_losses(local, epoch, step)
         loss.backward()
         average_gradients(self.model.parameters(), self.mesh)
         self.optimizer.step()
-        return all_reduce(loss.detach(), self.mesh) / self.mesh.size
+        self._after_step(local)
+        return all_reduce(reported.detach(), self.mesh) / self.mesh.size
+
+    def _step_losses(self, batch: dict, epoch: int, step: int):
+        """(the loss the model's step descends, the loss ``train_step``
+        returns) on the rank's rows: ``_train_loss`` for both."""
+        loss = self._train_loss(batch, epoch, step)
+        return loss, loss
+
+    def _after_step(self, batch: dict) -> None:
+        """Work of a train step after the model's update, on the rank's
+        rows: none."""
 
     def fit_steps(self, loader, n_steps: int, epoch_len: int = 1000,
                   val_ds=None) -> torch.nn.Module:
@@ -320,16 +346,13 @@ class _Trainer:
 class CompletionTrainer(_Trainer):
     """Training, validation and inference of a completion model (pcn, ecg,
     vrcnet, vrcnet_knn, transformer), on one device or data-parallel over a
-    mesh."""
+    mesh; with ``use_gan`` against an LSGAN critic (``train/gan.py``), for
+    a model without BatchNorm statistics."""
 
     _higher = frozenset({"f1"})
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
                  mesh=None):
-        if cfg.use_gan:
-            raise NotImplementedError(
-                "use_gan (the cascade-GAN branch) is not ported yet "
-                "(ROADMAP.md Queue 1, item 11)")
         if cfg.model_name in LEARNED_REGISTRATION:
             raise ValueError(f"{cfg.model_name!r} is a registration model: "
                              "train it with RegistrationTrainer")
@@ -339,6 +362,75 @@ class CompletionTrainer(_Trainer):
         self._metrics = ("cd_p", "cd_t", "f1") + (
             ("emd",) if cfg.eval_emd else ())
         super().__init__(cfg, device, mesh)
+        self.critic = None
+        if cfg.use_gan:
+            if any(name.endswith("running_mean")
+                   for name, _ in self.model.named_buffers()):
+                raise NotImplementedError(
+                    "use_gan supports models without batch_stats")
+            self.critic = PointDiscriminator()
+            # never scheduled, no weight decay (optax.adam(cfg.lr))
+            self.critic_optimizer = torch.optim.Adam(
+                self.critic.parameters(), lr=cfg.lr,
+                betas=(cfg.betas[0], cfg.betas[-1]))
+            self.critic_loss = self._fake = None
+
+    def init_state(self) -> torch.nn.Module:
+        """``_Trainer.init_state``; under ``use_gan`` the critic from its
+        own seeded initialisation (``load_model`` does not restore it)."""
+        super().init_state()
+        if self.critic is not None:
+            init_like_flax(self.critic, _seeded(self.seed, 17))
+            self.critic.to(self.device)
+            replicate(self.critic, self.mesh)
+        return self.model
+
+    def _extra_state(self) -> dict:
+        if self.critic is None:
+            return {}
+        return {"critic": self.critic.state_dict(),
+                "critic_optimizer": self.critic_optimizer.state_dict()}
+
+    def _step_losses(self, batch: dict, epoch: int, step: int):
+        """Under ``use_gan`` the generator's half of the GAN step, in the
+        JAX package's order: one forward; the model descends
+        mean((D(fake) − 1)²) + gan_weight · total_loss, the critic's
+        current weights taking no gradient; ``train_step`` returns the
+        model's ``total_loss``. The fake cloud is kept for
+        ``_after_step``."""
+        if self.critic is None:
+            return super()._step_losses(batch, epoch, step)
+        out = self._train_out(batch, epoch, step)
+        self._fake = out["out2"][:, :gan_crop(self.cfg.num_points)]
+        self.critic.requires_grad_(False)
+        try:
+            d_fake = self.critic(self._fake)
+        finally:
+            self.critic.requires_grad_(True)
+        adv, _ = lsgan_losses(d_fake, torch.zeros_like(d_fake))
+        return adv + self.cfg.gan_weight * out["total_loss"], \
+            out["total_loss"]
+
+    def _after_step(self, batch: dict) -> None:
+        """Under ``use_gan`` the critic's step on the generator's fake
+        cloud, detached, against the ground truth (repeated whole,
+        ``torch.cat``, where the model's fine cloud has a multiple of its
+        batch); its loss (the ranks' mean) is kept in ``critic_loss``."""
+        if self.critic is None:
+            return
+        fake, self._fake = self._fake.detach(), None
+        crop = gan_crop(self.cfg.num_points)
+        gt = self._tensor(batch, "gt")
+        if gt.shape[0] != fake.shape[0]:
+            gt = torch.cat([gt] * (fake.shape[0] // gt.shape[0]))
+        self.critic_optimizer.zero_grad(set_to_none=True)
+        _, d_loss = lsgan_losses(self.critic(fake),
+                                 self.critic(gt[:, :crop]))
+        d_loss.backward()
+        average_gradients(self.critic.parameters(), self.mesh)
+        self.critic_optimizer.step()
+        self.critic_loss = all_reduce(d_loss.detach(),
+                                      self.mesh) / self.mesh.size
 
     def _inputs(self, batch: dict, epoch: int | None = None) -> dict:
         """The model call's inputs beside the clouds: vrcnet_knn's class
@@ -351,12 +443,14 @@ class CompletionTrainer(_Trainer):
         return {k: self._tensor(batch, k).long() if k in batch else None
                 for k in ("label", "coords")}
 
+    def _train_out(self, batch: dict, epoch: int, step: int) -> dict:
+        return self.model(self._tensor(batch, "partial"),
+                          self._tensor(batch, "gt"), prefix="train",
+                          **self._inputs(batch, epoch),
+                          **self._rng(_seeded(self.seed, step)))
+
     def _train_loss(self, batch: dict, epoch: int, step: int):
-        out = self.model(self._tensor(batch, "partial"),
-                         self._tensor(batch, "gt"), prefix="train",
-                         **self._inputs(batch, epoch),
-                         **self._rng(_seeded(self.seed, step)))
-        return out["total_loss"]
+        return self._train_out(batch, epoch, step)["total_loss"]
 
     def predict_batch(self, batch: dict, step: int = 0) -> torch.Tensor:
         """The no-gt test step on one batch: (B, num_points, 3); for

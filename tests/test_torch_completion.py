@@ -232,8 +232,14 @@ def test_completion_branch_raises_what_is_not_ported(tmp_path):
                                 **extra))
     assert type(model_from_config(load_config(_tiny_cfg(
         tmp_path, compute_dtype="bfloat16")))).__name__ == "VRCNet"
+    # use_gan is ported (tests/test_torch_gan.py): VRCNet builds its
+    # critic; what JAX refuses (a model with BatchNorm statistics) is
+    # refused
     cfg = load_config(_tiny_cfg(tmp_path, use_gan=True))
-    with pytest.raises(NotImplementedError, match="use_gan"):
+    assert CompletionTrainer(cfg, "cpu").critic is not None
+    cfg = load_config(_tiny_cfg(tmp_path, use_gan=True,
+                                model_name="vrcnet_knn", grid_size=20))
+    with pytest.raises(NotImplementedError, match="batch_stats"):
         CompletionTrainer(cfg, "cpu")
     # checkpoints are ported: a load_model that is not there is an error of
     # the file system, not of the port

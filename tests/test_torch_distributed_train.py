@@ -4,9 +4,10 @@ batch; their step is held to one process's on the whole batch: every
 gradient within 1e-5 of its tensor's largest entry (in f64 for the
 BatchNorm models, so that the comparison sees the statistics of the global
 batch, not f32 rounding; a bias ahead of a BatchNorm, whose gradient is 0
-in exact arithmetic, is held to that), the replicas bit-equal. PCN's
-steps over two ranks are also held to the JAX trainer's on a two-device
-mesh from the same weights. Then ``n_devices: 2 --device cpu`` through the
+in exact arithmetic, is held to that), the replicas bit-equal; PCN's GAN
+step (``use_gan``) likewise, the critic's gradients beside the model's.
+PCN's steps over two ranks are also held to the JAX trainer's on a
+two-device mesh from the same weights. Then ``n_devices: 2 --device cpu`` through the
 CLI: the sweep's rows bit-equal to one process, training's checkpoints
 written once, the refusals. The rank functions are in
 ``torch_parallel_ranks.py``."""
@@ -39,6 +40,11 @@ TIMEOUT = 300
 CASES = {
     "pcn": ("pcn.yaml", dict(num_points=128, num_coarse=64, scale_aug=False),
             torch.float32),
+    # the GAN step: the critic's gradients averaged like the model's, the
+    # LSGAN means the global batch's
+    "pcn_gan": ("pcn.yaml", dict(num_points=128, num_coarse=64,
+                                 scale_aug=False, use_gan=True),
+                torch.float32),
     "vrcnet": ("vrcnet.yaml", dict(num_points=256, num_coarse_raw=128,
                                    num_fps=256, num_coarse=256,
                                    layers="1, 1, 1, 1", knn_list="4, 8",

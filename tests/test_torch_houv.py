@@ -9,6 +9,7 @@ as the JAX package's own solver tests do on the CPU.
 
 import dataclasses
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,16 @@ from houv_tpu.solvers import houv as jhouv
 from houv_tpu_torch.ops.chamfer import _nn_both_plain
 from houv_tpu_torch.solvers import houv as thouv
 from houv_tpu_torch.state import config_from_jax, params_from_jax
+
+
+def _grads(loss, params: dict) -> list:
+    """d loss / d params, in order; zeros for a parameter the objective
+    does not read (``angle_xyz`` outside the Euler mode, as JAX's zero
+    gradient)."""
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params.values(), grads)]
 
 
 def _pairs(n_pairs, n_points, seed=11):
@@ -52,7 +63,7 @@ def test_objective_and_gradient_match_at_step0():
               for k, v in params_from_jax(p_np, "cpu").items()}
     loss, min1 = thouv._objective_gather(
         params, torch.as_tensor(src), torch.as_tensor(tgt), 0.0, cfg)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    grads = _grads(loss, params)
     # f32 sums in another order (einsum vs bmm): 1e-5 relative on the loss
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(min1.detach().numpy(), np.asarray(jmin1),
@@ -87,7 +98,7 @@ def test_scatter_mode_objective_and_gradient_match_at_step0(use_view_loss):
               for k, v in params_from_jax(p_np, "cpu").items()}
     loss, min1 = thouv._objective(
         params, torch.as_tensor(src), torch.as_tensor(tgt), 0.0, cfg)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    grads = _grads(loss, params)
     # the tolerances of the gather-mode test above: the same f32 sums in
     # another order
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
@@ -104,7 +115,7 @@ def test_scatter_mode_objective_and_gradient_match_at_step0(use_view_loss):
                    for k, v in params.items()}
         gloss, _ = thouv._objective(gleaves, torch.as_tensor(src),
                                     torch.as_tensor(tgt), 0.0, gcfg)
-        ggrads = torch.autograd.grad(gloss, list(gleaves.values()))
+        ggrads = _grads(gloss, gleaves)
         np.testing.assert_allclose(gloss.item(), loss.item(), rtol=1e-6)
         for name, g, gg in zip(params, grads, ggrads):
             np.testing.assert_allclose(g.numpy(), gg.numpy(), rtol=1e-4,
@@ -144,7 +155,7 @@ def test_view_loss_gather_objective_and_gradient_match_at_step0(n, m):
               for k, v in params_from_jax(p_np, "cpu").items()}
     loss, min1 = thouv._objective_gather(
         params, torch.as_tensor(src), torch.as_tensor(tgt), 0.0, cfg)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    grads = _grads(loss, params)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(min1.detach().numpy(), np.asarray(jmin1),
                                rtol=1e-5)
@@ -216,7 +227,7 @@ def test_view_loss_gather_per_step_losses_match_jax(jax_exact_search):
                   for k, v in tparams.items()}
         tloss, _ = thouv._objective_gather(
             leaves, torch.as_tensor(src), torch.as_tensor(tgt), 0.0, cfg)
-        tgrads = torch.autograd.grad(tloss, list(leaves.values()))
+        tgrads = _grads(tloss, leaves)
         np.testing.assert_allclose(tloss.item(), float(loss), rtol=1e-5)
         for name, g in zip(leaves, tgrads):
             ref = np.asarray(grads[name])
@@ -382,10 +393,57 @@ def test_quality_gate_on_mvp_statistics_fixture():
     ("rotation_mode", "euler"), ("reparam", "sigmoid"),
 ])
 def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        thouv.HOUVConfig(**{field: value})
-    with pytest.raises(NotImplementedError):
-        config_from_jax(jhouv.HOUVConfig(**{field: value}))
+    """The solver ablations, once refused as unported, carry across from
+    JAX's config; what the JAX package refuses with each is refused here,
+    with its exception and message (solves of each option:
+    tests/test_torch_houv_ablations.py)."""
+    from houv_tpu.parallel.mesh import make_mesh_2d, sharded_houv_solve_2d
+    from houv_tpu.solvers.rescore import houv_candidate_pools
+    from houv_tpu_torch.parallel.mesh import Mesh
+    from houv_tpu_torch.parallel.mesh import \
+        sharded_houv_solve_2d as t_solve_2d
+    from houv_tpu_torch.solvers.rescore import houv_solve_rescored
+
+    jcfg = jhouv.HOUVConfig(kernel=4, steps=2, use_pallas=False,
+                            **{field: value})
+    cfg = config_from_jax(jcfg)
+    assert getattr(cfg, field) == value
+    src, tgt, _ = _pairs(2, 32)
+    key = jax.random.PRNGKey(0)
+    params = params_from_jax(_jax_params(0, 2, 4), "cpu")
+    js, jt = jnp.asarray(src), jnp.asarray(tgt)
+    ts, tt = torch.as_tensor(src), torch.as_tensor(tgt)
+    split = Mesh(("data", "restart"), (1, 2), (0, 0), (None, None),
+                 torch.device("cpu"))
+    refusals = {
+        "objective": [
+            (lambda: jhouv._objective(
+                {k: jnp.asarray(v) for k, v in _jax_params(0, 2, 4).items()},
+                js, jt, 0.0, dataclasses.replace(jcfg, grad_mode="scatter")),
+             lambda: thouv._objective(params, ts, tt, 0.0, dataclasses.replace(
+                 cfg, grad_mode="scatter"))),
+            (lambda: jhouv._check_refresh_supported(jcfg),
+             lambda: thouv._adam_loop(
+                 ts, tt, 0.0, dataclasses.replace(cfg, nn_refresh=2),
+                 params, thouv._adam_init(params), 2))],
+        "two_bracket": [
+            (lambda: houv_candidate_pools(js, jt, key, jcfg),
+             lambda: houv_solve_rescored(ts, tt, cfg, None, device="cpu")),
+            (lambda: sharded_houv_solve_2d(js, jt, key, make_mesh_2d(1, 2),
+                                           jcfg),
+             lambda: t_solve_2d(ts, tt, split, cfg))],
+        "window_select": [
+            (lambda: houv_candidate_pools(js, jt, key, jcfg),
+             lambda: houv_solve_rescored(ts, tt, cfg, None, device="cpu")),
+            (lambda: sharded_houv_solve_2d(js, jt, key, make_mesh_2d(1, 2),
+                                           jcfg),
+             lambda: t_solve_2d(ts, tt, split, cfg))],
+    }
+    for jax_call, port_call in refusals.get(field, ()):
+        with pytest.raises((NotImplementedError, ValueError)) as jerr:
+            jax_call()
+        with pytest.raises(jerr.type, match=re.escape(str(jerr.value))):
+            port_call()
 
 
 def test_refresh_schedule_resolution_matches_jax():

@@ -9,6 +9,8 @@ gather is exact; the refusals raise. Every job runs under a join timeout,
 so a collective that hangs fails its test. The rank functions are in
 ``torch_parallel_ranks.py`` (no JAX there, so a rank starts quickly)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -200,11 +202,15 @@ def test_indivisible_batch_and_kernel_raise_on_the_port():
         sharded_houv_solve_2d(src, tgt, restart3, CFG)
     with pytest.raises(ValueError, match="divisible"):
         parallel.shard_batch({"src": np.zeros((8, 3))}, three)
-    # the ablations the 2-D split refuses in JAX stay unported here
-    with pytest.raises(NotImplementedError, match="7c"):
-        HOUVConfig(two_bracket=True)
-    with pytest.raises(NotImplementedError, match="7c"):
-        HOUVConfig(window_select="consensus")
+    # the ablations that read a pair's whole restart axis: the restart
+    # split refuses them, as the JAX package's does
+    restart2 = Mesh(("data", "restart"), (1, 2), (0, 0), (None, None), cpu)
+    with pytest.raises(NotImplementedError, match="two_bracket splits"):
+        sharded_houv_solve_2d(src, tgt, restart2,
+                              dataclasses.replace(CFG, two_bracket=True))
+    with pytest.raises(NotImplementedError, match="FULL restart axis"):
+        sharded_houv_solve_2d(src, tgt, restart2, dataclasses.replace(
+            CFG, window_select="consensus"))
 
 
 def test_init_distributed_is_a_no_op_without_the_environment_on_the_port(

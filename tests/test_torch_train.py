@@ -537,8 +537,8 @@ def test_what_training_does_not_run_yet_raises(tmp_path):
     cfg = tmp_path / "c.yaml"
     for body, match in (("model_name: dcp\nuse_native_loader: true\n",
                          "item 14"),
-                        ("model_name: pcn\ndataset: mvp_cp\nuse_gan: true\n",
-                         "item 11"),
+                        ("model_name: vrcnet_knn\ndataset: mvp_cp\n"
+                         "use_gan: true\n", "batch_stats"),
                         ("model_name: transformer\ndataset: mvp_cp\n"
                          "compute_dtype: bfloat16\n", None)):
         cfg.write_text(body)

@@ -61,7 +61,8 @@ def solves(src, tgt, cfg: HOUVConfig, seed: int, planted) -> dict:
     t[..., 0] = torch.arange(windows, dtype=torch.float32)[:, None]
     transform, best = pick_across_restarts(
         mine, r.reshape(bsz, windows * lk, 3, 3),
-        t.reshape(bsz, windows * lk, 3), lk, mesh)
+        t.reshape(bsz, windows * lk, 3), lk, mesh,
+        HOUVConfig(kernel=kernel))
     out["pick"] = {"transform": transform.numpy(), "best": best.numpy()}
     out["gathers"] = gathers()
     return out
@@ -144,17 +145,23 @@ def train_steps(raw: dict, n_steps: int, batch: dict, data_parallel: bool,
     if dtype == torch.float64:
         batch = {k: v.astype(np.float64) if v.dtype == np.float32 else v
                  for k, v in batch.items()}
+    # under use_gan the critic's gradients and state too, as "critic.*"
+    modules = {"": trainer.model}
+    if getattr(trainer, "critic", None) is not None:
+        modules["critic."] = trainer.critic
     losses = [float(trainer.train_step(batch, 0, 0))]
-    grads = {k: p.grad.detach().numpy().copy()
-             for k, p in trainer.model.named_parameters()
-             if p.grad is not None}
+    grads = {prefix + k: p.grad.detach().numpy().copy()
+             for prefix, m in modules.items()
+             for k, p in m.named_parameters() if p.grad is not None}
     losses += [float(trainer.train_step(batch, 0, s))
                for s in range(1, n_steps)]
     out = {"losses": np.asarray(losses), "grads": grads,
-           "state": model_state(trainer.model)}
+           "state": {prefix + k: v for prefix, m in modules.items()
+                     for k, v in model_state(m).items()}}
     if mesh is not None:
         out["replicas_equal"] = replicas_equal(
-            list(trainer.model.state_dict().values()), mesh)
+            [v for m in modules.values() for v in m.state_dict().values()],
+            mesh)
         out["ranks"] = trainer.mesh.size       # the trainer kept the mesh
     return out
 
