@@ -30,8 +30,9 @@ failed check exits non-zero:
    (exact indices at its 22 path shapes, ``FPS_SHAPES``: the solver's,
    VRCNet's, ECG's, goicp_bnb's, vrcnet_knn's and the transformer's, the
    uniform losses' seeds included; at
-   the edges of its plan, one point, K == 1 and K >= N, the limit of 8192 points and
-   8193 refused; integer grids, every point twice, planted copies);
+   the edges of its plan, one point, K == 1 and K >= N, the limit of 8192
+   points, and 8193 on its large variant ``fps_large``; integer grids,
+   every point twice, planted copies);
    ``knn`` at VRCNet's shapes, FGR's (k 16 and 17), vrcnet_knn's ten, the
    learned registration models' three ((32, 2048)², k 12, 20, 21), DCP's
    on cfgs/modelnet.yaml ((32, 1024)², k 20) and ECG's (the
@@ -49,8 +50,10 @@ failed check exits non-zero:
    ``emd`` (the assignment index for index, distances bit for bit, rounds
    and bids equal: train and eval settings, a permuted copy, the eval
    batch and the train shapes, repeated points, a grid, B 1 and 160,
-   every cluster size, one item, the size limit; ``phase_emd``, and on the
-   paths' own clouds in ``phase_kernels``); ``scatter`` (bit
+   every cluster size, one item, the size limit, one point past it on the
+   large variant ``emd_large``, which is also forced at K7's sizes with
+   every cluster size; ``phase_emd``, and on the paths' own clouds in
+   ``phase_kernels``); ``scatter`` (bit
    for bit, at the kernel's edges too: order-sensitive sums, -0.0, one row
    of 65536, 200,000 rows, 70,000 batch entries; and against the dense
    one-hot product; and spconv.yaml's voxel targets, (8, 2048) rows of
@@ -155,13 +158,17 @@ failed check exits non-zero:
    at 100 pairs and houv_rescore at 8 through ``test_main``, the (data 1 x
    restart 2) split of houv.yaml's 4 pairs, each bit for bit against the
    one-process rows of phases 3's ``main_path`` and ``quality`` (picks,
-   ``n_override`` and ``n_retry`` equal), and DDP steps of vrcnet.yaml and
-   deepgmr.yaml (batch 32, 16 a rank, 3 steps) against one process (the
+   ``n_override`` and ``n_retry`` equal), and DDP steps of vrcnet.yaml
+   (as the yaml has it, KLD, and again with distribution_loss MMD) and
+   deepgmr.yaml (batch 32, 16 a rank, 2 steps) against one process (the
    replicas bit-equal; the first gradient against one process on the whole
    batch under ``DDP_GRAD_BOUND``, which a planted fault, one process on
-   rank 0's rows alone, must exceed; VRCNet's gradient against the ranks'
-   work redone in one process, DeepGMR's running statistics after a step:
-   the global batch's BatchNorm); the CLI on the visible cards, and on
+   rank 0's rows alone, must exceed; VRCNet's KLD gradient to 1e-5 of the
+   ranks' work redone in one process; VRCNet's MMD run, its latent path's
+   gradient under ``DDP_MMD_LATENT_BOUND``, which the planted fault, each
+   rank's MMD over its own rows, must exceed; DeepGMR's running
+   statistics after a step: the global batch's BatchNorm); the CLI on the
+   visible cards, and on
    one more, which takes the cards there are (rows bit-equal); pairs/s, steps/s and each rank's peak memory beside one
    process's (every other phase runs in this one process: the script sets
    torchrun's ``WORLD_SIZE=1`` for them);
@@ -175,14 +182,27 @@ failed check exits non-zero:
    ``consensus``, ``voxel_downsample: 50`` and scripts/quality_gate.py's
    ``v3`` bundle), one solve each, K1 and K4 launches held to the code's,
    ``voxel_downsample``'s K4 sums bit for bit against the plain version;
+   then clouds above the kernels' limits (``phase_large_clouds``: K2's
+   variant ``csrc/fps_large.cu`` at (4, 16384) and (4, 8193) -> 2048, K7's
+   ``csrc/emd_large.cu`` at (2, 8192)² and (2, 16384)², each against its
+   plain version, then timed; 3 train steps of cfgs/vrcnet.yaml at
+   num_points 16384, batch 8, and ``validate`` with eval_emd at 8192);
+   the MVPN preprocessing (``phase_preprocess``: ``combine_dataset`` on
+   1024 synthetic scans of 2048 points in modes f1 and embedding, the F1
+   sweep's pairs/s, the card's F1 against the plain arithmetic and the
+   CPU path); the native loader (``phase_native``: ``train_main`` on
+   cfgs/deepgmr.yaml with ``use_native_loader``, steps/s beside the
+   in-memory feed, and ``profile_dir``'s trace);
 7. torch.profiler breakdowns of one houv_fast angle window (16 pairs), of
    one houv_rescore window (8 pairs: the pool solve, then the scoring by
-   the trained classifier; both windows the device's activity only), of
+   the trained classifier; both windows the device's activity only, cut
+   to a quarter of their depth, ``PROFILE_WINDOW``), of
    one VRCNet test batch (32 clouds) and of
    one VRCNet, one ECG and one vrcnet_knn train step; K2's census,
    (B, N, K) at its every launch in that window and those steps, each of
    them one of ``FPS_SHAPES``;
-8. a ``kernels`` line: each of the eight kernels' time at its main-path
+8. a ``kernels`` line: each of the eight kernels' time (and the two
+   variants', ``fps_large`` and ``emd_large``, at theirs) at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above (and on the
    classical and combine runs, ``classical_launches``, on the
@@ -208,6 +228,7 @@ the repository around this file; imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -485,7 +506,7 @@ def check_fps(pts, k, name):
 def phase_fps(gen):
     """K2 against its plain version at every path shape, the plan's edges,
     integer grids (ties everywhere), every point twice and planted copies;
-    and the limit: 8193 points raise."""
+    and the limit: 8193 points go to the large variant, not to K2."""
     from houv_tpu_torch.ops import sampling
 
     err = 0.0
@@ -506,14 +527,17 @@ def phase_fps(gen):
     copies = planted_copies(torch.randn((8, 3072, 3), generator=gen),
                             (1, 32, 256, 512, 1024, 2048), gen)
     err = max(err, check_fps(copies.cuda(), 2048, "planted_copies"))
-    try:
-        sampling.furthest_point_sample(
-            torch.zeros((1, 8193, 3), device="cuda"), 4)
-    except ValueError as e:
-        emit({"phase": "fps_check", "case": "limit", "points": [1, 8193],
-              "raised": str(e)})
-    else:
-        fail("fps took 8193 points: its limit is 8192")
+    # one point above the limit goes to csrc/fps_large.cu, not to K2
+    fps = sampling.furthest_point_sample
+    before = (fps.launches, fps.large_launches)
+    err = max(err, check_fps(torch.randn((1, 8193, 3), generator=gen)
+                             .cuda(), 4, "above_the_limit"))
+    routed = (fps.launches - before[0], fps.large_launches - before[1])
+    emit({"phase": "fps_check", "case": "limit", "points": [1, 8193],
+          "launches_fps_and_fps_large": list(routed)})
+    if routed != (0, 1):
+        fail(f"fps at 8193 points launched (fps, fps_large) {routed}, "
+             "expected (0, 1)")
     return err
 
 
@@ -680,15 +704,31 @@ EMD_SHAPES = ((32, 2048, 2048, 0.004, 3000, "validate"),
               (32, 2048, 2048, 0.005, 50, "ecg fine"))
 
 
-def emd_plan(b, n, m):
-    """K7's blocks a pair on this card (``ops/emd.py:_emd_plan``)."""
+def emd_route(n, m):
+    """Which kernel takes pairs of n bidders and m items: "emd" (K7) or,
+    past one block's shared memory, "emd_large"."""
+    from houv_tpu_torch.kernels import load
     from houv_tpu_torch.ops import emd
 
+    lib = load()
+    return emd._emd_route(lib.houv_emd_smem_bytes(n, m),
+                          lib.houv_emd_max_smem_bytes())
+
+
+def emd_plan(b, n, m, large=False):
+    """Blocks a pair on this card: K7's (``ops/emd.py:_emd_plan``) or, for
+    a pair past its shared memory (or ``large``), the large variant's
+    (``_emd_large_plan``)."""
+    from houv_tpu_torch.ops import emd
+
+    if large or emd_route(n, m) == "emd_large":
+        return emd._emd_large_plan(b, emd._max_large_clusters(0))
     return emd._card_plan(b, n, m, torch.device("cuda"))
 
 
-def check_emd(a, b, eps, iters, name, clusters=(None,)):
-    """K7 against its plain version on the same inputs: at its plan
+def check_emd(a, b, eps, iters, name, clusters=(None,), large=False):
+    """K7 (or, past its shared memory or with ``large``, its large
+    variant) against its plain version on the same inputs: at its plan
     (``None``) and at each forced number of blocks a pair in
     ``clusters``, the assignment index for index, dist bit for bit and
     each pair's rounds and bids equal, or the run fails. Returns the
@@ -697,14 +737,19 @@ def check_emd(a, b, eps, iters, name, clusters=(None,)):
 
     pd, pa, pr, pb = emd._auction_plain(a, b, eps, iters)
     err = 0.0
+    run = emd.emd_auction_with_stats
     for c in clusters:
-        saved = emd.emd_auction_with_stats.launches
-        kd, ka, kr, kb = emd._emd_cuda(a, b, eps, iters, c)
-        emd.emd_auction_with_stats.launches = saved
+        saved = (run.launches, run.large_launches)
+        launch = emd._emd_large_cuda if large else emd._emd_cuda
+        kd, ka, kr, kb = launch(a, b, eps, iters, c)
+        run.launches, run.large_launches = saved
         torch.cuda.synchronize()
+        route = ("emd_large" if large
+                 else emd_route(a.shape[1], b.shape[1]))
         rec = {"phase": "emd_check", "case": name, "shape": list(a.shape),
                "items": b.shape[1], "eps": eps, "iters": iters,
-               "plan": emd_plan(a.shape[0], a.shape[1], b.shape[1]),
+               "route": route,
+               "plan": emd_plan(a.shape[0], a.shape[1], b.shape[1], large),
                "clusters": c,
                "assignment_mismatches": int((ka != pa).sum()),
                "dist_bit_mismatches": int(
@@ -735,8 +780,9 @@ def phase_emd(gen):
     uniform clouds; repeated points and an integer grid; B 1 and 160; every
     cluster size forced on one case; one item (its price goes to inf and
     later bids are NaN: never seated), iters 0; and the size limit: 6428
-    against 6428, 28924 against 1 and 1 against 8264 taken, one more point
-    refused."""
+    against 6428, 28924 against 1 and 1 against 8264 on K7, one more point
+    on its large variant (``csrc/emd_large.cu``), which is also forced at
+    K7's sizes with every cluster size."""
     from houv_tpu_torch.ops import emd
 
     def cloud(b, n):
@@ -769,14 +815,24 @@ def phase_emd(gen):
         err = max(err, check_emd(a, b, eps, iters, name))
     err = max(err, check_emd(x1, x2, 0.004, 3000, "eval_every_cluster_size",
                              range(1, 4)))
+    # one point past each limit goes to csrc/emd_large.cu, held to the
+    # plain version likewise; and the variant forced at K7's sizes, every
+    # cluster size, on the eval pairs and on n != m both ways
     for n, m in ((6429, 6429), (28925, 1), (1, 8265)):
-        try:
-            emd.emd_auction_with_stats(cloud(1, n), cloud(1, m), 0.005, 5)
-        except ValueError as e:
-            emit({"phase": "emd_check", "case": f"refused_{n}_{m}",
-                  "error": str(e)})
-        else:
-            fail(f"emd took {n} bidders and {m} items, beyond its limit")
+        if emd_route(n, m) != "emd_large":
+            fail(f"emd at {n} bidders and {m} items is not routed to "
+                 "emd_large")
+        err = max(err, check_emd(cloud(1, n), cloud(1, m), 0.005, 5,
+                                 f"above_limit_{n}_{m}"))
+    for name, a, b, eps, iters in (
+            ("large_forced_eval", x1[:2], x2[:2], 0.004, 3000),
+            ("large_forced_more_items", cloud(3, 1000), cloud(3, 1500),
+             0.005, 50),
+            ("large_forced_more_bidders", cloud(3, 1500), cloud(3, 1000),
+             0.005, 50),
+            ("large_forced_one_item", cloud(2, 3), cloud(2, 1), 0.005, 5)):
+        err = max(err, check_emd(a, b, eps, iters, name, (None, 1, 2, 4, 8),
+                                 large=True))
     return err
 
 
@@ -1246,15 +1302,17 @@ def phase_chamfer_grad(gen):
              "the dense golden's)")
 
 
-def sweep_cfg(cfg_name, n_pairs, workdir, max_angle=None, name=None):
+def sweep_cfg(cfg_name, n_pairs, workdir, max_angle=None, name=None,
+              **extra):
     """A temp copy of cfgs/<cfg_name> over a synthetic structured split of
     n_pairs (seed 7), batch = n_pairs, the classifier's path absolute;
-    ``max_angle`` widens the split's rotations. Returns (path, keys)."""
+    ``max_angle`` widens the split's rotations, ``extra`` overrides keys.
+    Returns (path, keys)."""
     with open(REPO / "cfgs" / cfg_name) as f:
         raw = yaml.safe_load(f)
     raw.update(synthetic_size=n_pairs, synthetic_shape="structured",
                batch_size=n_pairs,
-               work_dir=str(workdir / Path(name or cfg_name).stem))
+               work_dir=str(workdir / Path(name or cfg_name).stem), **extra)
     if max_angle is not None:
         raw["max_angle"] = max_angle
     if raw.get("rescore_ckpt"):
@@ -1264,7 +1322,7 @@ def sweep_cfg(cfg_name, n_pairs, workdir, max_angle=None, name=None):
     return cfg_path, raw
 
 
-def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
+def run_sweep(cfg_name, n_pairs, workdir, max_angle=None, **extra):
     """The port's test_main on ``sweep_cfg``'s copy of cfgs/<cfg_name>.
     The record carries the sweep's counts (rescored: the classifier's
     overrides, the pools' and the scoring's seconds, the sites dropped),
@@ -1278,7 +1336,8 @@ def run_sweep(cfg_name, n_pairs, workdir, max_angle=None):
     from houv_tpu_torch.train.cli import test_main
     from houv_tpu_torch.train.submission import read_results_h5
 
-    cfg_path, raw = sweep_cfg(cfg_name, n_pairs, workdir, max_angle)
+    cfg_path, raw = sweep_cfg(cfg_name, n_pairs, workdir, max_angle,
+                              **extra)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     chamfer_indices.launches = 0
@@ -1363,6 +1422,11 @@ def phase_main():
 # classifier at grid 50), the split and the batch cut to 8 pairs (the
 # yamls' batch of 100: ``--quality-pairs 100``)
 QUALITY_PAIRS = 8
+# houv_eval_main's labelled split (cut from 8 pairs); the smoke's
+# houv_quality.yaml sweep cut in depth from the yaml's 500 Adam steps a
+# window (``--quality-pairs`` runs the yaml's)
+EVAL_PAIRS = 4
+QUALITY_STEPS = 250
 RESCORE_CKPT = "log/alignment_spconv_cd_rescorer_pool/best_acc_network.ckpt"
 
 
@@ -1428,21 +1492,24 @@ def _check_rescore(run, workdir):
     return rec
 
 
-def phase_quality(n_pairs=QUALITY_PAIRS):
+def phase_quality(n_pairs=QUALITY_PAIRS, quality_steps=QUALITY_STEPS):
     """Registration's quality modes at full width on ``n_pairs`` pairs (a
-    batch of as many) through ``test_main``: cfgs/houv_quality.yaml (the
-    view loss: 4
+    batch of as many) through ``test_main``: cfgs/houv_quality.yaml (at
+    ``quality_steps`` Adam steps a window, the yaml's where None; the view
+    loss: 4
     K1 searches an Adam step and 4 for the final objective, every window),
     cfgs/houv_rescore.yaml and cfgs/houv_extratest_rescore.yaml (the
     cadence's pools, 16 candidates, the trained classifier at margin 3);
     then ``houv_eval_main`` (``train -c``) on houv_rescore.yaml over a
-    labelled split of 8, globally and by bucket, and the rescoring's card
+    labelled split of ``EVAL_PAIRS``, globally and by bucket, and the rescoring's card
     logits against the CPU path on the first 8 pairs."""
     from houv_tpu_torch.train.cli import main as cli_main
 
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
-        quality = run_sweep("houv_quality.yaml", n_pairs, workdir)
+        quality = run_sweep("houv_quality.yaml", n_pairs, workdir,
+                            **({"num_epochs": quality_steps}
+                               if quality_steps else {}))
         windows = 4          # retry_mode always
         expected = 4 * (quality["steps"] + 1) * windows
         if quality["launches"]["nn_both"] != expected:
@@ -1462,7 +1529,7 @@ def phase_quality(n_pairs=QUALITY_PAIRS):
         check = _check_rescore(runs[1], workdir)
         cfg_path = workdir / "houv_rescore.yaml"
         raw = yaml.safe_load(cfg_path.read_text())
-        raw.update(synthetic_size=QUALITY_PAIRS, batch_size=QUALITY_PAIRS,
+        raw.update(synthetic_size=EVAL_PAIRS, batch_size=EVAL_PAIRS,
                    work_dir=str(workdir / "eval"))
         cfg_path.write_text(yaml.safe_dump(raw))
         t0 = time.perf_counter()
@@ -1763,8 +1830,12 @@ def phase_combine():
 # the parallel phase: torch.distributed over the card(s)
 # ---------------------------------------------------------------------------
 
-# DDP runs: the yaml, its global batch (two ranks of 16) and steps
-DDP_RUNS = (("vrcnet", 32, 3), ("deepgmr", 32, 3))
+# DDP runs: (run, yaml, global batch (two ranks of 16), steps, keys over
+# the yaml's): VRCNet as its yaml has it (KLD) and under distribution_loss
+# MMD, whose latent samples are gathered over the ranks
+DDP_RUNS = (("vrcnet", "vrcnet", 32, 2, {}),
+            ("vrcnet_mmd", "vrcnet", 32, 2, {"distribution_loss": "MMD"}),
+            ("deepgmr", "deepgmr", 32, 2, {}))
 PARALLEL_PAIRS = {"houv_fast.yaml": 100, "houv.yaml": 4,
                   "houv_rescore.yaml": QUALITY_PAIRS}
 
@@ -1900,13 +1971,13 @@ def _gloo_rank(paths, ddp):
     mesh = make_mesh()
     counters = _completion_counters()
     out = _gloo_sweeps(paths, mesh, counters) if paths else {}
-    for model, (raw, global_batch, n_steps) in ddp.items():
+    for run, (raw, global_batch, n_steps) in ddp.items():
         _zero(counters)
         torch.cuda.reset_peak_memory_stats()
         rec = _ddp_steps(raw, global_batch, n_steps, mesh)
         rec["launches"] = _rank_launches(counters, mesh)
         rec["peak_gib"] = _peaks(mesh)
-        out[model] = rec
+        out[run] = rec
     return out
 
 
@@ -1982,29 +2053,37 @@ def _half_batch_grads(raw, batch, ranks=2):
 
 
 def _ddp_inputs(workdir):
-    """The DDP runs' inputs and their one-process side: for each of
+    """The DDP runs' inputs and their one-process side: for each run of
     ``DDP_RUNS`` its yaml at the global batch, the batch and the steps
     (``ddp``); one process's run on the whole batch with its peak memory,
     for a model without BatchNorm the ranks' work redone in one process
-    (``halves``), and the planted fault (``fault``) (``one``)."""
+    (``halves``), and the planted fault (``fault``) (``one``). Under MMD
+    the ranks' work redone one rank after the other is the planted fault
+    itself: each rank's MMD over its own rows only."""
     from houv_tpu_torch.train.cli import build_dataset
     from houv_tpu_torch.train.config import Config
 
     ddp, one = {}, {}
-    for model, batch_size, n_steps in DDP_RUNS:
+    for run, model, batch_size, n_steps, extra in DDP_RUNS:
         with open(REPO / "cfgs" / f"{model}.yaml") as f:
             raw = yaml.safe_load(f)
         raw.update(batch_size=batch_size, synthetic_size=batch_size,
-                   work_dir=str(workdir / model))
+                   work_dir=str(workdir / run), **extra)
         cfg = Config.from_dict(raw)
         batch = build_dataset(cfg, "train").get_batch(np.arange(batch_size))
-        ddp[model] = (raw, batch, n_steps)
+        ddp[run] = (raw, batch, n_steps)
         torch.cuda.reset_peak_memory_stats()
-        one[model] = _ddp_steps(raw, batch, n_steps, None)
-        one[model]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        one[run] = _ddp_steps(raw, batch, n_steps, None)
+        one[run].update(model=model, peak_gib=torch.cuda.max_memory_allocated()
+                        / 2**30)
+        if raw.get("distribution_loss") == "MMD":
+            one[run]["fault"] = _half_batch_grads(raw, batch)
+            one[run]["fault_kind"] = "MMD over each rank's rows alone"
+            continue
         if model in DDP_NO_BATCHNORM:
-            one[model]["halves"] = _half_batch_grads(raw, batch)
-        one[model]["fault"] = _fault_grads(raw, batch)
+            one[run]["halves"] = _half_batch_grads(raw, batch)
+        one[run]["fault"] = _fault_grads(raw, batch)
+        one[run]["fault_kind"] = "one process on rank 0's rows"
     torch.cuda.empty_cache()
     return ddp, one
 
@@ -2021,7 +2100,7 @@ def _fault_grads(raw, batch, ranks=2):
     return _ddp_steps(dict(raw, batch_size=half), rows, 1, None)["grads"]
 
 
-def _ddp_compare(model, raw, one, two, n_steps, halves=None):
+def _ddp_compare(run, raw, one, two, n_steps, halves=None):
     """The DDP run against one process on the global batch: the first
     loss, the first step's gradient (over the model's largest gradient
     entry) and the planted fault's (``_fault_grads``) read the same way,
@@ -2032,9 +2111,12 @@ def _ddp_compare(model, raw, one, two, n_steps, halves=None):
     own computation in one process."""
     gmax = max(float(np.abs(g).max()) for g in one["grads"].values())
 
-    def grad_err(ref, got=two["grads"]):
+    def grad_err(ref, got=two["grads"], keys=None):
+        """Over the model's largest entry, or over ``keys``' largest."""
+        top = gmax if keys is None else max(
+            float(np.abs(ref[k]).max()) for k in keys)
         return max(float(np.abs(ref[k] - got[k]).max())
-                   for k in ref) / gmax
+                   for k in (ref if keys is None else keys)) / top
 
     running_1 = max((float(np.abs(v - two["running_1"][k]).max())
                      / max(float(np.abs(v).max()), 1e-30)
@@ -2049,8 +2131,8 @@ def _ddp_compare(model, raw, one, two, n_steps, halves=None):
         if k in one["grads"]:
             move = max(move, d)
     running = [r for k, r in rel.items() if "running" in k]
-    return {"phase": "parallel_ddp", "config": f"cfgs/{model}.yaml",
-            "ranks": 2, "global_batch": raw["batch_size"],
+    return {"phase": "parallel_ddp", "run": run,
+            "config": f"cfgs/{one['model']}.yaml", "ranks": 2, "global_batch": raw["batch_size"],
             "steps": n_steps, "losses_one": one["losses"],
             "losses_ddp": two["losses"],
             "first_loss_rel": abs(two["losses"][0] - one["losses"][0])
@@ -2058,6 +2140,7 @@ def _ddp_compare(model, raw, one, two, n_steps, halves=None):
             "first_grad_err_over_max_grad": grad_err(one["grads"]),
             "fault_grad_err_over_max_grad": grad_err(one["grads"],
                                                      one["fault"]),
+            "fault": one["fault_kind"],
             "grad_bound": DDP_GRAD_BOUND,
             "running_stats_after_step_1_worst_rel": running_1,
             "halves_grad_err_over_max_grad":
@@ -2071,7 +2154,25 @@ def _ddp_compare(model, raw, one, two, n_steps, halves=None):
             "replicas_equal": two["replicas_equal"],
             "steps_per_s_one": one["steps_per_s"],
             "steps_per_s_ddp": two["steps_per_s"],
-            "launches": two["launches"], "peak_gib_ranks": two["peak_gib"]}
+            "launches": two["launches"], "peak_gib_ranks": two["peak_gib"],
+            **_latent_reads(raw, one, two, grad_err)}
+
+
+def _latent_reads(raw, one, two, grad_err):
+    """Under MMD, the first gradient of VRCNet's latent path (posterior,
+    prior), where the distribution loss acts, over that path's largest
+    entry: the DDP run's and the planted fault's (MMD over each rank's
+    rows alone)."""
+    if raw.get("distribution_loss") != "MMD":
+        return {}
+    keys = [k for k in one["grads"]
+            if k.split(".")[0] in ("post1", "post2", "prior")]
+    return {"distribution_loss": "MMD",
+            "latent_grad_err_over_its_max": grad_err(one["grads"],
+                                                     keys=keys),
+            "fault_latent_grad_err_over_its_max": grad_err(
+                one["grads"], one["fault"], keys),
+            "latent_grad_bound": DDP_MMD_LATENT_BOUND}
 
 
 # the DDP runs whose ranks need nothing of each other in the forward
@@ -2082,6 +2183,51 @@ DDP_NO_BATCHNORM = ("vrcnet",)
 # on an H100), below the planted fault (``_fault_grads``: 0.29 and 1.2),
 # which the phase checks exceeds it
 DDP_GRAD_BOUND = 5e-2
+# under distribution_loss MMD the planted fault (each rank's MMD over its
+# own rows) moves the latent path's gradient alone: at the CPU tests' size
+# 7.8e-3 of the model's largest entry, 4.3e-2 of the latent path's; the
+# path's own bound sits between that and f32 summation order
+DDP_MMD_LATENT_BOUND = 1e-2
+
+
+def _check_ddp(ddp, one, two):
+    """Each DDP run of ``ddp`` (``_ddp_inputs``) read against its
+    one-process side ``one`` (``_ddp_compare``) and emitted; the run fails
+    where one is outside its bounds. Returns the records by run."""
+    out = {}
+    for run, (raw, _, n_steps) in ddp.items():
+        rec = _ddp_compare(run, raw, one[run], two[run], n_steps,
+                           one[run].get("halves"))
+        rec["peak_gib_one"] = one[run]["peak_gib"]
+        emit(rec)
+        out[run] = rec
+        # the first gradient against one process on the whole batch,
+        # under the bound that the planted fault exceeds; exact where
+        # the ranks' work can be redone in one process (no BatchNorm:
+        # up to the atomics' order), the global batch's BatchNorm
+        # statistics to f32 sums' rounding; the states after 2 steps
+        # are read, not bounded: Adam's normalised step moves a
+        # near-zero gradient's entry by ~lr
+        # under MMD the ranks' forwards meet in the gather, and the
+        # planted fault moves the latent path: its bound there
+        if "distribution_loss" in rec:
+            held = (rec["latent_grad_err_over_its_max"]
+                    <= DDP_MMD_LATENT_BOUND
+                    < rec["fault_latent_grad_err_over_its_max"])
+            caught = True
+        else:
+            held = (rec["halves_grad_err_over_max_grad"] <= 1e-5
+                    if one[run]["model"] in DDP_NO_BATCHNORM
+                    else rec["running_stats_after_step_1_worst_rel"]
+                    <= 1e-4)
+            caught = (DDP_GRAD_BOUND
+                      < rec["fault_grad_err_over_max_grad"])
+        if not (held and caught and rec["replicas_equal"]
+                and rec["first_grad_err_over_max_grad"] <= DDP_GRAD_BOUND
+                and rec["first_loss_rel"] <= 1e-5
+                and np.isfinite(rec["losses_ddp"]).all()):
+            fail(f"parallel: DDP {run} outside its bounds: {rec}")
+    return out
 
 
 def phase_parallel(refs, rescore_ref):
@@ -2097,8 +2243,8 @@ def phase_parallel(refs, rescore_ref):
        (data 1 x restart 2) split of houv.yaml's 4 pairs, houv_rescore at
        8 pairs with log/'s classifier (picks, ``n_override``, logits), all
        bit-equal to one process; DDP steps of vrcnet.yaml and deepgmr.yaml
-       (batch 32, 16 a rank, 3 steps) against one process on the global
-       batch;
+       (batch 32, 16 a rank, 2 steps; VRCNet as its yaml has it and under
+       MMD) against one process on the global batch;
     3. the CLI: ``n_devices`` the visible cards runs; one more takes the
        cards there are, its rows bit-equal.
     Returns the launches of each run, for the ``kernels`` line."""
@@ -2203,29 +2349,9 @@ def _phase_parallel(refs, rescore_ref, t_phase):
                 and got["n_retry"] == rescore_ref["n_retry"]
                 and logit_err <= 9.7e-4):
             fail(f"parallel: the sharded rescored solve differs: {rec}")
-        for model, (raw, _, n_steps) in ddp.items():
-            rec = _ddp_compare(model, raw, one[model], two[model], n_steps,
-                               one[model].get("halves"))
-            rec["peak_gib_one"] = one[model]["peak_gib"]
-            emit(rec)
+        for run, rec in _check_ddp(ddp, one, two).items():
             checks.append(rec)
-            launches[f"ddp:{model}"] = two[model]["launches"]
-            # the first gradient against one process on the whole batch,
-            # under the bound that the planted fault exceeds; exact where
-            # the ranks' work can be redone in one process (no BatchNorm:
-            # up to the atomics' order), the global batch's BatchNorm
-            # statistics to f32 sums' rounding; the states after 3 steps
-            # are read, not bounded: Adam's normalised step moves a
-            # near-zero gradient's entry by ~lr
-            held = (rec["halves_grad_err_over_max_grad"] <= 1e-5
-                    if model in DDP_NO_BATCHNORM
-                    else rec["running_stats_after_step_1_worst_rel"] <= 1e-4)
-            if not (held and rec["replicas_equal"]
-                    and rec["first_grad_err_over_max_grad"] <= DDP_GRAD_BOUND
-                    < rec["fault_grad_err_over_max_grad"]
-                    and rec["first_loss_rel"] <= 1e-5
-                    and np.isfinite(rec["losses_ddp"]).all()):
-                fail(f"parallel: DDP {model} outside its bounds: {rec}")
+            launches[f"ddp:{run}"] = two[run]["launches"]
 
         # 3. the CLI over the visible cards; one more takes the cards there
         # are (as the JAX package takes the first n devices), its rows
@@ -2290,7 +2416,9 @@ def _completion_counters():
             "emd": _Count(emd_auction_with_stats),
             "scatter_add": _Count(scatter_add),
             "nn_select": _Count(nn_select),
-            "gather_rows": _Count(gather_rows_kernel)}
+            "gather_rows": _Count(gather_rows_kernel),
+            "fps_large": _Count(furthest_point_sample, "large_launches"),
+            "emd_large": _Count(emd_auction_with_stats, "large_launches")}
 
 
 def _zero(counters):
@@ -2619,6 +2747,32 @@ class _EmdInputs(_Picks):
         if len(self.kept) < self.limit:
             self.kept.append((x1.clone(), x2.clone(), eps, iters))
         return self.fn(x1, x2, eps, iters, *args, **kwargs)
+
+
+class _FpsLargeInputs(_Picks):
+    """A ``_Picks`` for K2's launch (``ops/sampling.py:_fps_cuda``) that
+    keeps the (B, N, K) of each launch of ``csrc/fps_large.cu`` (clouds
+    past K2's limit) in ``shapes``, and in ``kept`` the first cloud and k
+    at each shape."""
+
+    def __init__(self):
+        from houv_tpu_torch.kernels import load
+        from houv_tpu_torch.ops import sampling
+
+        super().__init__(sampling._fps_cuda)
+        self.max_points = load().houv_fps_max_points()
+        self.shapes = []
+
+    def __call__(self, points, k):
+        from houv_tpu_torch.ops import sampling
+
+        if sampling._fps_route(points.shape[1],
+                               self.max_points) == "fps_large":
+            shape = [*points.shape[:2], k]
+            if shape not in self.shapes:
+                self.kept.append((points.clone(), k))
+            self.shapes.append(shape)
+        return self.fn(points, k)
 
 
 class _Census(_Picks):
@@ -4473,6 +4627,422 @@ def phase_ablations():
     return rec
 
 
+# clouds above the card kernels' limits: K2's large variant at (B, N) ->
+# K, just past K2's 8192 points and at MVP's largest ground truth; K7's at
+# (B, N) x (B, N), its checks at few enough rounds for the plain version
+LARGE_FPS = ((4, 16384, 2048), (4, 8193, 2048))
+LARGE_EMD = ((2, 8192, 40), (2, 16384, 12))
+
+
+def _large_vrcnet_cfg(tmp, n_clouds, num_points, **extra):
+    """cfgs/vrcnet.yaml at MVP's num_points-point ground truth from
+    2048-point scans, batch 8: ``num_input`` 2048 and no local folding (as
+    the 4096-point run of ``phase_completion_models``), its widths as the
+    yaml's."""
+    return _model_cfg(tmp, "vrcnet", n_clouds, num_points=num_points,
+                      num_input=2048, local_folding=False, batch_size=8,
+                      **extra)
+
+
+def phase_large_clouds(gen):
+    """Clouds above K2's and K7's limits (``csrc/fps_large.cu``,
+    ``csrc/emd_large.cu``): K2's variant at ``LARGE_FPS`` index for index
+    against the plain version; K7's at ``LARGE_EMD`` (assignments,
+    distances' bits, rounds and bids against the plain version at few
+    rounds, then timed alone at validate's eps 0.004 and 3000 rounds);
+    then the paths: 3 train steps of cfgs/vrcnet.yaml at num_points 16384,
+    batch 8 (K2's variant twice a step: the ground truth's FPS to the 2048
+    input points and the decoder's of its coarse cloud to ``num_fps``), and
+    ``validate`` with eval_emd at num_points
+    8192, batch 8 (K7's variant, once a batch), each with its launches and
+    the (B, N, K) of each of K2's variant's launches (``_FpsLargeInputs``),
+    the variant held to the plain version on the path's first cloud at
+    each of them. Returns the ``kernels`` line's two rows."""
+    from houv_tpu_torch.ops import emd, sampling
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    fps = sampling.furthest_point_sample
+    fps_err, fps_rows = 0.0, []
+    for i, (b, n, k) in enumerate(LARGE_FPS):
+        before = (fps.launches, fps.large_launches)
+        fps_err = max(fps_err, check_fps(
+            torch.randn((b, n, 3), generator=gen).cuda(), k, "large"))
+        if (fps.launches - before[0], fps.large_launches - before[1]) \
+                != (0, 1):
+            fail(f"fps at {n} points did not run fps_large alone")
+        fps_rows.append(_time_fps(b, n, k, "large_clouds", gen,
+                                  plain=i == 0))
+    emd_err, emd_rows = 0.0, []
+    run = emd.emd_auction_with_stats
+    for b, n, iters in LARGE_EMD:
+        x1 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+        x2 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+        emd_err = max(emd_err, check_emd(x1, x2, 0.004, iters,
+                                         f"large_{n}"))
+        row = {"path": "large_clouds", **_time_emd(x1, x2, 0.004, iters)}
+        if not emd_rows:
+            row["plain_ms"] = cuda_ms(
+                lambda: emd._auction_plain(x1, x2, 0.004, iters), reps=1,
+                warmup=0)
+        emd_rows.append(row)
+        emd_rows.append({"path": "large_clouds, validate's setting",
+                         **_time_emd(x1, x2, 0.004, 3000)})
+        del x1, x2
+        torch.cuda.empty_cache()
+
+    counters = _completion_counters()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(_large_vrcnet_cfg(tmp, 24, 16384))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        ds = build_dataset(cfg, "train")
+        batches = [ds.get_batch(np.arange(8 * i, 8 * i + 8),
+                                rng=np.random.default_rng(i))
+                   for i in range(3)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        t0 = time.perf_counter()
+        with _FpsLargeInputs() as path_fps:
+            losses = [float(trainer.train_step(bt, 0, i))
+                      for i, bt in enumerate(batches)]
+            torch.cuda.synchronize()
+        launches["train_16384"] = _read(counters)
+        rec = {"phase": "large_clouds", "run": "train_steps",
+               "config": "cfgs/vrcnet.yaml", "num_points": 16384,
+               "num_input": 2048, "local_folding": False, "batch": 8,
+               "steps": 3, "losses": losses,
+               "seconds": time.perf_counter() - t0,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launches["train_16384"],
+               "fps_large_shapes": path_fps.shapes}
+        emit(rec)
+        # two of a step's FPS pass K2's limit: the ground truth's to the
+        # 2048 input points and the decoder's of its coarse cloud to
+        # num_fps (models/vrcnet.py's, (16, 18432) -> 2048 on an H100)
+        if not np.isfinite(losses).all() \
+                or launches["train_16384"].get("fps_large") != 2 * 3 \
+                or len(path_fps.shapes) != 2 * 3:
+            fail(f"vrcnet at 16384 points: {rec}")
+        # the variant at each of the path's shapes, on the path's own
+        # first cloud there, index for index against the plain version
+        for pts, k in path_fps.kept:
+            fps_err = max(fps_err, check_fps(pts, k, "train_16384"))
+        del trainer, batches, path_fps
+        torch.cuda.empty_cache()
+
+        cfg = load_config(_large_vrcnet_cfg(tmp, 8, 8192, eval_emd=True))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        val_ds = build_dataset(cfg, "val")
+        torch.cuda.synchronize()
+        _zero(counters)
+        t0 = time.perf_counter()
+        with _FpsLargeInputs() as path_fps:
+            metrics = trainer.validate(val_ds)
+            torch.cuda.synchronize()
+        launches["validate_8192"] = _read(counters)
+        rec = {"phase": "large_clouds", "run": "validate",
+               "config": "cfgs/vrcnet.yaml", "num_points": 8192,
+               "num_input": 2048, "eval_emd": True, "clouds": len(val_ds),
+               "seconds": time.perf_counter() - t0, "metrics": metrics,
+               "launches": launches["validate_8192"],
+               "fps_large_shapes": path_fps.shapes}
+        emit(rec)
+        want = len(val_ds) // 8
+        if set(metrics) != {"cd_p", "cd_t", "f1", "emd"} \
+                or not all(np.isfinite(v) for v in metrics.values()) \
+                or launches["validate_8192"].get("emd_large") != want \
+                or launches["validate_8192"].get("emd") \
+                or launches["validate_8192"].get("fps_large", 0) \
+                != len(path_fps.shapes):
+            fail(f"vrcnet validate at 8192 points: {rec}")
+        for pts, k in path_fps.kept:
+            fps_err = max(fps_err, check_fps(pts, k, "validate_8192"))
+        del path_fps
+        batch = val_ds.get_batch(np.arange(8))
+        fine = trainer.predict_batch(batch, step=0)
+        gt = torch.as_tensor(batch["gt"], device="cuda")
+        emd_rows.append({"path": "validate 8192",
+                         **_time_emd(fine, gt, 0.004, 3000)})
+        del trainer, fine, gt
+        torch.cuda.empty_cache()
+    fps_row = {"name": "fps_large", "route": "cuda",
+               "source": "houv_tpu_torch/csrc/fps_large.cu",
+               "replaces": "houv_tpu/ops/sampling.py:43",
+               "launches": launches["train_16384"].get("fps_large", 0),
+               "max_abs_err": fps_err, **fps_rows[0], "library_ms": None,
+               "at_shapes": fps_rows}
+    emd_row = {"name": "emd_large", "route": "cuda",
+               "source": "houv_tpu_torch/csrc/emd_large.cu",
+               "replaces": "houv_tpu/ops/emd_kernel.py:48",
+               "launches": launches["validate_8192"].get("emd_large", 0),
+               "max_abs_err": emd_err, **emd_rows[0], "library_ms": None,
+               "at_shapes": emd_rows}
+    return {"rows": [fps_row, emd_row], "launches": launches}
+
+
+# MVPN preprocessing at full width: one synthetic class of 1024 partial
+# scans of 2048 points (64 models x 16 views), k 6, 10 Adam epochs; the
+# card's F1 matrix held to the plain arithmetic on the card over the first
+# PRE_CHECK clouds and to the CPU path over the first PRE_CPU
+PRE_MODELS, PRE_VIEWS, PRE_POINTS = 64, 16, 2048
+PRE_CHECK, PRE_CPU = 64, 8
+
+
+def _plain_f1(partials):
+    """The F1 of every pair of ``partials`` ((N, P, 3) on the card) as
+    ``data/preprocess.py:pairwise_f1`` computes it, its nearest neighbours
+    from the plain version (``ops/chamfer.py:_nn_both_plain``)."""
+    from houv_tpu_torch.metrics.cd import fscore
+    from houv_tpu_torch.ops import chamfer
+    from houv_tpu_torch.ops.gather import gather_rows
+
+    n = partials.shape[0]
+    out = torch.empty((n, n), device=partials.device)
+    for i in range(n):
+        out_c = partials[i:i + 1].expand_as(partials).contiguous()
+        i1, i2 = chamfer._nn_both_plain(partials, out_c)
+        d1 = ((partials - gather_rows(out_c, i1)) ** 2).sum(-1)
+        d2 = ((out_c - gather_rows(partials, i2)) ** 2).sum(-1)
+        out[i] = fscore(d1, d2)[0]
+    return out.cpu().numpy()
+
+
+def _f1_agree(f1, ref, knn, k):
+    """F1 entries equal, and each row's kNN equal to the reference's away
+    from ties at its k-th score (the scores at the picks equal)."""
+    from houv_tpu_torch.data.preprocess import _top_k
+
+    n = len(ref)
+    ref_knn = _top_k(ref, k)
+    s = np.array(ref, copy=True)
+    np.fill_diagonal(s, -np.inf)
+    srt = -np.sort(-s, axis=1)
+    untied = srt[:, k - 1] != srt[:, k]
+    same = [np.array_equal(np.sort(knn[i]), np.sort(ref_knn[i]))
+            for i in range(n)]
+    scores_equal = all(np.array_equal(s[i, knn[i]], s[i, ref_knn[i]])
+                       for i in range(n))
+    return {"f1_max_abs_diff": float(np.abs(f1 - ref).max()),
+            "rows_untied": int(untied.sum()),
+            "knn_equal_untied": bool(all(same[i] for i in range(n)
+                                         if untied[i])),
+            "scores_at_picks_equal": scores_equal}
+
+
+def phase_preprocess():
+    """``data/preprocess.py:combine_dataset`` on the card at full width:
+    one synthetic class of 1024 scans of 2048 points, k 6, 10 epochs, in
+    mode f1 (the all-pairs chamfer F1: 1,048,576 pairs through K1, 16 x
+    1024 a call; BFS; a fused cloud a cluster: K4's voxel means, 10 Adam
+    steps of K1 and K4) and in mode embedding (the trained instance
+    embedding of log/); pairs/s of the F1 sweep, K1 and K4 launches,
+    clusters and the largest, seconds a stage. The card's F1 and kNN over
+    the first 64 clouds against the plain arithmetic on the card, and over
+    the first 8 against the CPU path, away from F1 ties."""
+    from houv_tpu_torch.data import preprocess, synthesize_completion_set
+    from houv_tpu_torch.models import get_model
+    from houv_tpu_torch.state import state_from_flax
+    from houv_tpu_torch.train.checkpoint import read_flax_msgpack
+
+    t0 = time.perf_counter()
+    data = synthesize_completion_set(PRE_MODELS, PRE_VIEWS, PRE_POINTS,
+                                     PRE_POINTS, seed=11)
+    partials = data["incomplete_pcds"]
+    labels = np.zeros(len(partials), np.int64)            # one class
+    synth_s = time.perf_counter() - t0
+    n, k = len(partials), 6
+    counters = _completion_counters()
+    out = {}
+
+    _zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f1 = preprocess.pairwise_f1(partials)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep = {"phase": "preprocess", "run": "f1_sweep", "clouds": n,
+             "points": PRE_POINTS, "pairs": n * n, "seconds": sweep_s,
+             "pairs_per_s": n * n / sweep_s, "launches": _read(counters)}
+    knn = preprocess._top_k(f1, k)
+    sub = torch.as_tensor(partials[:PRE_CHECK], device="cuda")
+    sweep["plain_on_card"] = _f1_agree(f1[:PRE_CHECK, :PRE_CHECK],
+                                       _plain_f1(sub),
+                                       preprocess._top_k(
+                                           f1[:PRE_CHECK, :PRE_CHECK], k), k)
+    cpu = preprocess.pairwise_f1(partials[:PRE_CPU], device="cpu")
+    sweep["cpu_path"] = _f1_agree(f1[:PRE_CPU, :PRE_CPU], cpu,
+                                  preprocess._top_k(f1[:PRE_CPU, :PRE_CPU],
+                                                    k), k)
+    emit(sweep)
+    for side in ("plain_on_card", "cpu_path"):
+        agree = sweep[side]
+        if agree["f1_max_abs_diff"] > 1e-6 or not (
+                agree["knn_equal_untied"] and agree["scores_at_picks_equal"]):
+            fail(f"preprocess: the card's F1 differs from the {side}: "
+                 f"{agree}")
+    del sub
+    out["f1_sweep"] = sweep
+
+    for mode in ("f1", "embedding"):
+        kw = {}
+        if mode == "embedding":
+            state = read_flax_msgpack(str(REPO / AUX_CKPTS["embedding"]))
+            model = get_model("model_embedding")
+            model.load_state_dict(state_from_flax(state, model), strict=True)
+            model = model.cuda().eval()
+            kw["embed_fn"] = lambda x: model(x)[0]
+        stages = {}
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        knn_all, fused, cid = preprocess.combine_dataset(
+            partials, labels, k=k, epochs=10, mode=mode, stages=stages,
+            **kw)
+        torch.cuda.synchronize()
+        rec = {"phase": "preprocess", "run": "combine_dataset", "mode": mode,
+               "clouds": n, "points": PRE_POINTS, "k": k, "epochs": 10,
+               "seconds": time.perf_counter() - t0,
+               "stage_seconds": stages,
+               "clusters": int(cid.max()) + 1,
+               "largest_cluster": int(np.bincount(cid).max()),
+               "launches": _read(counters),
+               "fused_moved_max": float(np.abs(fused - partials).max())}
+        if mode == "f1":
+            rec["knn_equal_sweep"] = bool(np.array_equal(knn_all, knn))
+        emit(rec)
+        if not (np.isfinite(fused).all() and (cid >= 0).all()
+                and knn_all.shape == (n, k)
+                and (knn_all != np.arange(n)[:, None]).all()
+                and rec.get("knn_equal_sweep", True)
+                and rec["launches"].get("scatter_add", 0) > 0
+                and (mode == "embedding"
+                     or rec["launches"].get("nn_both", 0) > 0)):
+            fail(f"preprocess: combine_dataset in mode {mode}: {rec}")
+        out[mode] = rec
+    out["synthesis_s"] = synth_s
+    torch.cuda.empty_cache()
+    return out
+
+
+NATIVE_STEPS = 8
+
+
+def phase_native():
+    """The native C++ loader (``data/native_loader.py``, built into
+    build/native/) on cfgs/deepgmr.yaml at full width (batch 32, 2048
+    points): ``train_main`` with ``use_native_loader`` and ``native_steps``
+    8 (its launches, K6 2 a step and 2 a val batch); the steps/s of 8
+    steps fed by the loader beside 8 fed by the in-memory split (one
+    trainer each, steps 2..8, ending in a sync) and the loader's queue;
+    then ``train_main`` with ``profile_dir`` and ``profile_steps`` 3: the
+    Chrome trace exists and names the steps' K6 launches."""
+    from houv_tpu_torch.data.native_loader import NativeRegistrationLoader
+    from houv_tpu_torch.data.pipeline import batch_iterator
+    from houv_tpu_torch.train.cli import build_dataset, make_trainer, train_main
+    from houv_tpu_torch.train.config import load_config
+
+    counters = _completion_counters()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = _model_cfg(tmp, "deepgmr", 64, use_native_loader=True,
+                          native_steps=NATIVE_STEPS)
+        _zero(counters)
+        res = train_main(["-c", path])
+        launches = _read(counters)
+        cfg = res["trainer"].cfg
+        val_batches = len(build_dataset(cfg, "val")) // cfg.batch_size
+        expected = {"knn": 2 * (NATIVE_STEPS + val_batches)}
+        rec = {"phase": "native", "run": "train_main",
+               "config": "cfgs/deepgmr.yaml", "batch": cfg.batch_size,
+               "steps": res["steps"], "losses": res["losses"],
+               "queue_size": res["queue_size"], "seconds": res["seconds"],
+               "launches": launches, "expected_launches": expected}
+        emit(rec)
+        if res["steps"] != NATIVE_STEPS or launches != expected \
+                or not np.isfinite(res["losses"]).all():
+            fail(f"native loader: {rec}")
+        out["train_main"] = rec
+        del res
+
+        # steps/s, one trainer fed by each loader
+        rates = {}
+        train_ds = build_dataset(cfg, "train")
+        for feed in ("native", "in_memory"):
+            trainer = make_trainer(cfg, "cuda")
+            trainer.init_state()
+            if feed == "native":
+                loader = NativeRegistrationLoader(
+                    train_ds.src, train_ds.tgt, cfg.batch_size,
+                    max_angle_deg=cfg.max_angle, max_trans=cfg.max_trans,
+                    seed=2021)
+                nxt = loader.next_batch
+            else:
+                it = itertools.cycle(list(batch_iterator(
+                    trainer.wrap_dataset(train_ds), cfg.batch_size,
+                    shuffle=True, drop_last=True, seed=0)))
+                nxt = lambda: next(it)  # noqa: E731
+            batches = (lambda: {k: torch.as_tensor(v, device="cuda")
+                                for k, v in nxt().items()})
+            trainer.train_step(batches(), 0, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for step in range(1, NATIVE_STEPS):
+                trainer.train_step(batches(), 0, step)
+            torch.cuda.synchronize()
+            rates[feed] = (NATIVE_STEPS - 1) / (time.perf_counter() - t0)
+            if feed == "native":
+                rates["queue_size"] = loader.queue_size()
+                loader.close()
+            del trainer
+        rec = {"phase": "native", "run": "steps_per_s",
+               "config": "cfgs/deepgmr.yaml", "batch": cfg.batch_size,
+               "steps_per_s_native": rates["native"],
+               "steps_per_s_in_memory": rates["in_memory"],
+               "queue_size_after": rates["queue_size"]}
+        emit(rec)
+        out["rates"] = rec
+
+        prof_dir = Path(tmp) / "profile"
+        profile_steps = 3
+        path = Path(_model_cfg(tmp, "deepgmr", 128, nepoch=1,
+                               profile_steps=profile_steps))
+        raw = yaml.safe_load(path.read_text())
+        raw["profile_dir"] = str(prof_dir)
+        path.write_text(yaml.safe_dump(raw))
+        res = train_main(["-c", str(path)])
+        trace = prof_dir / "trace_rank0.json"
+        events = json.loads(trace.read_text())["traceEvents"] \
+            if trace.exists() else []
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        knn_kernels = sum("knn" in e.get("name", "") for e in kernels)
+        # the host's step annotations (the device's timeline mirrors each
+        # as a gpu_user_annotation)
+        steps = sum(1 for e in events if e.get("ph") == "X"
+                    and e.get("cat") != "gpu_user_annotation"
+                    and e.get("name", "").startswith("Optimizer.step"))
+        rec = {"phase": "native", "run": "profile_dir",
+               "trace": trace.exists(), "trace_bytes":
+                   trace.stat().st_size if trace.exists() else 0,
+               "kernel_events": len(kernels), "knn_kernel_events":
+                   knn_kernels, "optimizer_steps_traced": steps,
+               "steps_run": len(res["losses"])}
+        emit(rec)
+        # the steps' K6 launches (two a DeepGMR step) named in the trace;
+        # CUPTI may drop a kernel at the very start of a trace (one of six
+        # in one run on an H100)
+        if not (trace.exists() and steps == profile_steps
+                and knn_kernels >= 2 * profile_steps - 1):
+            fail(f"profile_dir: {rec}")
+        out["profile"] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
 def _short_solve_inputs(pairs=4):
     """cfgs/houv.yaml's solver config with the budget cut to 100 steps, and
     ``pairs`` pairs of the structured split on the card: (config, src, tgt,
@@ -4863,11 +5433,19 @@ def phase_profile_vrcnet():
 # took minutes a window (PERF.md §6), more than the script's time limit
 # holds. Their wall time is then the window's without the host-side
 # profiler's overhead.
+# the profiled registration windows, cut in depth to a quarter of the
+# yamls' cadence "300:5:4,150:5:2,50:2" (each phase's refresh and
+# subsample kept): parsing the device's activity is the phases' time, about
+# 254,000 kernels a full window
+PROFILE_WINDOW = dict(steps=125,
+                      nn_refresh_schedule=((75, 5, 4), (40, 5, 2), (10, 2, 1)))
+
+
 def phase_profile():
     """Where one houv_fast window's time goes: torch.profiler (the device's
-    activity only) over one angle pass of the 16-pair split, device time
-    by kernel name, and K2's census in that window (``fps_census``:
-    (B, N, K) of each launch)."""
+    activity only) over one angle pass of the 16-pair split, its depth cut
+    to ``PROFILE_WINDOW``, device time by kernel name, and K2's census in
+    that window (``fps_census``: (B, N, K) of each launch)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -4879,7 +5457,8 @@ def phase_profile():
     from houv_tpu_torch.train.config import load_config
 
     cfg = load_config(str(REPO / "cfgs" / "houv_fast.yaml"))
-    scfg = dataclasses.replace(solver_config(cfg), angle_passes=1)
+    scfg = dataclasses.replace(solver_config(cfg), angle_passes=1,
+                               **PROFILE_WINDOW)
     d = synthesize_registration_pairs(
         16, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
         max_trans=cfg.max_trans, seed=7, shape_mode="structured",
@@ -4896,7 +5475,8 @@ def phase_profile():
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rec = {"phase": "profile", "config": "cfgs/houv_fast.yaml", "pairs": 16,
-           "angle_passes": 1, **_profile_top(prof, wall_ms),
+           "angle_passes": 1, "window_cut_to": PROFILE_WINDOW,
+           **_profile_top(prof, wall_ms),
            "fps_census": census.kept}
     emit(rec)
     return rec
@@ -4904,7 +5484,7 @@ def phase_profile():
 
 def phase_profile_rescore():
     """Where one rescored window's time goes (cfgs/houv_rescore.yaml, 8
-    pairs, one angle window): torch.profiler (the device's activity only)
+    pairs, one angle window cut to ``PROFILE_WINDOW``): torch.profiler (the device's activity only)
     over the pool solve, then over the candidates' scoring by the trained
     classifier, each with its wall time and device time by kernel."""
     import dataclasses
@@ -4920,7 +5500,8 @@ def phase_profile_rescore():
     from houv_tpu_torch.train.config import load_config
 
     cfg = load_config(str(REPO / "cfgs" / "houv_rescore.yaml"))
-    scfg = dataclasses.replace(solver_config(cfg), angle_passes=1)
+    scfg = dataclasses.replace(solver_config(cfg), angle_passes=1,
+                               **PROFILE_WINDOW)
     n = QUALITY_PAIRS
     d = synthesize_registration_pairs(
         n, n_points=cfg.num_points, max_angle_deg=cfg.max_angle,
@@ -4932,7 +5513,8 @@ def phase_profile_rescore():
                           device="cuda")
     scorer = make_classifier_scorer(_rescorer_model("cuda"), micro_batch=16)
     rec = {"phase": "profile_rescore", "config": "cfgs/houv_rescore.yaml",
-           "pairs": n, "angle_passes": 1, "rescore_cands": cfg.rescore_cands}
+           "pairs": n, "angle_passes": 1, "window_cut_to": PROFILE_WINDOW,
+           "rescore_cands": cfg.rescore_cands}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -4975,13 +5557,17 @@ def _time_fps(b, n, k, path, gen, plain=False):
     rate: a chain of K - 1 argmaxes, so the latency floor of
     ``scripts/time_fps_variants.py`` says more) and with ``plain`` the
     plain version's."""
+    from houv_tpu_torch.kernels import load
     from houv_tpu_torch.ops import sampling
 
     pts = torch.randn((b, n, 3), generator=gen).cuda()
-    saved = sampling.furthest_point_sample.launches
-    ms = cuda_ms(lambda: sampling.furthest_point_sample(pts, k), reps=10)
-    sampling.furthest_point_sample.launches = saved
-    row = {"shape": {"points": [b, n, 3], "k": k}, "path": path, "ms": ms}
+    fps = sampling.furthest_point_sample
+    saved = (fps.launches, fps.large_launches)
+    ms = cuda_ms(lambda: fps(pts, k), reps=10)
+    fps.launches, fps.large_launches = saved
+    row = {"shape": {"points": [b, n, 3], "k": k}, "path": path,
+           "variant": sampling._fps_route(n, load().houv_fps_max_points()),
+           "ms": ms}
     row["bound_ms"], row["bound_by"] = bound(12 * b * n + 8 * b * k,
                                              10.0 * b * n * (k - 1))
     if plain:
@@ -5291,11 +5877,11 @@ def _time_emd(x1, x2, eps, iters):
 
     b, n, _ = x1.shape
     m = x2.shape[1]
-    saved = emd.emd_auction_with_stats.launches
-    _, _, rounds, bids = emd.emd_auction_with_stats(x1, x2, eps, iters)
-    ms = cuda_ms(lambda: emd.emd_auction_with_stats(x1, x2, eps, iters),
-                 reps=3)
-    emd.emd_auction_with_stats.launches = saved
+    run = emd.emd_auction_with_stats
+    saved = (run.launches, run.large_launches)
+    _, _, rounds, bids = run(x1, x2, eps, iters)
+    ms = cuda_ms(lambda: run(x1, x2, eps, iters), reps=3)
+    run.launches, run.large_launches = saved
     plan = emd_plan(b, n, m)
     n_bids, n_rounds = int(bids.sum()), int(rounds.max())
     bound_ms, bound_by = bound(12 * b * (n + m) + 12 * b * n + 16 * b,
@@ -5306,7 +5892,7 @@ def _time_emd(x1, x2, eps, iters):
     floor = 11.0 * n_bids * m / (sms * 128 * clock_mhz * 1e3)
     return {"shape": {"x1": [b, n, 3], "x2": [b, m, 3], "eps": eps,
                       "iters": iters},
-            "plan": plan, "rounds_max": n_rounds, "bids": n_bids, "ms": ms,
+            "variant": emd_route(n, m), "plan": plan, "rounds_max": n_rounds, "bids": n_bids, "ms": ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor,
             "x_floor": ms / floor,
             "floor_clock_mhz": clock_mhz}
@@ -5373,7 +5959,8 @@ def _time_gather_rows(gen):
 
 def phase_kernels(launches, errs, completion, train, solve, models,
                   models_train, select, classical, combine, vrcnet_knn,
-                  learned, aux, bf16, parallel, gan, ablations, gen):
+                  learned, aux, bf16, parallel, gan, ablations, large, pre,
+                  native, gen):
     """``launches``: the houv_fast counts; ``errs``: each kernel's largest
     error against its plain version; ``completion``: the VRCNet runs (their
     counts summed for knn and emd, and the first val batch's fine and gt
@@ -5392,7 +5979,12 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     ``parallel``: the parallel phase's runs, summed over their ranks,
     under ``parallel_launches``; ``gan``: the GAN phase's ``train_main``
     and repeated-batch runs, under ``gan_launches``; ``ablations``: the
-    ablation solves, under ``ablation_launches``."""
+    ablation solves, under ``ablation_launches``; ``large``: the
+    large-cloud phase, whose rows of K2's and K7's variants join the line
+    and whose runs' launches each row carries under
+    ``large_clouds_launches``; ``pre`` and ``native``: the preprocessing
+    and native-loader phases, under ``preprocess_launches`` and
+    ``native_launches``."""
     nn_err, knn_err, emd_err, scatter_err = (
         errs["nn_both"], errs["knn"], errs["emd"], errs["scatter_add"])
     from houv_tpu_torch.ops import emd
@@ -5489,6 +6081,7 @@ def phase_kernels(launches, errs, completion, train, solve, models,
         + models["vrcnet_efexpansion"]["knn_wide"],
         "nn_select": select["nn_select"]["nn_select_launches"],
         "gather_rows": select["gather_rows"]["launches"]})
+    out += large["rows"]
     paths = {m: rec["launches"] for m, rec in classical.items()
              if "launches" in rec}
     paths["combine"] = combine["launches"]
@@ -5527,6 +6120,15 @@ def phase_kernels(launches, errs, completion, train, solve, models,
         row["ablation_launches"] = {
             name: ablations[name]["launches"].get(row["name"], 0)
             for name in ABLATIONS}
+        row["large_clouds_launches"] = {
+            run: counts.get(row["name"], 0)
+            for run, counts in large["launches"].items()}
+        row["preprocess_launches"] = {
+            run: pre[run]["launches"].get(row["name"], 0)
+            for run in ("f1_sweep", "f1", "embedding")}
+        row["native_launches"] = {
+            "train_main": native["train_main"]["launches"].get(row["name"],
+                                                               0)}
     return out
 
 
@@ -5577,7 +6179,7 @@ def main(argv=None) -> int:
 
     timed(phase_build)
     if args.quality_pairs:
-        timed(phase_quality, args.quality_pairs)
+        timed(phase_quality, args.quality_pairs, None)
         return 0
     errs = {"nn_both": timed(phase_nn, gen)}
     errs["fps"] = timed(phase_fps, gen)
@@ -5608,6 +6210,9 @@ def main(argv=None) -> int:
     solve = timed(phase_scatter_solve)
     select = timed(phase_select_solve)
     ablations = timed(phase_ablations)
+    large = timed(phase_large_clouds, gen)
+    pre = timed(phase_preprocess)
+    native = timed(phase_native)
     profiles = {"houv_fast": timed(phase_profile)}
     timed(phase_profile_rescore)
     timed(phase_profile_vrcnet)
@@ -5618,7 +6223,8 @@ def main(argv=None) -> int:
     emit({"kernels": timed(phase_kernels, fast["launches"], errs, completion,
                            train, solve, models, models_train, select,
                            classical, combine, vrcnet_knn, learned, aux,
-                           bf16, parallel, gan, ablations, gen)})
+                           bf16, parallel, gan, ablations, large, pre,
+                           native, gen)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,6 +18,7 @@ complete model (gt index = index // 26).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -350,6 +351,44 @@ def load_h5(path: str, keys=None) -> dict:
             else:
                 out[k] = np.array(f[k][()])
     return out
+
+
+def _write_h5(path: str, data: dict) -> None:
+    """``data`` as an MVP h5 file; a list (the ragged match_id) becomes a
+    group of datasets "0" .. "N-1"."""
+    import h5py
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        for k, v in data.items():
+            if isinstance(v, list):
+                g = f.create_group(k)
+                for i, row in enumerate(v):
+                    g.create_dataset(str(i), data=row)
+            else:
+                f.create_dataset(k, data=v)
+
+
+def write_mvp_rg_fixture(path: str, data: dict | None = None,
+                         n_pairs: int = 16, n_points: int = 128,
+                         seed: int = 2021) -> dict:
+    """A small MVP_RG-schema h5 file (for tests): ``data``, or a synthetic
+    split of n_pairs pairs; returns what was written. Needs h5py."""
+    data = data or synthesize_registration_pairs(n_pairs, n_points, seed=seed)
+    _write_h5(path, data)
+    return data
+
+
+def write_mvp_cp_fixture(path: str, data: dict | None = None,
+                         n_models: int = 4, views: int = 4,
+                         n_points: int = 128, seed: int = 2021) -> dict:
+    """A small MVP_CP-schema h5 file (for tests): ``data``, or a synthetic
+    set of n_models models of ``views`` views; returns what was written.
+    Needs h5py."""
+    data = data or synthesize_completion_set(n_models, views, n_points,
+                                             n_points, seed=seed)
+    _write_h5(path, data)
+    return data
 
 
 # ---------------------------------------------------------------------------

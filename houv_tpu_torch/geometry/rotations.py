@@ -1,7 +1,6 @@
 """Rigid-transform math on batched f32 tensors.
 
-Counterpart of ``houv_tpu/geometry/rotations.py`` (the parts the HOUV sweep
-uses). The JAX package runs these matmuls at ``Precision.HIGHEST``; here
+Counterpart of ``houv_tpu/geometry/rotations.py``. The JAX package runs these matmuls at ``Precision.HIGHEST``; here
 they run in full f32 as long as ``torch.backends.cuda.matmul.allow_tf32``
 stays False, which the solver sets.
 """
@@ -39,6 +38,10 @@ def rodrigues(angle: torch.Tensor, axis: torch.Tensor,
     sin = torch.sin(angle)[..., None, None]
     cos1 = (1.0 - torch.cos(angle))[..., None, None]
     return eye + sin * a + cos1 * (a @ a)
+
+
+# the reference's name
+rotation_from_axis_angle = rodrigues
 
 
 def rotation_xyz(angles_xyz: torch.Tensor) -> torch.Tensor:
@@ -92,3 +95,85 @@ def normalize_translation(tran: torch.Tensor, scale: torch.Tensor,
     """Unit-normalize a direction and scale it (scale may be negative)."""
     norm = torch.sqrt((tran * tran).sum(-1, keepdim=True) + eps)
     return tran / norm * scale
+
+
+def quat2mat(quat: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternions laid out (x, y, z, w) -> (..., 3, 3) rotations,
+    the reference's convention; not normalised inside."""
+    x, y, z, w = quat[..., 0], quat[..., 1], quat[..., 2], quat[..., 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack([
+        w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz,
+        2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx,
+        2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2,
+    ], dim=-1)
+    return m.reshape(quat.shape[:-1] + (3, 3))
+
+
+def mat2euler(mats: torch.Tensor, seq: str = "zyx") -> torch.Tensor:
+    """Rotations -> Euler angles in degrees, (..., 3) as [z, y, x]: 'zyx'
+    scipy's extrinsic z-y-x (R = Rx(γ)·Ry(β)·Rz(α), the reference's), 'ZYX'
+    the intrinsic one (R = Rz·Ry·Rx)."""
+    r = mats
+    if seq == "ZYX":
+        z = torch.atan2(r[..., 1, 0], r[..., 0, 0])
+        y = torch.asin(torch.clamp(-r[..., 2, 0], -1.0, 1.0))
+        x = torch.atan2(r[..., 2, 1], r[..., 2, 2])
+    elif seq == "zyx":
+        z = -torch.atan2(r[..., 0, 1], r[..., 0, 0])
+        y = torch.asin(torch.clamp(r[..., 0, 2], -1.0, 1.0))
+        x = -torch.atan2(r[..., 1, 2], r[..., 2, 2])
+    else:
+        raise NotImplementedError("sequences: 'zyx' (reference) or 'ZYX'")
+    return torch.stack([z, y, x], dim=-1) * (180.0 / math.pi)
+
+
+def _pose_from_draws(axis: torch.Tensor, u_angle: torch.Tensor,
+                     tdir: torch.Tensor, u_trans: torch.Tensor,
+                     max_angle: float, max_trans: float) -> torch.Tensor:
+    """``random_pose``'s transform from its draws: a normal (3,) axis, a
+    uniform angle fraction, a normal (3,) direction and a uniform
+    translation fraction."""
+    axis = axis / torch.linalg.vector_norm(axis)
+    r = rodrigues(u_angle * max_angle, axis)
+    t = tdir / torch.linalg.vector_norm(tdir) * u_trans * max_trans
+    return rt_to_transformation(r, t)
+
+
+def random_pose(generator: torch.Generator, max_angle: float,
+                max_trans: float) -> torch.Tensor:
+    """One random (4, 4) rigid transform on the generator's device: an axis
+    uniform on the sphere (a normalised normal draw), an angle uniform in
+    [0, max_angle), a translation of uniform direction and norm uniform in
+    [0, max_trans): the reference's train-time pose distribution."""
+    dev = generator.device
+    axis = torch.randn(3, generator=generator, device=dev)
+    u_angle = torch.rand((), generator=generator, device=dev)
+    tdir = torch.randn(3, generator=generator, device=dev)
+    u_trans = torch.rand((), generator=generator, device=dev)
+    return _pose_from_draws(axis, u_angle, tdir, u_trans, max_angle,
+                            max_trans)
+
+
+def transform_points(points: torch.Tensor, r: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) points moved by (..., 3, 3) rotations and (..., 3)
+    translations."""
+    return points @ r.transpose(-1, -2) + t[..., None, :]
+
+
+def axis_angle_from_matrix(r: torch.Tensor, eps: float = 1e-7):
+    """Rotations -> (angle in degrees in [0, 180], unit axis); the axis is
+    z where the angle is too small to name one."""
+    tr = r[..., 0, 0] + r[..., 1, 1] + r[..., 2, 2]
+    angle = torch.acos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+    axis = torch.stack([r[..., 2, 1] - r[..., 1, 2],
+                        r[..., 0, 2] - r[..., 2, 0],
+                        r[..., 1, 0] - r[..., 0, 1]], dim=-1)
+    norm = torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    axis = axis / torch.clamp_min(norm, eps)
+    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=r.dtype, device=r.device)
+    axis = torch.where(norm > eps, axis, fallback.expand(axis.shape))
+    return angle * (180.0 / math.pi), axis

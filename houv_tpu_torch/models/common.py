@@ -173,6 +173,41 @@ def batch_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return total if group is None else dist_nn.all_reduce(total, group=group)
 
 
+class _BatchGather(torch.autograd.Function):
+    """The ranks' rows concatenated in rank order, bit for bit
+    (``parallel.mesh.group_gather_rows``); the backward sums every rank's
+    gradient of the whole and keeps this rank's rows (a reduce-scatter by
+    an all-reduce, which gloo has on the card too)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        from houv_tpu_torch.parallel.mesh import group_gather_rows
+
+        ctx.group = group
+        ctx.index = dist.get_process_group_ranks(group).index(
+            dist.get_rank())
+        ctx.rows = x.shape[0]
+        return group_gather_rows(x, group, ctx.index)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        start = ctx.index * ctx.rows
+        return g[start:start + ctx.rows], None
+
+
+def batch_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x's rows; with a process group, every rank's rows in rank order (a
+    differentiable gather: each rank's backward adds every rank's gradient
+    of its rows)."""
+    return x if group is None else _BatchGather.apply(x, group)
+
+
 def set_batch_group(model: nn.Module, group) -> None:
     """Set the process group of every module of ``model`` that reads one
     (``batch_group``: BatchNorm, and models with batch-coupled sums)."""

@@ -1,7 +1,7 @@
 """The asymmetric voxel encoder (counterpart of
 ``houv_tpu/models/voxelnet.py``): the sparse blocks ``SubMConv``,
-``SparseDownConv``, ``MaskedBatchNorm``, ``ResContextBlock``, ``ResBlock``
-and ``ReconBlock``, the dense blocks of its coarse levels
+``SparseDownConv``, ``MaskedBatchNorm``, ``ResContextBlock``, ``ResBlock``,
+``ReconBlock`` and ``SparseBasicBlock``, the dense blocks of its coarse levels
 (``DenseSubMConv``, ``DenseResBlock``, ``DenseReconBlock``) and the whole
 hybrid encoder ``Asymm3DSpconv``, the voxel branch of ``vrcnet_knn`` and
 the trunk of the alignment classifier (``models/alignment.py``).
@@ -192,6 +192,37 @@ class ResBlock(FlaxNamed):
         res = SparseGrid(res.features + short.features, sg.coords, sg.mask,
                          sg.grid_size)
         return self.pool(res, lookup), res
+
+
+class SparseBasicBlock(FlaxNamed):
+    """The ResNet-style sparse residual block (the reference's
+    ``sparse_block.SparseBasicBlock``): two 3x3x3 submanifold convs, ReLU
+    and masked BatchNorm after the first, masked BatchNorm after the
+    second, plus the input (through a bias-free Dense where the widths
+    differ), then ReLU. Exported, no caller in either package."""
+
+    def __init__(self, in_channels: int, out_filters: int,
+                 compute_dtype=None):
+        super().__init__()
+        c, dt = out_filters, compute_dtype
+        self.child("conv1", SubMConv(in_channels, c, (3, 3, 3), dt))
+        self.child("bn1", MaskedBatchNorm(c))
+        self.child("conv2", SubMConv(c, c, (3, 3, 3), dt))
+        self.child("bn2", MaskedBatchNorm(c))
+        self.shortcut = None
+        if in_channels != c:
+            self.child("shortcut", nn.Linear(in_channels, c, bias=False))
+
+    def forward(self, sg: SparseGrid, lookup: torch.Tensor,
+                train: bool = False) -> SparseGrid:
+        h = self.conv1(sg, lookup)
+        h = SparseGrid(torch.relu(h.features), h.coords, h.mask, h.grid_size)
+        h = self.bn2(self.conv2(self.bn1(h, train), lookup), train)
+        identity = sg.features
+        if self.shortcut is not None:
+            identity = self.shortcut(identity)
+        return SparseGrid(torch.relu(h.features + identity), sg.coords,
+                          sg.mask, sg.grid_size)
 
 
 class ReconBlock(FlaxNamed):

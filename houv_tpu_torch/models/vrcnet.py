@@ -38,6 +38,7 @@ from houv_tpu_torch.metrics.emd import calc_emd
 from houv_tpu_torch.models.common import (
     EFExpansion,
     FlaxNamed,
+    batch_gather,
     compute_dtype_of,
     dense,
     draw_rows,
@@ -440,7 +441,10 @@ class VRCNet(FlaxNamed):
     the doubled batch (``SASKNResEncoder.dropout_masks``). Whatever is not
     passed is drawn from ``generator``, the noise first, then the masks.
     Data-parallel training sets ``batch_group``
-    (``common.set_batch_group``), which MMD refuses."""
+    (``common.set_batch_group``): MMD then compares the global batch's
+    samples, gathered over the group on every rank (each rank's noise the
+    global draw's rows, ``RowShard``), as one process on the whole batch
+    does."""
 
     _batch_group = None
 
@@ -480,10 +484,6 @@ class VRCNet(FlaxNamed):
 
     @batch_group.setter
     def batch_group(self, group):
-        if group is not None and self.distribution_loss == "MMD":
-            raise NotImplementedError(
-                "distribution_loss MMD couples every pair of the batch's "
-                "rows; data-parallel training takes KLD")
         self._batch_group = group
 
     def _moments(self, o: torch.Tensor):
@@ -521,9 +521,16 @@ class VRCNet(FlaxNamed):
                                 torch.ones_like(p_std), p_mu, p_std)
             dl_g = _kl_normal(p_mu.detach(), p_std.detach(), q_mu, q_std)
         else:
+            # every rank computes the global batch's MMD: the gather's
+            # backward sums the ranks' equal gradients into each rank's
+            # rows, and the ranks' average of the parameters' gradients
+            # then holds one process's on the whole batch
+            group = self._batch_group
             z_p_fix = p_mu.detach() + p_std.detach() * noise[3]
-            dl_rec = _mmd(noise[2], z_p)
-            dl_g = _mmd(z_q, z_p_fix)
+            dl_rec = _mmd(batch_gather(noise[2], group),
+                          batch_gather(z_p, group))
+            dl_g = _mmd(batch_gather(z_q, group),
+                        batch_gather(z_p_fix, group))
         if self.train_loss == "cd":
             loss1 = calc_cd(coarse_raw, gt2)[0]
             loss2 = calc_cd(coarse_high, gt2)[0]

@@ -20,7 +20,9 @@ those outside its TPU kernel, which takes n == m only).
 The kernel and the plain version compute the distances in the diff form,
 rounded op by op, and the same f32 increments and prices, so they run the
 same rounds to the same assignment. The kernel runs a pair on one block or
-on a cluster of blocks (``_emd_plan``). The gradient goes to x1 only, with the
+on a cluster of blocks (``_emd_plan``); a pair whose state passes one
+block's shared memory (about 6428 x 6428) goes to ``csrc/emd_large.cu``,
+the same rounds with the state in global memory, any size. The gradient goes to x1 only, with the
 assignment held fixed: 2·g·(x1 − x2[assignment]); it needs no kernel.
 """
 
@@ -38,6 +40,9 @@ from houv_tpu_torch.ops.grouping import _sqdist_diff
 # holds 39 clusters of 3 and 66 of 2, which the paths' batches of 32 and 64
 # pairs fill; a larger size would fit one wave only below 31 pairs
 _EMD_CLUSTERS = (3, 2)
+# csrc/emd_large.cu's cluster sizes, the largest first (8 is the portable
+# limit): its pairs are few and large, so more SMs a pair
+_EMD_LARGE_CLUSTERS = (8, 4, 2)
 
 
 def _auction_plain(x1: torch.Tensor, x2: torch.Tensor, eps: float,
@@ -135,27 +140,101 @@ def _card_plan(b: int, n: int, m: int, device: torch.device) -> int:
         _max_clusters(n, m, index))
 
 
-def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
-              clusters: int | None = None):
-    """The kernel's launch; ``clusters`` overrides the plan's blocks a
-    pair."""
+def _emd_route(smem_bytes: int, max_smem_bytes: int) -> str:
+    """Which kernel takes a pair whose state in ``csrc/emd.cu`` needs
+    ``smem_bytes`` of one block's shared memory
+    (``houv_emd_smem_bytes(n, m)``): that kernel ("emd") up to
+    ``houv_emd_max_smem_bytes()``, ``csrc/emd_large.cu`` ("emd_large": the
+    state in global memory, any n and m) above it."""
+    return "emd" if smem_bytes <= max_smem_bytes else "emd_large"
+
+
+def _emd_large_plan(b: int, max_clusters: dict[int, int]) -> int:
+    """Blocks a pair of ``csrc/emd_large.cu``: the largest C of
+    ``_EMD_LARGE_CLUSTERS`` of which the card holds all b clusters at once
+    (``max_clusters[C]``, read from the card), else 1."""
+    return next((c for c in _EMD_LARGE_CLUSTERS if b <= max_clusters[c]), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _max_large_clusters(device_index: int) -> dict[int, int]:
+    """The most clusters of each size of ``csrc/emd_large.cu`` the card
+    holds at once."""
+    from houv_tpu_torch.kernels import check, load
+
+    lib = load()
+    out = {}
+    with torch.cuda.device(device_index):
+        for c in _EMD_LARGE_CLUSTERS:
+            count = lib.houv_emd_large_max_clusters(c)
+            check(lib, max(0, -count), f"emd_large occupancy of {c}")
+            out[c] = count
+    return out
+
+
+def _emd_outputs(x1: torch.Tensor):
+    """dist (B, N) f32, assignment (B, N) int64 and the (B, 2) int64 rounds
+    and bids, empty on ``x1``'s device."""
+    bsz, n, _ = x1.shape
+    new = functools.partial(torch.empty, device=x1.device)
+    return (new((bsz, n), dtype=torch.float32),
+            new((bsz, n), dtype=torch.int64), new((bsz, 2), dtype=torch.int64))
+
+
+def _emd_large_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float,
+                    iters: int, clusters: int | None = None):
+    """``csrc/emd_large.cu``'s launch, its scratch allocated here;
+    ``clusters`` overrides ``_emd_large_plan``'s blocks a pair.
+    ``_emd_cuda`` routes the pairs past K7's shared memory here."""
     from houv_tpu_torch.kernels import check, load
 
     bsz, n, _ = x1.shape
     m = x2.shape[1]
+    if clusters is None:
+        index = x1.device.index
+        if index is None:
+            index = torch.cuda.current_device()
+        clusters = _emd_large_plan(bsz, _max_large_clusters(index))
+    dist, assignment, stats = _emd_outputs(x1)
+    new = functools.partial(torch.empty, device=x1.device)
+    items = new((bsz, m, 4), dtype=torch.float32)
+    key = new((bsz, m), dtype=torch.int64)
+    owner = new((bsz, m), dtype=torch.int32)
+    lists = new((bsz, 2 * n), dtype=torch.int32)
+    item = new((bsz, n), dtype=torch.int32)
+    cnt = new((bsz, 2), dtype=torch.int32)
     lib = load()
-    if lib.houv_emd_smem_bytes(n, m) > lib.houv_emd_max_smem_bytes():
-        raise ValueError(
-            f"the emd kernel keeps a pair's state in shared memory: {n} "
-            f"bidders and {m} items need {lib.houv_emd_smem_bytes(n, m)} "
-            f"bytes of at most {lib.houv_emd_max_smem_bytes()}")
-    dist = torch.empty((bsz, n), dtype=torch.float32, device=x1.device)
-    assignment = torch.empty((bsz, n), dtype=torch.int64, device=x1.device)
-    stats = torch.empty((bsz, 2), dtype=torch.int64, device=x1.device)
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = lib.houv_emd_large(
+            x1.data_ptr(), x2.data_ptr(), bsz, n, m, eps, iters, clusters,
+            items.data_ptr(), key.data_ptr(), owner.data_ptr(),
+            lists.data_ptr(), item.data_ptr(), cnt.data_ptr(),
+            dist.data_ptr(), assignment.data_ptr(), stats.data_ptr(), stream)
+    check(lib, err, "emd_large")
+    emd_auction_with_stats.large_launches += 1
+    return dist, assignment, stats[:, 0], stats[:, 1]
+
+
+def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
+              clusters: int | None = None):
+    """The kernel's launch, or for pairs past its shared memory
+    (``_emd_route``) the large variant's; ``clusters`` overrides the plan's
+    blocks a pair."""
+    from houv_tpu_torch.kernels import check, load
+
+    bsz, n, _ = x1.shape
+    m = x2.shape[1]
     if bsz == 0:
+        dist, assignment, stats = _emd_outputs(x1)
         return dist, assignment, stats[:, 0], stats[:, 1]
+    lib = load()
+    if _emd_route(lib.houv_emd_smem_bytes(n, m),
+                  lib.houv_emd_max_smem_bytes()) == "emd_large":
+        return _emd_large_cuda(x1, x2, eps, iters, clusters)
     if clusters is None:
         clusters = _card_plan(bsz, n, m, x1.device)
+    dist, assignment, stats = _emd_outputs(x1)
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
         err = lib.houv_emd(x1.data_ptr(), x2.data_ptr(), bsz, n, m, eps, iters,
@@ -173,8 +252,9 @@ def emd_auction_with_stats(x1: torch.Tensor, x2: torch.Tensor,
     (each bid scans N items): what the work of this call was.
 
     On ``cuda`` this launches ``csrc/emd.cu`` and counts the launch in
-    ``emd_auction_with_stats.launches``; the plain version runs only for
-    tensors on the CPU, with ``device="cpu"``."""
+    ``emd_auction_with_stats.launches``, or for pairs above its shared
+    memory ``csrc/emd_large.cu``, counted in ``.large_launches``; the plain
+    version runs only for tensors on the CPU, with ``device="cpu"``."""
     dev = resolve_device(device)
     check_on(dev, x1, x2)
     if x1.dim() != 3 or x1.shape[-1] != 3 or x2.shape[:1] != x1.shape[:1] \
@@ -192,6 +272,7 @@ def emd_auction_with_stats(x1: torch.Tensor, x2: torch.Tensor,
 
 
 emd_auction_with_stats.launches = 0
+emd_auction_with_stats.large_launches = 0
 
 
 class _EmdFunction(torch.autograd.Function):

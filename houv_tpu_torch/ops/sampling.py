@@ -3,7 +3,8 @@
 Counterpart of ``houv_tpu/ops/sampling.py``. ``furthest_point_sample``
 launches the hand-written CUDA kernel ``csrc/fps.cu`` (replacing the TPU
 kernel ``_fps_kernel``) on CUDA tensors and runs its plain PyTorch version
-``_fps_plain`` (the loop of ``_fps_xla``) on CPU tensors. Contract: indices
+``_fps_plain`` (the loop of ``_fps_xla``) on CPU tensors; clouds above
+``fps.cu``'s 8192 points go to ``csrc/fps_large.cu``, which takes any size. Contract: indices
 (B, K) int64, the first is 0, then the point furthest from the selected set,
 ties to the first occurrence. ``furthest_point_sample_with_dist`` runs the
 same selection over a precomputed distance matrix (plain PyTorch, as its
@@ -68,19 +69,31 @@ def _fps_plan(n: int, threads: int | None = None) -> tuple[int, int]:
                      f"{n}")
 
 
+def _fps_route(n: int, max_points: int) -> str:
+    """Which kernel takes clouds of n points: ``csrc/fps.cu`` ("fps") up to
+    its limit (``houv_fps_max_points()``, 8192), ``csrc/fps_large.cu``
+    ("fps_large": the cloud and its minima in global memory, any n) above
+    it."""
+    return "fps" if n <= max_points else "fps_large"
+
+
 def _fps_cuda(points: torch.Tensor, k: int) -> torch.Tensor:
     from houv_tpu_torch.kernels import check, load
 
     lib = load()
     bsz, n, _ = points.shape
-    if n > lib.houv_fps_max_points():
-        raise ValueError(
-            f"fps kernel takes at most {lib.houv_fps_max_points()} points, "
-            f"got {n}")
-    warps, per = _fps_plan(n)
     out = torch.empty((bsz, k), dtype=torch.int64, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream(points.device).cuda_stream
+        if _fps_route(n, lib.houv_fps_max_points()) == "fps_large":
+            work = torch.empty((bsz, n, 4), dtype=torch.float32,
+                               device=points.device)
+            err = lib.houv_fps_large(points.data_ptr(), bsz, n, k,
+                                     work.data_ptr(), out.data_ptr(), stream)
+            check(lib, err, "fps_large")
+            furthest_point_sample.large_launches += 1
+            return out
+        warps, per = _fps_plan(n)
         err = lib.houv_fps(points.data_ptr(), bsz, n, k, warps, per,
                            out.data_ptr(), stream)
     check(lib, err, "fps")
@@ -93,8 +106,9 @@ def furthest_point_sample(points: torch.Tensor, k: int,
     """(B, N, 3) -> (B, k) int64 indices; the first is always 0.
 
     On ``cuda`` this launches ``csrc/fps.cu`` and counts the launch in
-    ``furthest_point_sample.launches``; the plain version runs only for
-    tensors on the CPU, with ``device="cpu"``."""
+    ``furthest_point_sample.launches``, or for clouds above its limit
+    ``csrc/fps_large.cu``, counted in ``.large_launches``; the plain
+    version runs only for tensors on the CPU, with ``device="cpu"``."""
     dev = resolve_device(device)
     check_on(dev, points)
     if points.dim() != 3 or points.shape[-1] != 3:
@@ -108,6 +122,7 @@ def furthest_point_sample(points: torch.Tensor, k: int,
 
 
 furthest_point_sample.launches = 0
+furthest_point_sample.large_launches = 0
 
 
 def furthest_point_sample_with_dist(dist: torch.Tensor, k: int) -> torch.Tensor:

@@ -145,6 +145,25 @@ def _has_all_gather(group, t: torch.Tensor) -> bool:
     return backend == "nccl" or (backend == "gloo" and t.device.type == "cpu")
 
 
+def group_gather_rows(t: torch.Tensor, group, index: int) -> torch.Tensor:
+    """The tensors of one shape of ``group``'s ranks (this one the
+    ``index``-th), concatenated on the leading axis in rank order, bit for
+    bit: ``all_gather`` where the backend has one for the tensor's device,
+    else a broadcast a rank."""
+    t = t.contiguous()
+    ranks = dist.get_process_group_ranks(group)
+    if _has_all_gather(group, t):
+        parts = [torch.empty_like(t) for _ in ranks]
+        dist.all_gather(parts, t, group=group)
+    else:
+        parts = []
+        for i, src in enumerate(ranks):
+            buf = t if i == index else torch.empty_like(t)
+            dist.broadcast(buf, src=src, group=group)
+            parts.append(buf)
+    return torch.cat(parts, 0)
+
+
 def all_gather_rows(t: torch.Tensor, mesh: Mesh,
                     axis: str = "data") -> torch.Tensor:
     """The ranks' tensors of one shape along ``axis``, concatenated on the
@@ -152,18 +171,7 @@ def all_gather_rows(t: torch.Tensor, mesh: Mesh,
     group = mesh.group(axis)
     if group is None:
         return t
-    t = t.contiguous()
-    n = mesh.shape[axis]
-    if _has_all_gather(group, t):
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=group)
-    else:
-        parts = []
-        for i, src in enumerate(dist.get_process_group_ranks(group)):
-            buf = t if i == mesh.index(axis) else torch.empty_like(t)
-            dist.broadcast(buf, src=src, group=group)
-            parts.append(buf)
-    return torch.cat(parts, 0)
+    return group_gather_rows(t, group, mesh.index(axis))
 
 
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = "data",

@@ -771,22 +771,37 @@ def train_main(argv=None) -> dict:
             LEARNED_REGISTRATION | AUX_MODELS):
         raise ValueError(f"{cfg.model_name!r} does not train on the "
                          f"registration split {cfg.dataset!r}")
-    if cfg.use_native_loader and is_registration(cfg):
-        raise NotImplementedError(
-            "use_native_loader (the C++ prefetching loader) is not ported "
-            "yet (ROADMAP.md Queue 1, item 14)")
     trainer = make_trainer(cfg, mesh.device, mesh)
     log = _rank_logging(trainer.log_dir, mesh)
     log.info("config: %s", cfg)
     train_ds = build_dataset(cfg, "train")
     val_ds = build_dataset(cfg, "val")
     trainer.init_state()
+    out = {"trainer": trainer, "log_dir": trainer.log_dir,
+           "checkpoint": os.path.join(trainer.log_dir, "network.ckpt")}
     t0 = time.perf_counter()
-    trainer.fit(train_ds, val_ds)
-    seconds = time.perf_counter() - t0
-    return {"trainer": trainer, "log_dir": trainer.log_dir,
-            "checkpoint": os.path.join(trainer.log_dir, "network.ckpt"),
-            "losses": trainer.losses, "seconds": seconds}
+    if cfg.use_native_loader and is_registration(cfg):
+        # the C++ prefetching loader (poses drawn in a native thread pool),
+        # step-based as the JAX CLI: native_steps, else nepoch epochs of
+        # the split's batches; over several ranks one worker thread, so that
+        # every rank draws the same global batches
+        from houv_tpu_torch.data.native_loader import NativeRegistrationLoader
+
+        epoch_len = max(len(train_ds) // cfg.batch_size, 1)
+        n_steps = cfg.native_steps or cfg.nepoch * epoch_len
+        with NativeRegistrationLoader(
+                train_ds.src, train_ds.tgt, cfg.batch_size,
+                max_angle_deg=cfg.max_angle, max_trans=cfg.max_trans,
+                seed=cfg.manual_seed or 2021,
+                n_threads=4 if mesh.size == 1 else 1) as loader:
+            trainer.fit_steps(loader, n_steps, epoch_len=epoch_len,
+                              val_ds=val_ds)
+            out["queue_size"] = loader.queue_size()
+        out["steps"] = n_steps
+    else:
+        trainer.fit(train_ds, val_ds)
+    return {**out, "losses": trainer.losses,
+            "seconds": time.perf_counter() - t0}
 
 
 def main(argv=None):

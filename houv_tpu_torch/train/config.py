@@ -138,8 +138,11 @@ class Config:
     rri_size: int = 20
     num_groups: int = 16
     descriptor_size: int = 64
-    # the native C++ prefetching loader of the JAX package: not ported
+    # the native C++ prefetching loader (native/houv_loader.cpp) for the
+    # learned registration models: step-based training by fit_steps,
+    # native_steps steps (0: nepoch times the split's batches)
     use_native_loader: bool = False
+    native_steps: int = 0
 
     # HOUV solver (solvers/houv.py HOUVConfig)
     kernel: int = 64
@@ -173,6 +176,10 @@ class Config:
     # ranks of a sweep or of training (parallel/; unset: every visible card,
     # one process on the CPU)
     n_devices: int | None = None
+    # a torch.profiler trace (Chrome JSON) of the first profile_steps train
+    # steps of fit, written into profile_dir
+    profile_dir: str | None = None
+    profile_steps: int = 10
 
     extras: dict = dataclasses.field(default_factory=dict)
 

@@ -277,13 +277,19 @@ class _Trainer:
 
     def fit_steps(self, loader, n_steps: int, epoch_len: int = 1000,
                   val_ds=None) -> torch.nn.Module:
-        """Step-based training from a loader with ``next_batch()``."""
+        """Step-based training from a loader with ``next_batch()`` (such
+        as ``data.native_loader.NativeRegistrationLoader``), each batch
+        moved to the trainer's device as it comes; ``validate`` after the
+        last step. The per-step losses are kept in ``self.losses``."""
         meter = AverageValueMeter()
+        self.losses = []
         t0 = time.time()
         for step in range(n_steps):
-            loss = float(self.train_step(loader.next_batch(),
-                                         step // epoch_len, step))
+            batch = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in loader.next_batch().items()}
+            loss = float(self.train_step(batch, step // epoch_len, step))
             meter.update(loss)
+            self.losses.append(loss)
             if step % self.cfg.step_interval_to_print == 0:
                 logger.info("step %d loss %.6f", step, loss)
         logger.info("fit_steps done: mean loss %.6f (%.1fs)", meter.avg,
@@ -305,6 +311,7 @@ class _Trainer:
         meter = AverageValueMeter()
         self.losses = []
         global_step = 0
+        profiler = self._start_profile()
         for epoch in range(cfg.start_epoch, cfg.nepoch):
             self.epoch = epoch
             meter.reset()
@@ -319,13 +326,45 @@ class _Trainer:
                     logger.info("epoch %d step %d loss %.6f", epoch,
                                 global_step, loss)
                 global_step += 1
+                if profiler is not None and global_step >= cfg.profile_steps:
+                    profiler = self._stop_profile(profiler)
             logger.info("epoch %d done: mean loss %.6f (%.1fs)", epoch,
                         meter.avg, time.time() - t0)
             if epoch % cfg.epoch_interval_to_save == 0:
                 self.save("network.ckpt")
             if val_ds is not None and epoch % cfg.epoch_interval_to_val == 0:
                 self.validate(val_ds, epoch)
+        if profiler is not None:
+            self._stop_profile(profiler)
         return self.model
+
+    def _start_profile(self):
+        """With ``profile_dir`` set, a started ``torch.profiler`` over the
+        host and, on the card, the device, for the first ``profile_steps``
+        train steps of ``fit``; else None."""
+        if not self.cfg.profile_dir:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """Stop ``prof`` and write its Chrome trace into ``profile_dir`` as
+        ``trace_rank<r>.json``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir,
+                            f"trace_rank{self.mesh.rank}.json")
+        prof.export_chrome_trace(path)
+        logger.info("profile written to %s", path)
+        return None
 
     def _keep_best(self, meters: dict, epoch: int, n_batches: int) -> None:
         """``best_<metric>_network.ckpt`` for each tracked metric (in

@@ -128,11 +128,17 @@ def test_fps_kernel_on_duplicated_rows(gen, b, n):
 
 
 def test_fps_kernel_refuses_more_than_its_limit(gen):
-    pts = torch.randn((1, 8193, 3), generator=gen).cuda()
-    before = sampling.furthest_point_sample.launches
-    with pytest.raises(ValueError, match="at most 8192 points"):
-        sampling.furthest_point_sample(pts, 4)
-    assert sampling.furthest_point_sample.launches == before
+    """K2 takes no cloud above 8192 points: such a cloud runs
+    ``csrc/fps_large.cu``, index for index as the plain version."""
+    fps = sampling.furthest_point_sample
+    for n in (8193, 16384):
+        pts = torch.randn((2, n, 3), generator=gen).cuda()
+        before = (fps.launches, fps.large_launches)
+        got = fps(pts, 512)
+        assert (fps.launches, fps.large_launches) == (before[0],
+                                                      before[1] + 1)
+        torch.testing.assert_close(got, sampling._fps_plain(pts, 512),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("b,m,n,k", [(2, 300, 257, 17), (1, 1025, 3, 3),
@@ -268,19 +274,21 @@ def test_emd_kernel_at_every_cluster_size(gen, clusters):
 
 def test_emd_kernel_size_limit(gen):
     """28 bytes an item and 8 a bidder in one block's shared memory: 6428
-    against 6428 and 1 against 8264 run, one more point is refused."""
+    against 6428 and 1 against 8264 run on K7, one more point on
+    ``csrc/emd_large.cu``; each equal to the plain version."""
     from houv_tpu_torch.ops import emd
 
-    for n, m in ((6428, 6428), (1, 8264)):
+    run = emd.emd_auction_with_stats
+    for n, m, large in ((6428, 6428, 0), (1, 8264, 0), (6429, 6429, 1),
+                        (1, 8265, 1)):
         x1 = torch.rand((1, n, 3), generator=gen).cuda()
         x2 = torch.rand((1, m, 3), generator=gen).cuda()
-        got = emd.emd_auction_with_stats(x1, x2, 0.005, 5)
+        before = (run.launches, run.large_launches)
+        got = run(x1, x2, 0.005, 5)
+        assert (run.launches, run.large_launches) == (
+            before[0] + 1 - large, before[1] + large)
         for k, p in zip(got, emd._auction_plain(x1, x2, 0.005, 5)):
             torch.testing.assert_close(k, p, rtol=0, atol=0)
-    for n, m in ((6429, 6429), (1, 8265)):
-        with pytest.raises(ValueError, match="shared memory"):
-            emd.emd_auction_with_stats(torch.rand((1, n, 3)).cuda(),
-                                       torch.rand((1, m, 3)).cuda())
 
 
 @pytest.mark.parametrize("b,n,m,c", [(64, 2048, 3072, 3), (3, 1999, 777, 3),

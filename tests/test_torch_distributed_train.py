@@ -49,6 +49,14 @@ CASES = {
                                    num_fps=256, num_coarse=256,
                                    layers="1, 1, 1, 1", knn_list="4, 8",
                                    pk=8), torch.float32),
+    # distribution_loss MMD: the latent samples gathered over the ranks,
+    # the MMD the global batch's on every rank; in f64, so that the
+    # comparison sees the gather's gradient sums, not f32 rounding
+    "vrcnet_mmd": ("vrcnet.yaml", dict(num_points=256, num_coarse_raw=128,
+                                       num_fps=256, num_coarse=256,
+                                       layers="1, 1, 1, 1", knn_list="4, 8",
+                                       pk=8, distribution_loss="MMD"),
+                   torch.float64),
     "deepgmr": ("deepgmr.yaml", dict(num_points=64, rri_size=8),
                 torch.float64),
     "spconv": ("spconv.yaml", dict(num_points=128, grid_size=12),

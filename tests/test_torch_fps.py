@@ -275,17 +275,28 @@ def test_fps_hands_the_kernel_its_plan(monkeypatch, n, k):
 
 
 def test_fps_refuses_more_than_the_limit_before_launching(monkeypatch):
+    """Above fps.cu's 8192 points the kernel is never launched: the cloud
+    goes to ``csrc/fps_large.cu`` (``tests/test_torch_large_clouds.py``),
+    counted apart; nothing raises."""
     from houv_tpu_torch import kernels
 
     lib = _FakeLib()
+    large = []
+    lib.houv_fps_large = lambda pts, b, n, k, work, out, stream: (
+        large.append((b, n, k)) or 0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ts, "check_on", lambda dev, *tensors: None)
     monkeypatch.setattr(kernels, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(ts.furthest_point_sample, "launches", 0)
-    with pytest.raises(ValueError, match="at most 8192 points"):
-        ts.furthest_point_sample(torch.zeros((1, 8193, 3)), 4,
-                                 device="cuda")
+    monkeypatch.setattr(ts.furthest_point_sample, "large_launches", 0)
+    ts.furthest_point_sample(torch.zeros((1, 8193, 3)), 4, device="cuda")
     assert lib.calls == [] and ts.furthest_point_sample.launches == 0
+    assert large == [(1, 8193, 4)]
+    assert ts.furthest_point_sample.large_launches == 1
 
 
 @pytest.mark.parametrize("case", ["k_equals_n", "grid"])

@@ -274,8 +274,8 @@ def test_ablation_refusals_match_jax():
 
 # the JAX Config fields nothing in houv_tpu/ reads (ROADMAP.md, Queue 1)
 _NO_READER = {"every_batch_size", "workers", "use_fpfh", "use_tnet"}
-# the fields of ROADMAP.md Queue 1 item [14]
-_QUEUED = {"native_steps", "profile_dir", "profile_steps"}
+# the fields of ROADMAP.md Queue 1 still to port: none
+_QUEUED = set()
 
 
 def test_no_jax_config_field_is_dropped_on_the_port():

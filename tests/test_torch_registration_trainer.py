@@ -159,14 +159,15 @@ def test_learned_yamls_leave_no_extras(name):
      "num_points: 64\n", None),
     ("model_name: voxel_asym\ndataset: mvp_cp\ncompute_dtype: bfloat16\n"
      "num_points: 64\ngrid_size: 12\n", None),
-    ("model_name: dcp\ndataset: mvp_rg\nuse_native_loader: true\n",
-     "item 14"),
+    ("model_name: dcp\ndataset: mvp_rg\nuse_native_loader: true\n"
+     "native_steps: 2\nnum_points: 64\n", "native"),
     ("model_name: transformer\ndataset: mvp_cp\ncompute_dtype: bfloat16\n"
      "num_points: 64\n", None),
 ])
 def test_what_is_not_ported_still_raises(tmp_path, body, match):
-    """What the port refuses still raises; the models whose bf16 mode it
-    refused (item 11) build and take a step in bf16 on the CPU."""
+    """What the port refused runs now: the models whose bf16 mode it
+    refused (item 11) build and take a step in bf16 on the CPU, and
+    ``use_native_loader`` (item 14) trains ``native_steps`` steps."""
     from test_torch_completion import one_bf16_step
 
     cfg = tmp_path / "c.yaml"
@@ -175,5 +176,5 @@ def test_what_is_not_ported_still_raises(tmp_path, body, match):
     if match is None:
         one_bf16_step(str(cfg))
         return
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.train_main(["-c", str(cfg), "--device", "cpu"])
+    out = tcli.train_main(["-c", str(cfg), "--device", "cpu"])
+    assert out["steps"] == 2 and len(out["losses"]) == 2

@@ -534,9 +534,13 @@ def test_fit_steps_and_repeated_batch_lowers_the_loss(tmp_path):
 
 
 def test_what_training_does_not_run_yet_raises(tmp_path):
+    """What the port refuses still raises; what it refused before and runs
+    now (``use_native_loader``, item 14; bf16, item 11) runs."""
     cfg = tmp_path / "c.yaml"
-    for body, match in (("model_name: dcp\nuse_native_loader: true\n",
-                         "item 14"),
+    for body, match in ((f"model_name: dcp\nuse_native_loader: true\n"
+                         f"native_steps: 1\nnum_points: 32\nbatch_size: 2\n"
+                         f"synthetic_size: 4\nwork_dir: {tmp_path}\n",
+                         "native"),
                         ("model_name: vrcnet_knn\ndataset: mvp_cp\n"
                          "use_gan: true\n", "batch_stats"),
                         ("model_name: transformer\ndataset: mvp_cp\n"
@@ -546,6 +550,11 @@ def test_what_training_does_not_run_yet_raises(tmp_path):
             # bf16 is ported (item 11): the model builds in it
             model = tharness.model_from_config(tconfig.load_config(str(cfg)))
             assert model.regressor.dt == torch.bfloat16
+            continue
+        if match == "native":
+            # the native loader is ported (item 14): one step
+            out = tcli.train_main(["-c", str(cfg), "--device", "cpu"])
+            assert out["steps"] == 1 and len(out["losses"]) == 1
             continue
         with pytest.raises(NotImplementedError, match=match):
             tcli.train_main(["-c", str(cfg), "--device", "cpu"])
