@@ -31,7 +31,7 @@ failed check exits non-zero:
    VRCNet's, ECG's, goicp_bnb's, vrcnet_knn's and the transformer's, the
    uniform losses' seeds included; at
    the edges of its plan, one point, K == 1 and K >= N, the limit of 8192
-   points, and 8193 on its large variant ``fps_large``; integer grids,
+   points, and 8193 on its cluster design ``fps_large``; integer grids,
    every point twice, planted copies);
    ``knn`` at VRCNet's shapes, FGR's (k 16 and 17), vrcnet_knn's ten, the
    learned registration models' three ((32, 2048)², k 12, 20, 21), DCP's
@@ -51,7 +51,7 @@ failed check exits non-zero:
    and bids equal: train and eval settings, a permuted copy, the eval
    batch and the train shapes, repeated points, a grid, B 1 and 160,
    every cluster size, one item, the size limit, one point past it on the
-   large variant ``emd_large``, which is also forced at K7's sizes with
+   cluster design ``emd_large``, which is also forced at K7's sizes with
    every cluster size; ``phase_emd``, and on the paths' own clouds in
    ``phase_kernels``); ``scatter`` (bit
    for bit, at the kernel's edges too: order-sensitive sums, -0.0, one row
@@ -183,10 +183,16 @@ failed check exits non-zero:
    ``v3`` bundle), one solve each, K1 and K4 launches held to the code's,
    ``voxel_downsample``'s K4 sums bit for bit against the plain version;
    then clouds above the kernels' limits (``phase_large_clouds``: K2's
-   variant ``csrc/fps_large.cu`` at (4, 16384) and (4, 8193) -> 2048, K7's
-   ``csrc/emd_large.cu`` at (2, 8192)² and (2, 16384)², each against its
-   plain version, then timed; 3 train steps of cfgs/vrcnet.yaml at
-   num_points 16384, batch 8, and ``validate`` with eval_emd at 8192);
+   cluster design ``csrc/fps_large.cu`` at (4, 16384) and (4, 8193) ->
+   2048, sizes off its blocks, K == N, an integer grid, every point twice,
+   its capacity of 65536 points and every cluster size its plan picks,
+   forced; one point past the capacity on ``csrc/fps_global.cu``; K7's
+   cluster design ``csrc/emd_large.cu`` at (2, 8192)², (2, 16384)² and
+   N != M, a pair one item past its capacity on ``csrc/emd_global.cu``;
+   each against its plain version, then timed, the global designs past
+   the capacities after one call through the public entry point there; 3
+   train steps of cfgs/vrcnet.yaml at num_points 16384, batch 8, and
+   ``validate`` with eval_emd at 8192, with launches by route);
    the MVPN preprocessing (``phase_preprocess``: ``combine_dataset`` on
    1024 synthetic scans of 2048 points in modes f1 and embedding, the F1
    sweep's pairs/s, the card's F1 against the plain arithmetic and the
@@ -201,8 +207,9 @@ failed check exits non-zero:
    one VRCNet, one ECG and one vrcnet_knn train step; K2's census,
    (B, N, K) at its every launch in that window and those steps, each of
    them one of ``FPS_SHAPES``;
-8. a ``kernels`` line: each of the eight kernels' time (and the two
-   variants', ``fps_large`` and ``emd_large``, at theirs) at its main-path
+8. a ``kernels`` line: each of the eight kernels' time (and K2's and K7's
+   designs past their limits, ``fps_large``, ``fps_global``, ``emd_large``
+   and ``emd_global``, at theirs) at its main-path
    shape beside its plain version, its bound on the card and a PyTorch
    library yardstick, with its launches on the paths above (and on the
    classical and combine runs, ``classical_launches``, on the
@@ -506,7 +513,8 @@ def check_fps(pts, k, name):
 def phase_fps(gen):
     """K2 against its plain version at every path shape, the plan's edges,
     integer grids (ties everywhere), every point twice and planted copies;
-    and the limit: 8193 points go to the large variant, not to K2."""
+    and the limit: 8193 points go to the cluster design
+    (``csrc/fps_large.cu``), not to K2."""
     from houv_tpu_torch.ops import sampling
 
     err = 0.0
@@ -705,51 +713,69 @@ EMD_SHAPES = ((32, 2048, 2048, 0.004, 3000, "validate"),
 
 
 def emd_route(n, m):
-    """Which kernel takes pairs of n bidders and m items: "emd" (K7) or,
-    past one block's shared memory, "emd_large"."""
+    """Which kernel takes pairs of n bidders and m items: "emd" (K7), past
+    one block's shared memory "emd_large" (a cluster's), past that
+    "emd_global"."""
     from houv_tpu_torch.kernels import load
     from houv_tpu_torch.ops import emd
 
     lib = load()
     return emd._emd_route(lib.houv_emd_smem_bytes(n, m),
+                          lib.houv_emd_large_smem_bytes(n, m, 8),
                           lib.houv_emd_max_smem_bytes())
 
 
-def emd_plan(b, n, m, large=False):
-    """Blocks a pair on this card: K7's (``ops/emd.py:_emd_plan``) or, for
-    a pair past its shared memory (or ``large``), the large variant's
-    (``_emd_large_plan``)."""
+def emd_plan(b, n, m, design=None):
+    """Blocks a pair on this card for ``design`` (by default the route of
+    n and m): K7's (``ops/emd.py:_emd_plan``), the large design's
+    (``_emd_large_plan``) or the global design's (``_emd_global_plan``)."""
     from houv_tpu_torch.ops import emd
 
-    if large or emd_route(n, m) == "emd_large":
-        return emd._emd_large_plan(b, emd._max_large_clusters(0))
+    design = design or emd_route(n, m)
+    if design == "emd_large":
+        return emd._large_card_plan(b, n, m, torch.device("cuda"))
+    if design == "emd_global":
+        return emd._emd_global_plan(b, emd._max_global_clusters(0))
     return emd._card_plan(b, n, m, torch.device("cuda"))
 
 
-def check_emd(a, b, eps, iters, name, clusters=(None,), large=False):
-    """K7 (or, past its shared memory or with ``large``, its large
-    variant) against its plain version on the same inputs: at its plan
-    (``None``) and at each forced number of blocks a pair in
-    ``clusters``, the assignment index for index, dist bit for bit and
-    each pair's rounds and bids equal, or the run fails. Returns the
-    largest distance error (0)."""
+def _emd_counts():
+    from houv_tpu_torch.ops import emd
+
+    run = emd.emd_auction_with_stats
+    return [run.launches, run.large_launches, run.global_launches]
+
+
+def _set_emd_counts(counts):
+    from houv_tpu_torch.ops import emd
+
+    run = emd.emd_auction_with_stats
+    run.launches, run.large_launches, run.global_launches = counts
+
+
+def check_emd(a, b, eps, iters, name, clusters=(None,), design=None):
+    """K7 (or, past its shared memory, the design its route names, or
+    ``design`` forced: "emd_large", "emd_global") against its plain
+    version on the same inputs: at its plan (``None``) and at each forced
+    number of blocks a pair in ``clusters``, the assignment index for
+    index, dist bit for bit and each pair's rounds and bids equal, or the
+    run fails. Returns the largest distance error (0)."""
     from houv_tpu_torch.ops import emd
 
     pd, pa, pr, pb = emd._auction_plain(a, b, eps, iters)
     err = 0.0
-    run = emd.emd_auction_with_stats
+    launch = {"emd_large": emd._emd_large_cuda,
+              "emd_global": emd._emd_global_cuda}.get(design, emd._emd_cuda)
+    route = design or emd_route(a.shape[1], b.shape[1])
     for c in clusters:
-        saved = (run.launches, run.large_launches)
-        launch = emd._emd_large_cuda if large else emd._emd_cuda
+        saved = _emd_counts()
         kd, ka, kr, kb = launch(a, b, eps, iters, c)
-        run.launches, run.large_launches = saved
+        _set_emd_counts(saved)
         torch.cuda.synchronize()
-        route = ("emd_large" if large
-                 else emd_route(a.shape[1], b.shape[1]))
         rec = {"phase": "emd_check", "case": name, "shape": list(a.shape),
                "items": b.shape[1], "eps": eps, "iters": iters,
                "route": route,
-               "plan": emd_plan(a.shape[0], a.shape[1], b.shape[1], large),
+               "plan": emd_plan(a.shape[0], a.shape[1], b.shape[1], route),
                "clusters": c,
                "assignment_mismatches": int((ka != pa).sum()),
                "dist_bit_mismatches": int(
@@ -781,7 +807,7 @@ def phase_emd(gen):
     cluster size forced on one case; one item (its price goes to inf and
     later bids are NaN: never seated), iters 0; and the size limit: 6428
     against 6428, 28924 against 1 and 1 against 8264 on K7, one more point
-    on its large variant (``csrc/emd_large.cu``), which is also forced at
+    on its cluster design (``csrc/emd_large.cu``), which is also forced at
     K7's sizes with every cluster size."""
     from houv_tpu_torch.ops import emd
 
@@ -815,13 +841,16 @@ def phase_emd(gen):
         err = max(err, check_emd(a, b, eps, iters, name))
     err = max(err, check_emd(x1, x2, 0.004, 3000, "eval_every_cluster_size",
                              range(1, 4)))
-    # one point past each limit goes to csrc/emd_large.cu, held to the
-    # plain version likewise; and the variant forced at K7's sizes, every
+    # one point past each limit leaves K7 (for csrc/emd_large.cu, or for
+    # csrc/emd_global.cu where a cluster's copies of the lists pass its
+    # blocks' shared memory: 28925 bidders), held to the plain version
+    # likewise; and the cluster design forced at K7's sizes, every
     # cluster size, on the eval pairs and on n != m both ways
-    for n, m in ((6429, 6429), (28925, 1), (1, 8265)):
-        if emd_route(n, m) != "emd_large":
-            fail(f"emd at {n} bidders and {m} items is not routed to "
-                 "emd_large")
+    for n, m, route in ((6429, 6429, "emd_large"), (28925, 1, "emd_global"),
+                        (1, 8265, "emd_large")):
+        if emd_route(n, m) != route:
+            fail(f"emd at {n} bidders and {m} items is routed to "
+                 f"{emd_route(n, m)}, not {route}")
         err = max(err, check_emd(cloud(1, n), cloud(1, m), 0.005, 5,
                                  f"above_limit_{n}_{m}"))
     for name, a, b, eps, iters in (
@@ -832,7 +861,7 @@ def phase_emd(gen):
              0.005, 50),
             ("large_forced_one_item", cloud(2, 3), cloud(2, 1), 0.005, 5)):
         err = max(err, check_emd(a, b, eps, iters, name, (None, 1, 2, 4, 8),
-                                 large=True))
+                                 design="emd_large"))
     return err
 
 
@@ -1977,8 +2006,37 @@ def _gloo_rank(paths, ddp):
         rec = _ddp_steps(raw, global_batch, n_steps, mesh)
         rec["launches"] = _rank_launches(counters, mesh)
         rec["peak_gib"] = _peaks(mesh)
+        if _f64_loss_run(raw):
+            rec["loss_f64"] = _first_loss_f64(raw, global_batch, mesh)
         out[run] = rec
     return out
+
+
+def _f64_loss_run(raw) -> bool:
+    """Whether the DDP run of config ``raw`` also takes its first step in
+    f64: a BatchNorm model without MMD, whose f32 loss carries more
+    rounding than the DDP comparison's bound (``DDP_LOSS_REL_F64``)."""
+    return (raw["model_name"] not in DDP_NO_BATCHNORM
+            and raw.get("distribution_loss") != "MMD")
+
+
+def _first_loss_f64(raw, batch, mesh):
+    """The first train step's loss of config ``raw`` on the global
+    ``batch`` with the model and the batch in f64 (over ``mesh``'s ranks,
+    or in one process for None), from the same seeded weights; the kNN
+    kernels still pick in f32, on the f64 points rounded."""
+    from houv_tpu_torch.train.cli import make_trainer
+    from houv_tpu_torch.train.config import Config
+
+    trainer = make_trainer(Config.from_dict(raw), "cuda", mesh)
+    trainer.init_state()
+    trainer.model.to(torch.float64)
+    batch = {k: v.astype(np.float64) if getattr(v, "dtype", None)
+             == np.float32 else v for k, v in batch.items()}
+    loss = float(trainer.train_step(batch, 0, 0))
+    del trainer
+    torch.cuda.empty_cache()
+    return loss
 
 
 def _gloo_sweeps(paths, mesh, counters):
@@ -2070,12 +2128,15 @@ def _ddp_inputs(workdir):
         raw.update(batch_size=batch_size, synthetic_size=batch_size,
                    work_dir=str(workdir / run), **extra)
         cfg = Config.from_dict(raw)
-        batch = build_dataset(cfg, "train").get_batch(np.arange(batch_size))
+        batch = build_dataset(cfg, "train").get_batch(
+            np.arange(batch_size), rng=np.random.default_rng(DDP_SEED))
         ddp[run] = (raw, batch, n_steps)
         torch.cuda.reset_peak_memory_stats()
         one[run] = _ddp_steps(raw, batch, n_steps, None)
         one[run].update(model=model, peak_gib=torch.cuda.max_memory_allocated()
                         / 2**30)
+        if _f64_loss_run(raw):
+            one[run]["loss_f64"] = _first_loss_f64(raw, batch, None)
         if raw.get("distribution_loss") == "MMD":
             one[run]["fault"] = _half_batch_grads(raw, batch)
             one[run]["fault_kind"] = "MMD over each rank's rows alone"
@@ -2155,7 +2216,22 @@ def _ddp_compare(run, raw, one, two, n_steps, halves=None):
             "steps_per_s_one": one["steps_per_s"],
             "steps_per_s_ddp": two["steps_per_s"],
             "launches": two["launches"], "peak_gib_ranks": two["peak_gib"],
+            **_f64_loss_reads(one, two),
             **_latent_reads(raw, one, two, grad_err)}
+
+
+def _f64_loss_reads(one, two):
+    """With the f64 first step (``_first_loss_f64``): its DDP loss against
+    one process's, and each f32 first loss against one process's f64 loss
+    (the f32 model's own rounding)."""
+    if "loss_f64" not in one:
+        return {}
+    ref = one["loss_f64"]
+    return {"losses_f64": [ref, two["loss_f64"]],
+            "first_loss_rel_f64": abs(two["loss_f64"] - ref) / abs(ref),
+            "loss_bound_f64": DDP_LOSS_REL_F64,
+            "one_f32_vs_f64_rel": abs(one["losses"][0] - ref) / abs(ref),
+            "ddp_f32_vs_f64_rel": abs(two["losses"][0] - ref) / abs(ref)}
 
 
 def _latent_reads(raw, one, two, grad_err):
@@ -2177,6 +2253,15 @@ def _latent_reads(raw, one, two, grad_err):
 
 # the DDP runs whose ranks need nothing of each other in the forward
 DDP_NO_BATCHNORM = ("vrcnet",)
+# the seed of the DDP runs' batches (DeepGMR's poses are drawn per batch)
+DDP_SEED = 0
+# the first loss of a BatchNorm run, DDP against one process, held in f64
+# (the CPU tests' choice for these models): at its seeded initialisation
+# DeepGMR's f32 loss in one process sits up to 5.4e-5 from its f64 value
+# (the mixture means, all near the centroid, cancel), and DDP against one
+# process in f32 read up to 1.6e-5 on an H100; in f64 they read at most
+# 1.4e-14 there (scripts/ddp_loss_rounding.py, six seeds)
+DDP_LOSS_REL_F64 = 1e-10
 # the first DDP gradient against one process on the whole batch, over the
 # model's largest gradient entry: above f32 rounding through the card's
 # atomics, kNN near-ties and the SVD heads (DeepGMR read 2.2e-3 and 5.2e-3
@@ -2210,6 +2295,11 @@ def _check_ddp(ddp, one, two):
         # near-zero gradient's entry by ~lr
         # under MMD the ranks' forwards meet in the gather, and the
         # planted fault moves the latent path: its bound there
+        # a BatchNorm run's first loss is held in f64
+        # (``DDP_LOSS_REL_F64``), the others' in f32
+        loss_held = (rec["first_loss_rel_f64"] <= DDP_LOSS_REL_F64
+                     if "first_loss_rel_f64" in rec
+                     else rec["first_loss_rel"] <= 1e-5)
         if "distribution_loss" in rec:
             held = (rec["latent_grad_err_over_its_max"]
                     <= DDP_MMD_LATENT_BOUND
@@ -2224,8 +2314,7 @@ def _check_ddp(ddp, one, two):
                       < rec["fault_grad_err_over_max_grad"])
         if not (held and caught and rec["replicas_equal"]
                 and rec["first_grad_err_over_max_grad"] <= DDP_GRAD_BOUND
-                and rec["first_loss_rel"] <= 1e-5
-                and np.isfinite(rec["losses_ddp"]).all()):
+                and loss_held and np.isfinite(rec["losses_ddp"]).all()):
             fail(f"parallel: DDP {run} outside its bounds: {rec}")
     return out
 
@@ -2244,7 +2333,8 @@ def phase_parallel(refs, rescore_ref):
        8 pairs with log/'s classifier (picks, ``n_override``, logits), all
        bit-equal to one process; DDP steps of vrcnet.yaml and deepgmr.yaml
        (batch 32, 16 a rank, 2 steps; VRCNet as its yaml has it and under
-       MMD) against one process on the global batch;
+       MMD) against one process on the global batch, DeepGMR's first loss
+       in f64 beside its f32 run;
     3. the CLI: ``n_devices`` the visible cards runs; one more takes the
        cards there are, its rows bit-equal.
     Returns the launches of each run, for the ``kernels`` line."""
@@ -2418,7 +2508,9 @@ def _completion_counters():
             "nn_select": _Count(nn_select),
             "gather_rows": _Count(gather_rows_kernel),
             "fps_large": _Count(furthest_point_sample, "large_launches"),
-            "emd_large": _Count(emd_auction_with_stats, "large_launches")}
+            "emd_large": _Count(emd_auction_with_stats, "large_launches"),
+            "fps_global": _Count(furthest_point_sample, "global_launches"),
+            "emd_global": _Count(emd_auction_with_stats, "global_launches")}
 
 
 def _zero(counters):
@@ -2751,9 +2843,9 @@ class _EmdInputs(_Picks):
 
 class _FpsLargeInputs(_Picks):
     """A ``_Picks`` for K2's launch (``ops/sampling.py:_fps_cuda``) that
-    keeps the (B, N, K) of each launch of ``csrc/fps_large.cu`` (clouds
-    past K2's limit) in ``shapes``, and in ``kept`` the first cloud and k
-    at each shape."""
+    keeps the (B, N, K) of each launch past K2's limit (``csrc/fps_large.cu``
+    or ``csrc/fps_global.cu``) in ``shapes``, and in ``kept`` the first
+    cloud and k at each shape."""
 
     def __init__(self):
         from houv_tpu_torch.kernels import load
@@ -2766,8 +2858,7 @@ class _FpsLargeInputs(_Picks):
     def __call__(self, points, k):
         from houv_tpu_torch.ops import sampling
 
-        if sampling._fps_route(points.shape[1],
-                               self.max_points) == "fps_large":
+        if points.shape[1] > self.max_points:
             shape = [*points.shape[:2], k]
             if shape not in self.shapes:
                 self.kept.append((points.clone(), k))
@@ -4627,11 +4718,19 @@ def phase_ablations():
     return rec
 
 
-# clouds above the card kernels' limits: K2's large variant at (B, N) ->
-# K, just past K2's 8192 points and at MVP's largest ground truth; K7's at
-# (B, N) x (B, N), its checks at few enough rounds for the plain version
+# clouds above the card kernels' limits: K2's cluster design at (B, N) ->
+# K, just past K2's 8192 points and at MVP's largest ground truth, and the
+# two FPS of VRCNet's train step at 16384 points (the gt's, the decoder's);
+# K7's at (B, N) x (B, N), its checks at few enough rounds for the plain
+# version
 LARGE_FPS = ((4, 16384, 2048), (4, 8193, 2048))
+LARGE_FPS_PATH = ((8, 16384, 2048), (16, 18432, 2048))
 LARGE_EMD = ((2, 8192, 40), (2, 16384, 12))
+# the same FPS, and validate's auction at 8192 points, at cfgs/vrcnet.yaml's
+# batch of 32 (the paths here run 8), where the plans weigh a second wave
+# of clusters against fewer blocks a cloud
+LARGE_FPS_YAML = ((32, 16384, 2048), (64, 18432, 2048))
+LARGE_EMD_YAML = (32, 8192, 12)
 
 
 def _large_vrcnet_cfg(tmp, n_clouds, num_points, **extra):
@@ -4644,38 +4743,159 @@ def _large_vrcnet_cfg(tmp, n_clouds, num_points, **extra):
                       **extra)
 
 
+def _fps_counts():
+    from houv_tpu_torch.ops import sampling
+
+    fps = sampling.furthest_point_sample
+    return [fps.launches, fps.large_launches, fps.global_launches]
+
+
+def _check_fps_routed(pts, k, name, route):
+    """``check_fps`` through the wrapper, which must launch ``route``
+    ("fps_large" or "fps_global") alone."""
+    before = _fps_counts()
+    err = check_fps(pts, k, name)
+    routed = [a - b for a, b in zip(_fps_counts(), before)]
+    want = [0, 1, 0] if route == "fps_large" else [0, 0, 1]
+    emit({"phase": "fps_check", "case": name, "route": route,
+          "launches_fps_large_global": routed})
+    if routed != want:
+        fail(f"fps {name} at {pts.shape[1]} points launched (fps, "
+             f"fps_large, fps_global) {routed}, expected {want}")
+    return err
+
+
+def _check_fps_forced(pts, k, c):
+    """``csrc/fps_large.cu`` at c blocks a cloud against the plain version,
+    index for index."""
+    from houv_tpu_torch.ops import sampling
+
+    saved = _fps_counts()
+    ki = sampling._fps_large_cuda(pts, k, c)
+    fps = sampling.furthest_point_sample
+    fps.launches, fps.large_launches, fps.global_launches = saved
+    pi = sampling._fps_plain(pts, k)
+    mism = int((ki != pi).sum())
+    emit({"phase": "fps_check", "case": f"fps_large_forced_{c}",
+          "points": list(pts.shape[:2]), "k": k, "index_mismatches": mism})
+    if mism:
+        fail(f"fps_large at {c} blocks a cloud ({pts.shape[0]}, "
+             f"{pts.shape[1]}) -> {k}: {mism} indices differ")
+    return float((ki - pi).abs().max())
+
+
+def _fps_large_floor(b, n, k):
+    """The instruction floor of ``csrc/fps_large.cu``: 10 f32 instructions a
+    point and step (``_time_fps``'s count) at 128 lanes a clock on the
+    plan's SMs, at the card's maximum SM clock."""
+    from houv_tpu_torch.ops import sampling
+
+    c, _, _ = sampling._fps_cluster_plan(
+        n, b, lambda c, w, p: sampling._held(c, w, p, 0))
+    sms = min(torch.cuda.get_device_properties(0).multi_processor_count,
+              b * c)
+    return {"plan_blocks_a_cloud": c,
+            "floor_ms": 10.0 * b * n * (k - 1)
+            / (sms * 128 * _sm_max_clock_mhz() * 1e3)}
+
+
+def _emd_past_capacity(n):
+    """The fewest items past which ``csrc/emd_large.cu`` cannot hold a pair
+    of n bidders: the pair one item past its capacity."""
+    from houv_tpu_torch.kernels import load
+
+    lib = load()
+    top = lib.houv_emd_max_smem_bytes()
+    m = n
+    while lib.houv_emd_large_smem_bytes(n, m, 8) <= top:
+        m += 1
+    return m
+
+
 def phase_large_clouds(gen):
-    """Clouds above K2's and K7's limits (``csrc/fps_large.cu``,
-    ``csrc/emd_large.cu``): K2's variant at ``LARGE_FPS`` index for index
-    against the plain version; K7's at ``LARGE_EMD`` (assignments,
+    """Clouds above K2's and K7's limits. K2's cluster design
+    (``csrc/fps_large.cu``) index for index against the plain version at
+    ``LARGE_FPS``, sizes off its blocks, K == N, an integer grid, every
+    point twice, its capacity and ``LARGE_FPS_YAML``, each through the
+    wrapper's route; at every cluster size its plan can pick, forced; one
+    point past its capacity on the global-memory design
+    (``csrc/fps_global.cu``). K7's cluster design (``csrc/emd_large.cu``)
+    at ``LARGE_EMD``, ``LARGE_EMD_YAML`` and N != M (assignments,
     distances' bits, rounds and bids against the plain version at few
-    rounds, then timed alone at validate's eps 0.004 and 3000 rounds);
-    then the paths: 3 train steps of cfgs/vrcnet.yaml at num_points 16384,
-    batch 8 (K2's variant twice a step: the ground truth's FPS to the 2048
-    input points and the decoder's of its coarse cloud to ``num_fps``), and
-    ``validate`` with eval_emd at num_points
-    8192, batch 8 (K7's variant, once a batch), each with its launches and
-    the (B, N, K) of each of K2's variant's launches (``_FpsLargeInputs``),
-    the variant held to the plain version on the path's first cloud at
-    each of them. Returns the ``kernels`` line's two rows."""
+    rounds), and a pair one item past its capacity on
+    ``csrc/emd_global.cu``. Each design timed at its shapes (the global
+    ones at one shape past the capacities, after one call through the
+    public entry point there). Then the paths: 3 train steps of
+    cfgs/vrcnet.yaml at num_points 16384, batch 8 (K2's cluster design
+    twice a step: the ground truth's FPS to the 2048 input points and the
+    decoder's of its coarse cloud to ``num_fps``), and ``validate`` with
+    eval_emd at num_points 8192, batch 8 (K7's cluster design, once a
+    batch), each with its launches by route and the (B, N, K) of each FPS
+    launch past K2's limit (``_FpsLargeInputs``), the design held to the
+    plain version on the path's first cloud at each of them. Returns the
+    ``kernels`` line's four rows."""
+    from houv_tpu_torch.kernels import load
     from houv_tpu_torch.ops import emd, sampling
     from houv_tpu_torch.train.cli import build_dataset
     from houv_tpu_torch.train.config import load_config
     from houv_tpu_torch.train.harness import CompletionTrainer
 
-    fps = sampling.furthest_point_sample
-    fps_err, fps_rows = 0.0, []
-    for i, (b, n, k) in enumerate(LARGE_FPS):
-        before = (fps.launches, fps.large_launches)
-        fps_err = max(fps_err, check_fps(
-            torch.randn((b, n, 3), generator=gen).cuda(), k, "large"))
-        if (fps.launches - before[0], fps.large_launches - before[1]) \
-                != (0, 1):
-            fail(f"fps at {n} points did not run fps_large alone")
-        fps_rows.append(_time_fps(b, n, k, "large_clouds", gen,
-                                  plain=i == 0))
+    lib = load()
+    cap = lib.houv_fps_large_max_points()
+    fps_err = 0.0
+    cases = [(*shape, "large") for shape in LARGE_FPS]
+    cases += [(2, 12345, 1000, "off_the_blocks"), (1, 9000, 9000, "k_equals_n"),
+              (1, cap, 256, "capacity")]
+    for b, n, k, name in cases:
+        fps_err = max(fps_err, _check_fps_routed(
+            torch.randn((b, n, 3), generator=gen).cuda(), k, name,
+            "fps_large"))
+    grid = torch.randint(0, 8, (2, 12000, 3), generator=gen).float()
+    fps_err = max(fps_err, _check_fps_routed(grid.cuda(), 2000,
+                                             "integer_grid", "fps_large"))
+    twice = torch.randn((1, 16384, 3), generator=gen)
+    twice[:, 8192:] = twice[:, :8192]
+    fps_err = max(fps_err, _check_fps_routed(twice.cuda(), 4096,
+                                             "every_point_twice", "fps_large"))
+    for b, n, k in LARGE_FPS_YAML:
+        fps_err = max(fps_err, _check_fps_routed(
+            torch.randn((b, n, 3), generator=gen).cuda(), k,
+            f"yaml_batch_{b}", "fps_large"))
+    admitted = [c for c in sampling._FPS_CLUSTERS
+                if sampling._held(c, *sampling._fps_plan(-(-16384 // c)),
+                                  0) > 0]
+    for b, n, k in ((2, 16384, 1024), (2, 8193, 512)):
+        pts = torch.randn((b, n, 3), generator=gen).cuda()
+        for c in admitted:
+            if -(-n // c) <= sampling._FPS_BLOCK_POINTS:
+                fps_err = max(fps_err, _check_fps_forced(pts, k, c))
+    past = torch.randn((1, cap + 1, 3), generator=gen).cuda()
+    fps_global_err = _check_fps_routed(past, 256, "capacity_plus_one",
+                                       "fps_global")
+    fps_rows = []
+    for i, (b, n, k) in enumerate(LARGE_FPS + LARGE_FPS_PATH
+                                  + LARGE_FPS_YAML):
+        fps_rows.append({**_time_fps(b, n, k, "large_clouds", gen,
+                                     plain=i == 0),
+                         **_fps_large_floor(b, n, k)})
+    # the global design at one shape past the capacity, through the
+    # public entry point first, then timed
+    counters = _completion_counters()
+    _zero(counters)
+    sampling.furthest_point_sample(past, 2048)
+    torch.cuda.synchronize()
+    fps_global_launches = _read(counters)
+    emit({"phase": "large_clouds", "run": "fps_past_capacity",
+          "points": [1, cap + 1], "k": 2048,
+          "launches": fps_global_launches})
+    if fps_global_launches != {"fps_global": 1}:
+        fail(f"fps past the capacity launched {fps_global_launches}")
+    fps_global_row = _time_fps(1, cap + 1, 2048, "past_capacity", gen,
+                               plain=True)
+    del past, grid, twice
+    torch.cuda.empty_cache()
+
     emd_err, emd_rows = 0.0, []
-    run = emd.emd_auction_with_stats
     for b, n, iters in LARGE_EMD:
         x1 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
         x2 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
@@ -4691,8 +4911,49 @@ def phase_large_clouds(gen):
                          **_time_emd(x1, x2, 0.004, 3000)})
         del x1, x2
         torch.cuda.empty_cache()
+    b, n, iters = LARGE_EMD_YAML
+    x1 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+    x2 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+    emd_err = max(emd_err, check_emd(x1, x2, 0.004, iters,
+                                     f"large_{n}_batch_{b}"))
+    emd_rows.append({"path": "large_clouds, the yaml's batch, validate's "
+                             "setting", **_time_emd(x1, x2, 0.004, 3000)})
+    del x1, x2
+    torch.cuda.empty_cache()
+    for n, m in ((7000, 9000), (9000, 7000)):
+        x1 = torch.rand((2, n, 3), generator=gen).cuda() - 0.5
+        x2 = torch.rand((2, m, 3), generator=gen).cuda() - 0.5
+        if emd_route(n, m) != "emd_large":
+            fail(f"emd at {n} bidders and {m} items is not routed to "
+                 "emd_large")
+        emd_err = max(emd_err, check_emd(x1, x2, 0.005, 20,
+                                         f"large_{n}_{m}"))
+    n_cap = 17272
+    m_past = _emd_past_capacity(n_cap)
+    x1 = torch.rand((1, n_cap, 3), generator=gen).cuda() - 0.5
+    x2 = torch.rand((1, m_past, 3), generator=gen).cuda() - 0.5
+    if emd_route(n_cap, m_past - 1) != "emd_large" \
+            or emd_route(n_cap, m_past) != "emd_global":
+        fail(f"emd's capacity edge at {n_cap} bidders is not {m_past} items")
+    emd_global_err = check_emd(x1, x2, 0.005, 5,
+                               f"one_item_past_capacity_{m_past}")
+    _zero(counters)
+    emd.emd_auction(x1, x2, 0.004, 3000)
+    torch.cuda.synchronize()
+    emd_global_launches = _read(counters)
+    emit({"phase": "large_clouds", "run": "emd_past_capacity",
+          "x1": [1, n_cap], "x2": [1, m_past],
+          "launches": emd_global_launches})
+    if emd_global_launches != {"emd_global": 1}:
+        fail(f"emd past the capacity launched {emd_global_launches}")
+    emd_global_row = {"path": "past_capacity",
+                      **_time_emd(x1, x2, 0.004, 3000)}
+    emd_global_row["plain_ms"] = cuda_ms(
+        lambda: emd._auction_plain(x1, x2, 0.004, 5), reps=1, warmup=0)
+    emd_global_row["plain_iters"] = 5
+    del x1, x2
+    torch.cuda.empty_cache()
 
-    counters = _completion_counters()
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         cfg = load_config(_large_vrcnet_cfg(tmp, 24, 16384))
@@ -4722,12 +4983,14 @@ def phase_large_clouds(gen):
         emit(rec)
         # two of a step's FPS pass K2's limit: the ground truth's to the
         # 2048 input points and the decoder's of its coarse cloud to
-        # num_fps (models/vrcnet.py's, (16, 18432) -> 2048 on an H100)
+        # num_fps (models/vrcnet.py's, (16, 18432) -> 2048 on an H100),
+        # both on the cluster design
         if not np.isfinite(losses).all() \
                 or launches["train_16384"].get("fps_large") != 2 * 3 \
+                or launches["train_16384"].get("fps_global") \
                 or len(path_fps.shapes) != 2 * 3:
             fail(f"vrcnet at 16384 points: {rec}")
-        # the variant at each of the path's shapes, on the path's own
+        # the design at each of the path's shapes, on the path's own
         # first cloud there, index for index against the plain version
         for pts, k in path_fps.kept:
             fps_err = max(fps_err, check_fps(pts, k, "train_16384"))
@@ -4757,6 +5020,7 @@ def phase_large_clouds(gen):
                 or not all(np.isfinite(v) for v in metrics.values()) \
                 or launches["validate_8192"].get("emd_large") != want \
                 or launches["validate_8192"].get("emd") \
+                or launches["validate_8192"].get("emd_global") \
                 or launches["validate_8192"].get("fps_large", 0) \
                 != len(path_fps.shapes):
             fail(f"vrcnet validate at 8192 points: {rec}")
@@ -4776,13 +5040,30 @@ def phase_large_clouds(gen):
                "launches": launches["train_16384"].get("fps_large", 0),
                "max_abs_err": fps_err, **fps_rows[0], "library_ms": None,
                "at_shapes": fps_rows}
+    fps_global = {"name": "fps_global", "route": "cuda",
+                  "source": "houv_tpu_torch/csrc/fps_global.cu",
+                  "replaces": "houv_tpu/ops/sampling.py:43",
+                  "launches": fps_global_launches.get("fps_global", 0),
+                  "launches_on": f"furthest_point_sample at (1, {cap + 1}) "
+                                 "-> 2048, past fps_large's capacity",
+                  "max_abs_err": fps_global_err, **fps_global_row,
+                  "library_ms": None}
     emd_row = {"name": "emd_large", "route": "cuda",
                "source": "houv_tpu_torch/csrc/emd_large.cu",
                "replaces": "houv_tpu/ops/emd_kernel.py:48",
                "launches": launches["validate_8192"].get("emd_large", 0),
                "max_abs_err": emd_err, **emd_rows[0], "library_ms": None,
                "at_shapes": emd_rows}
-    return {"rows": [fps_row, emd_row], "launches": launches}
+    emd_global = {"name": "emd_global", "route": "cuda",
+                  "source": "houv_tpu_torch/csrc/emd_global.cu",
+                  "replaces": "houv_tpu/ops/emd_kernel.py:48",
+                  "launches": emd_global_launches.get("emd_global", 0),
+                  "launches_on": f"emd_auction at (1, {n_cap}) x (1, "
+                                 f"{m_past}), past emd_large's capacity",
+                  "max_abs_err": emd_global_err, **emd_global_row,
+                  "library_ms": None}
+    return {"rows": [fps_row, fps_global, emd_row, emd_global],
+            "launches": launches}
 
 
 # MVPN preprocessing at full width: one synthetic class of 1024 partial
@@ -5562,11 +5843,13 @@ def _time_fps(b, n, k, path, gen, plain=False):
 
     pts = torch.randn((b, n, 3), generator=gen).cuda()
     fps = sampling.furthest_point_sample
-    saved = (fps.launches, fps.large_launches)
+    saved = (fps.launches, fps.large_launches, fps.global_launches)
     ms = cuda_ms(lambda: fps(pts, k), reps=10)
-    fps.launches, fps.large_launches = saved
+    fps.launches, fps.large_launches, fps.global_launches = saved
+    lib = load()
     row = {"shape": {"points": [b, n, 3], "k": k}, "path": path,
-           "variant": sampling._fps_route(n, load().houv_fps_max_points()),
+           "variant": sampling._fps_route(n, lib.houv_fps_max_points(),
+                                          lib.houv_fps_large_max_points()),
            "ms": ms}
     row["bound_ms"], row["bound_by"] = bound(12 * b * n + 8 * b * k,
                                              10.0 * b * n * (k - 1))
@@ -5878,10 +6161,10 @@ def _time_emd(x1, x2, eps, iters):
     b, n, _ = x1.shape
     m = x2.shape[1]
     run = emd.emd_auction_with_stats
-    saved = (run.launches, run.large_launches)
+    saved = _emd_counts()
     _, _, rounds, bids = run(x1, x2, eps, iters)
     ms = cuda_ms(lambda: run(x1, x2, eps, iters), reps=3)
-    run.launches, run.large_launches = saved
+    _set_emd_counts(saved)
     plan = emd_plan(b, n, m)
     n_bids, n_rounds = int(bids.sum()), int(rounds.max())
     bound_ms, bound_by = bound(12 * b * (n + m) + 12 * b * n + 16 * b,
@@ -5892,7 +6175,8 @@ def _time_emd(x1, x2, eps, iters):
     floor = 11.0 * n_bids * m / (sms * 128 * clock_mhz * 1e3)
     return {"shape": {"x1": [b, n, 3], "x2": [b, m, 3], "eps": eps,
                       "iters": iters},
-            "variant": emd_route(n, m), "plan": plan, "rounds_max": n_rounds, "bids": n_bids, "ms": ms,
+            "variant": emd_route(n, m), "plan": plan, "rounds_max": n_rounds,
+            "bids": n_bids, "ms": ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "floor_ms": floor,
             "x_floor": ms / floor,
             "floor_clock_mhz": clock_mhz}
@@ -5980,8 +6264,8 @@ def phase_kernels(launches, errs, completion, train, solve, models,
     under ``parallel_launches``; ``gan``: the GAN phase's ``train_main``
     and repeated-batch runs, under ``gan_launches``; ``ablations``: the
     ablation solves, under ``ablation_launches``; ``large``: the
-    large-cloud phase, whose rows of K2's and K7's variants join the line
-    and whose runs' launches each row carries under
+    large-cloud phase, whose rows of K2's and K7's designs past their
+    limits join the line and whose runs' launches each row carries under
     ``large_clouds_launches``; ``pre`` and ``native``: the preprocessing
     and native-loader phases, under ``preprocess_launches`` and
     ``native_launches``."""

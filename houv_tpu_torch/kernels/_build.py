@@ -32,8 +32,13 @@ _SIGNATURES = {
     # pts, b, n, k, warps, per, out, stream
     "houv_fps": [_P, _I, _I, _I, _I, _I, _P, _P],
     "houv_fps_max_points": [],
+    # pts, b, n, k, c, warps, per, out, stream
+    "houv_fps_large": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "houv_fps_large_max_points": [],
+    # c, warps, per
+    "houv_fps_large_max_clusters": [_I, _I, _I],
     # pts, b, n, k, work, out, stream
-    "houv_fps_large": [_P, _I, _I, _I, _P, _P, _P],
+    "houv_fps_global": [_P, _I, _I, _I, _P, _P, _P],
     # query, ref, b, m, n, k, per, len, scratch, out, stream
     "houv_knn": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "houv_knn_max_k": [],
@@ -42,11 +47,17 @@ _SIGNATURES = {
     "houv_emd_smem_bytes": [_I, _I],
     "houv_emd_max_clusters": [_I, _I, _I],
     "houv_emd_max_smem_bytes": [],
+    # x1, x2, b, n, m, eps, iters, clusters, dist, assign, stats, stream
+    "houv_emd_large": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P, _P,
+                       _P],
+    # n, m, c
+    "houv_emd_large_smem_bytes": [_I, _I, _I],
+    "houv_emd_large_max_clusters": [_I, _I, _I],
     # x1, x2, b, n, m, eps, iters, clusters, items, key, owner, list, item,
     # cnt, dist, assign, stats, stream
-    "houv_emd_large": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P, _P],
-    "houv_emd_large_max_clusters": [_I],
+    "houv_emd_global": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "houv_emd_global_max_clusters": [_I],
     # idx, vals, b, n, m, c, rows, out, stream
     "houv_scatter_add": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "houv_scatter_max_channels": [],

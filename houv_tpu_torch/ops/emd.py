@@ -21,8 +21,10 @@ The kernel and the plain version compute the distances in the diff form,
 rounded op by op, and the same f32 increments and prices, so they run the
 same rounds to the same assignment. The kernel runs a pair on one block or
 on a cluster of blocks (``_emd_plan``); a pair whose state passes one
-block's shared memory (about 6428 x 6428) goes to ``csrc/emd_large.cu``,
-the same rounds with the state in global memory, any size. The gradient goes to x1 only, with the
+block's shared memory (about 6428 x 6428) goes to ``csrc/emd_large.cu``
+(its items split over a cluster's shared memory, up to about 17000 x
+17000), a larger one to ``csrc/emd_global.cu`` (the same rounds with the
+state in global memory, any size; ``_emd_route``). The gradient goes to x1 only, with the
 assignment held fixed: 2·g·(x1 − x2[assignment]); it needs no kernel.
 """
 
@@ -40,8 +42,9 @@ from houv_tpu_torch.ops.grouping import _sqdist_diff
 # holds 39 clusters of 3 and 66 of 2, which the paths' batches of 32 and 64
 # pairs fill; a larger size would fit one wave only below 31 pairs
 _EMD_CLUSTERS = (3, 2)
-# csrc/emd_large.cu's cluster sizes, the largest first (8 is the portable
-# limit): its pairs are few and large, so more SMs a pair
+# csrc/emd_large.cu's and csrc/emd_global.cu's cluster sizes, the largest
+# first (8 is the portable limit): their pairs are few and large, so more
+# SMs a pair
 _EMD_LARGE_CLUSTERS = (8, 4, 2)
 
 
@@ -140,25 +143,72 @@ def _card_plan(b: int, n: int, m: int, device: torch.device) -> int:
         _max_clusters(n, m, index))
 
 
-def _emd_route(smem_bytes: int, max_smem_bytes: int) -> str:
-    """Which kernel takes a pair whose state in ``csrc/emd.cu`` needs
-    ``smem_bytes`` of one block's shared memory
-    (``houv_emd_smem_bytes(n, m)``): that kernel ("emd") up to
-    ``houv_emd_max_smem_bytes()``, ``csrc/emd_large.cu`` ("emd_large": the
-    state in global memory, any n and m) above it."""
-    return "emd" if smem_bytes <= max_smem_bytes else "emd_large"
+def _emd_route(smem_bytes: int, large_bytes: int, max_smem_bytes: int
+               ) -> str:
+    """Which kernel takes a pair whose state needs ``smem_bytes`` of one
+    block's shared memory in ``csrc/emd.cu`` (``houv_emd_smem_bytes(n,
+    m)``) and ``large_bytes`` of each block's of a cluster of 8 in
+    ``csrc/emd_large.cu`` (``houv_emd_large_smem_bytes(n, m, 8)``): the
+    first ("emd") or the second ("emd_large") where it fits
+    ``houv_emd_max_smem_bytes()``, else ``csrc/emd_global.cu``
+    ("emd_global": the state in global memory, any n and m)."""
+    if smem_bytes <= max_smem_bytes:
+        return "emd"
+    return "emd_large" if large_bytes <= max_smem_bytes else "emd_global"
 
 
-def _emd_large_plan(b: int, max_clusters: dict[int, int]) -> int:
-    """Blocks a pair of ``csrc/emd_large.cu``: the largest C of
+def _emd_large_plan(b: int, smem_bytes, max_smem_bytes: int, held) -> int:
+    """Blocks a pair of ``csrc/emd_large.cu``: of the C of
+    ``_EMD_LARGE_CLUSTERS`` whose blocks hold their share of the pair
+    (``smem_bytes(C)`` within ``max_smem_bytes``), the one of least time:
+    the waves in which the card runs b clusters (``held(C)`` at once, read
+    from the card) over C, a pair's scans split over its C SMs; ties go to
+    the larger C."""
+    fits = [c for c in _EMD_LARGE_CLUSTERS
+            if smem_bytes(c) <= max_smem_bytes]
+    if not fits:
+        raise ValueError("the pair passes emd_large's shared memory")
+    return min(fits, key=lambda c: -(-b // max(1, held(c))) / c)
+
+
+@functools.lru_cache(maxsize=None)
+def _large_held(n: int, m: int, c: int, device_index: int) -> int:
+    """The most clusters of c blocks of ``csrc/emd_large.cu`` the card holds
+    at once for pairs of n bidders and m items."""
+    from houv_tpu_torch.kernels import check, load
+
+    lib = load()
+    with torch.cuda.device(device_index):
+        count = lib.houv_emd_large_max_clusters(n, m, c)
+    check(lib, max(0, -count), f"emd_large occupancy of clusters of {c}")
+    return count
+
+
+def _large_card_plan(b: int, n: int, m: int, device: torch.device) -> int:
+    """``_emd_large_plan`` for b pairs of n bidders and m items on
+    ``device``."""
+    from houv_tpu_torch.kernels import load
+
+    lib = load()
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _emd_large_plan(
+        b, lambda c: lib.houv_emd_large_smem_bytes(n, m, c),
+        lib.houv_emd_max_smem_bytes(),
+        lambda c: _large_held(n, m, c, index))
+
+
+def _emd_global_plan(b: int, max_clusters: dict[int, int]) -> int:
+    """Blocks a pair of ``csrc/emd_global.cu``: the largest C of
     ``_EMD_LARGE_CLUSTERS`` of which the card holds all b clusters at once
     (``max_clusters[C]``, read from the card), else 1."""
     return next((c for c in _EMD_LARGE_CLUSTERS if b <= max_clusters[c]), 1)
 
 
 @functools.lru_cache(maxsize=None)
-def _max_large_clusters(device_index: int) -> dict[int, int]:
-    """The most clusters of each size of ``csrc/emd_large.cu`` the card
+def _max_global_clusters(device_index: int) -> dict[int, int]:
+    """The most clusters of each size of ``csrc/emd_global.cu`` the card
     holds at once."""
     from houv_tpu_torch.kernels import check, load
 
@@ -166,8 +216,8 @@ def _max_large_clusters(device_index: int) -> dict[int, int]:
     out = {}
     with torch.cuda.device(device_index):
         for c in _EMD_LARGE_CLUSTERS:
-            count = lib.houv_emd_large_max_clusters(c)
-            check(lib, max(0, -count), f"emd_large occupancy of {c}")
+            count = lib.houv_emd_global_max_clusters(c)
+            check(lib, max(0, -count), f"emd_global occupancy of {c}")
             out[c] = count
     return out
 
@@ -183,9 +233,33 @@ def _emd_outputs(x1: torch.Tensor):
 
 def _emd_large_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float,
                     iters: int, clusters: int | None = None):
-    """``csrc/emd_large.cu``'s launch, its scratch allocated here;
-    ``clusters`` overrides ``_emd_large_plan``'s blocks a pair.
-    ``_emd_cuda`` routes the pairs past K7's shared memory here."""
+    """``csrc/emd_large.cu``'s launch (no scratch: the state lives in the
+    cluster's shared memory); ``clusters`` overrides ``_emd_large_plan``'s
+    blocks a pair. ``_emd_cuda`` routes the pairs past K7's shared memory
+    that fit it here."""
+    from houv_tpu_torch.kernels import check, load
+
+    bsz, n, _ = x1.shape
+    m = x2.shape[1]
+    if clusters is None:
+        clusters = _large_card_plan(bsz, n, m, x1.device)
+    dist, assignment, stats = _emd_outputs(x1)
+    lib = load()
+    with torch.cuda.device(x1.device):
+        stream = torch.cuda.current_stream(x1.device).cuda_stream
+        err = lib.houv_emd_large(
+            x1.data_ptr(), x2.data_ptr(), bsz, n, m, eps, iters, clusters,
+            dist.data_ptr(), assignment.data_ptr(), stats.data_ptr(), stream)
+    check(lib, err, "emd_large")
+    emd_auction_with_stats.large_launches += 1
+    return dist, assignment, stats[:, 0], stats[:, 1]
+
+
+def _emd_global_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float,
+                     iters: int, clusters: int | None = None):
+    """``csrc/emd_global.cu``'s launch, its scratch allocated here;
+    ``clusters`` overrides ``_emd_global_plan``'s blocks a pair.
+    ``_emd_cuda`` routes the pairs past ``csrc/emd_large.cu`` here."""
     from houv_tpu_torch.kernels import check, load
 
     bsz, n, _ = x1.shape
@@ -194,7 +268,7 @@ def _emd_large_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float,
         index = x1.device.index
         if index is None:
             index = torch.cuda.current_device()
-        clusters = _emd_large_plan(bsz, _max_large_clusters(index))
+        clusters = _emd_global_plan(bsz, _max_global_clusters(index))
     dist, assignment, stats = _emd_outputs(x1)
     new = functools.partial(torch.empty, device=x1.device)
     items = new((bsz, m, 4), dtype=torch.float32)
@@ -206,21 +280,21 @@ def _emd_large_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float,
     lib = load()
     with torch.cuda.device(x1.device):
         stream = torch.cuda.current_stream(x1.device).cuda_stream
-        err = lib.houv_emd_large(
+        err = lib.houv_emd_global(
             x1.data_ptr(), x2.data_ptr(), bsz, n, m, eps, iters, clusters,
             items.data_ptr(), key.data_ptr(), owner.data_ptr(),
             lists.data_ptr(), item.data_ptr(), cnt.data_ptr(),
             dist.data_ptr(), assignment.data_ptr(), stats.data_ptr(), stream)
-    check(lib, err, "emd_large")
-    emd_auction_with_stats.large_launches += 1
+    check(lib, err, "emd_global")
+    emd_auction_with_stats.global_launches += 1
     return dist, assignment, stats[:, 0], stats[:, 1]
 
 
 def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
               clusters: int | None = None):
     """The kernel's launch, or for pairs past its shared memory
-    (``_emd_route``) the large variant's; ``clusters`` overrides the plan's
-    blocks a pair."""
+    (``_emd_route``) the large or the global design's; ``clusters``
+    overrides the plan's blocks a pair."""
     from houv_tpu_torch.kernels import check, load
 
     bsz, n, _ = x1.shape
@@ -229,9 +303,13 @@ def _emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int,
         dist, assignment, stats = _emd_outputs(x1)
         return dist, assignment, stats[:, 0], stats[:, 1]
     lib = load()
-    if _emd_route(lib.houv_emd_smem_bytes(n, m),
-                  lib.houv_emd_max_smem_bytes()) == "emd_large":
+    route = _emd_route(lib.houv_emd_smem_bytes(n, m),
+                       lib.houv_emd_large_smem_bytes(n, m, 8),
+                       lib.houv_emd_max_smem_bytes())
+    if route == "emd_large":
         return _emd_large_cuda(x1, x2, eps, iters, clusters)
+    if route == "emd_global":
+        return _emd_global_cuda(x1, x2, eps, iters, clusters)
     if clusters is None:
         clusters = _card_plan(bsz, n, m, x1.device)
     dist, assignment, stats = _emd_outputs(x1)
@@ -253,8 +331,10 @@ def emd_auction_with_stats(x1: torch.Tensor, x2: torch.Tensor,
 
     On ``cuda`` this launches ``csrc/emd.cu`` and counts the launch in
     ``emd_auction_with_stats.launches``, or for pairs above its shared
-    memory ``csrc/emd_large.cu``, counted in ``.large_launches``; the plain
-    version runs only for tensors on the CPU, with ``device="cpu"``."""
+    memory ``csrc/emd_large.cu``, counted in ``.large_launches``, or above
+    that one's ``csrc/emd_global.cu``, counted in ``.global_launches``; the
+    plain version runs only for tensors on the CPU, with
+    ``device="cpu"``."""
     dev = resolve_device(device)
     check_on(dev, x1, x2)
     if x1.dim() != 3 or x1.shape[-1] != 3 or x2.shape[:1] != x1.shape[:1] \
@@ -273,6 +353,7 @@ def emd_auction_with_stats(x1: torch.Tensor, x2: torch.Tensor,
 
 emd_auction_with_stats.launches = 0
 emd_auction_with_stats.large_launches = 0
+emd_auction_with_stats.global_launches = 0
 
 
 class _EmdFunction(torch.autograd.Function):

@@ -2,8 +2,8 @@
 """Times of the ordered scatter-add (K4), the row gather (K5), the
 feature-space kNN (K6-wide), the nearest-neighbour search (K1), the
 coordinate kNN (K6), the furthest-point sampling (K2), the auction EMD
-(K7) and the coordinate search (K3) of the ``houv_tpu_torch`` in the
-working directory,
+(K7), the coordinate search (K3) and K2's and K7's kernels for clouds past
+their limits of the ``houv_tpu_torch`` in the working directory,
 and the end-to-end rates around them, all taken by this
 repository's ``chip_smoke.py``, so that an older checkout can be timed
 beside this one on one card, in turns:
@@ -12,9 +12,9 @@ beside this one on one card, in turns:
     python3 scripts/time_scatter_gather.py [scatter gather_rows knn_wide
                                             steps nn_both houv knn
                                             vrcnet_test profiles fps emd
-                                            nn_select]
+                                            nn_select fps_large emd_large]
 
-(the named parts only; all twelve without arguments)
+(the named parts only; all fourteen without arguments)
 
 - scatter, gather_rows: K4 and K5 at the shapes of PERF.md's kernel table
   (``_time_scatter``, ``_time_gather_rows``: device time, plain version,
@@ -59,7 +59,21 @@ beside this one on one card, in turns:
   (seed 7, one batch) with ``nn_select=True`` and with the default, called
   directly as ``phase_select_solve`` calls it (the yaml has no key for
   it), each after a 10-step warm-up solve: pairs/s, median rotation
-  error, ``n_retry`` and launches.
+  error, ``n_retry`` and launches;
+- fps_large: the device time of furthest-point sampling past K2's 8192
+  points at ``chip_smoke.LARGE_FPS``, VRCNet's two at 16384 points,
+  (8, 16384) and (16, 18432) -> 2048, the same two at cfgs/vrcnet.yaml's
+  batch of 32, (32, 16384) and (64, 18432) -> 2048, and one cloud of
+  65536 points -> 2048 (``YAML_FPS``; whichever kernel the checkout routes
+  them to), and the seconds of 3 train steps of cfgs/vrcnet.yaml at
+  num_points 16384, batch 8 (``chip_smoke._large_vrcnet_cfg``; after one
+  warm-up step);
+- emd_large: the device time, rounds and bids of the auction past K7's
+  shared memory at ``chip_smoke.LARGE_EMD``'s pairs at validate's eps
+  0.004 and 3000 rounds, and on VRCNet's untrained outputs at 8192 points
+  (validate's (8, 8192)², and at cfgs/vrcnet.yaml's batch of 32,
+  (32, 8192)²), and the seconds of ``validate`` with eval_emd
+  at 8192 points (after one warm-up pass).
 
 Only the package comes from the working directory. Prints one JSON line
 after chip_smoke's own; needs CUDA and builds the checkout's kernels at
@@ -81,8 +95,12 @@ import chip_smoke  # noqa: E402  (imports no package of the port itself)
 sys.path.insert(0, os.getcwd())         # the checkout's houv_tpu_torch
 
 
+# the FPS past K2's limit at cfgs/vrcnet.yaml's batch of 32 (the smoke's
+# path runs 8), and one cloud at csrc/fps_large.cu's capacity
+YAML_FPS = ((32, 16384, 2048), (64, 18432, 2048), (1, 65536, 2048))
 PARTS = ("scatter", "gather_rows", "knn_wide", "steps", "nn_both", "houv",
-         "knn", "vrcnet_test", "profiles", "fps", "emd", "nn_select")
+         "knn", "vrcnet_test", "profiles", "fps", "emd", "nn_select",
+         "fps_large", "emd_large")
 
 
 def time_emd():
@@ -171,6 +189,100 @@ def time_nn_select(gen):
     return out
 
 
+def time_fps_large(gen):
+    """FPS past K2's limit at its shapes, and VRCNet's train steps at 16384
+    points (the ``fps_large`` part)."""
+    import numpy as np
+
+    from houv_tpu_torch.ops.sampling import furthest_point_sample
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    rows = []
+    for b, n, k in chip_smoke.LARGE_FPS + chip_smoke.LARGE_FPS_PATH \
+            + YAML_FPS:
+        pts = torch.randn((b, n, 3), generator=gen).cuda()
+        rows.append({"shape": [b, n, k], "ms": chip_smoke.cuda_ms(
+            lambda: furthest_point_sample(pts, k), reps=10)})
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(chip_smoke._large_vrcnet_cfg(tmp, 32, 16384))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        ds = build_dataset(cfg, "train")
+        batches = [ds.get_batch(np.arange(8 * i, 8 * i + 8),
+                                rng=np.random.default_rng(i))
+                   for i in range(4)]
+        trainer.train_step(batches[0], 0, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, bt in enumerate(batches[1:]):
+            trainer.train_step(bt, 0, i + 1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        del trainer, batches
+        torch.cuda.empty_cache()
+    return {"fps_large": rows, "vrcnet_16384_three_steps_s": seconds}
+
+
+def time_emd_large(gen):
+    """The auction past K7's shared memory at its shapes and on validate's
+    outputs at 8192 points, and that validate (the ``emd_large`` part)."""
+    import numpy as np
+
+    from houv_tpu_torch.ops.emd import emd_auction_with_stats
+    from houv_tpu_torch.train.cli import build_dataset
+    from houv_tpu_torch.train.config import load_config
+    from houv_tpu_torch.train.harness import CompletionTrainer
+
+    def row(x1, x2):
+        _, _, rounds, bids = emd_auction_with_stats(x1, x2, 0.004, 3000)
+        return {"shape": [*x1.shape[:2], x2.shape[1]],
+                "rounds_max": int(rounds.max()), "bids": int(bids.sum()),
+                "ms": chip_smoke.cuda_ms(lambda: emd_auction_with_stats(
+                    x1, x2, 0.004, 3000), reps=3)}
+
+    rows = []
+    for b, n, _ in chip_smoke.LARGE_EMD:
+        x1 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+        x2 = torch.rand((b, n, 3), generator=gen).cuda() - 0.5
+        rows.append(row(x1, x2))
+    del x1, x2
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = load_config(chip_smoke._large_vrcnet_cfg(tmp, 8, 8192,
+                                                       eval_emd=True))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        val_ds = build_dataset(cfg, "val")
+        trainer.validate(val_ds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.validate(val_ds)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        batch = val_ds.get_batch(np.arange(8))
+        with torch.no_grad():
+            fine = trainer.predict_batch(batch, step=0)
+        rows.append({"path": "validate 8192", **row(
+            fine.contiguous(), torch.as_tensor(batch["gt"], device="cuda"))})
+        del trainer, fine
+        torch.cuda.empty_cache()
+        # the yaml's batch of 32
+        cfg = load_config(chip_smoke._large_vrcnet_cfg(tmp, 32, 8192,
+                                                       eval_emd=True))
+        trainer = CompletionTrainer(cfg)
+        trainer.init_state()
+        batch = build_dataset(cfg, "val").get_batch(np.arange(32))
+        with torch.no_grad():
+            fine = trainer.predict_batch(batch, step=0)
+        rows.append({"path": "validate 8192, batch 32", **row(
+            fine.contiguous(), torch.as_tensor(batch["gt"], device="cuda"))})
+        del trainer, fine
+        torch.cuda.empty_cache()
+    return {"emd_large": rows, "vrcnet_validate_8192_eval_emd_s": seconds,
+            "validate_clouds": len(val_ds)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_scatter_gather: no CUDA device", file=sys.stderr)
@@ -235,6 +347,10 @@ def main() -> int:
         out.update(time_emd())
     if "nn_select" in parts:
         out.update(time_nn_select(gen))
+    if "fps_large" in parts:
+        out.update(time_fps_large(gen))
+    if "emd_large" in parts:
+        out.update(time_emd_large(gen))
     print(json.dumps(out), flush=True)
     return 0
 

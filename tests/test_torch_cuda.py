@@ -141,6 +141,52 @@ def test_fps_kernel_refuses_more_than_its_limit(gen):
                                    rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("clusters", [2, 4, 8, 16])
+def test_fps_cluster_kernel_at_every_cluster_size(gen, clusters):
+    """``csrc/fps_large.cu`` forced at each cluster size, index for index as
+    the plain version (16 where the card admits it)."""
+    if sampling._held(clusters, *sampling._fps_plan(-(-9001 // clusters)),
+                      0) == 0:
+        pytest.skip(f"the card admits no cluster of {clusters}")
+    pts = torch.randn((2, 9001, 3), generator=gen).cuda()
+    torch.testing.assert_close(sampling._fps_large_cuda(pts, 700, clusters),
+                               sampling._fps_plain(pts, 700), rtol=0, atol=0)
+
+
+def test_fps_past_the_cluster_capacity_runs_the_global_design(gen):
+    """65536 points run ``csrc/fps_large.cu``, one more
+    ``csrc/fps_global.cu``; each index for index as the plain version."""
+    fps = sampling.furthest_point_sample
+    for n, route in ((65536, 1), (65537, 2)):
+        pts = torch.randn((1, n, 3), generator=gen).cuda()
+        before = [fps.launches, fps.large_launches, fps.global_launches]
+        got = fps(pts, 128)
+        after = [fps.launches, fps.large_launches, fps.global_launches]
+        assert [a - b for a, b in zip(after, before)] == [
+            int(i == route) for i in range(3)]
+        torch.testing.assert_close(got, sampling._fps_plain(pts, 128),
+                                   rtol=0, atol=0)
+
+
+def test_emd_past_the_cluster_capacity_runs_the_global_design(gen):
+    """17272 bidders against 17272 items run ``csrc/emd_large.cu``,
+    against 17281 ``csrc/emd_global.cu``; each equal to the plain
+    version."""
+    from houv_tpu_torch.ops import emd
+
+    run = emd.emd_auction_with_stats
+    x1 = torch.rand((1, 17272, 3), generator=gen).cuda()
+    for m, route in ((17272, 1), (17281, 2)):
+        x2 = torch.rand((1, m, 3), generator=gen).cuda()
+        before = [run.launches, run.large_launches, run.global_launches]
+        got = run(x1, x2, 0.005, 3)
+        after = [run.launches, run.large_launches, run.global_launches]
+        assert [a - b for a, b in zip(after, before)] == [
+            int(i == route) for i in range(3)]
+        for k, p in zip(got, emd._auction_plain(x1, x2, 0.005, 3)):
+            torch.testing.assert_close(k, p, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("b,m,n,k", [(2, 300, 257, 17), (1, 1025, 3, 3),
                                      (3, 129, 700, 64), (32, 384, 384, 20)])
 def test_knn_kernel_matches_plain_exactly(gen, b, m, n, k):
@@ -275,7 +321,8 @@ def test_emd_kernel_at_every_cluster_size(gen, clusters):
 def test_emd_kernel_size_limit(gen):
     """28 bytes an item and 8 a bidder in one block's shared memory: 6428
     against 6428 and 1 against 8264 run on K7, one more point on
-    ``csrc/emd_large.cu``; each equal to the plain version."""
+    ``csrc/emd_large.cu`` (a cluster's shared memory); each equal to the
+    plain version."""
     from houv_tpu_torch.ops import emd
 
     run = emd.emd_auction_with_stats

@@ -282,8 +282,11 @@ def test_fps_refuses_more_than_the_limit_before_launching(monkeypatch):
 
     lib = _FakeLib()
     large = []
-    lib.houv_fps_large = lambda pts, b, n, k, work, out, stream: (
+    lib.houv_fps_large_max_points = lambda: 65536
+    lib.houv_fps_large = lambda pts, b, n, k, c, warps, per, out, stream: (
         large.append((b, n, k)) or 0)
+    monkeypatch.setattr(ts, "_held", lambda c, warps, per, index: 16)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ts, "check_on", lambda dev, *tensors: None)
     monkeypatch.setattr(kernels, "load", lambda: lib)
